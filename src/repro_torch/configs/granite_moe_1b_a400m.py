@@ -1,0 +1,20 @@
+"""granite-moe-1b-a400m: 24L d1024 16H (GQA kv=8) d_ff=512/expert, MoE 32e top-8.
+
+[hf:ibm-granite/granite-3.0-1b-a400m-base; hf]
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-moe-1b-a400m",
+    family="moe",
+    n_layers=24,
+    d_model=1024,
+    n_heads=16,
+    n_kv_heads=8,
+    d_ff=512,
+    moe_d_ff=512,
+    vocab=49155,
+    n_experts=32,
+    top_k=8,
+    rope_theta=10_000.0,
+)

@@ -1,0 +1,18 @@
+"""minitron-4b: 32L d3072 24H (GQA kv=8) d_ff=9216 vocab=256000. Pruned nemotron.
+
+[arXiv:2407.14679; hf]
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="minitron-4b",
+    family="dense",
+    n_layers=32,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    d_ff=9216,
+    vocab=256000,
+    rope_theta=10_000.0,
+    act="gelu",
+)

@@ -1,0 +1,199 @@
+"""Block stack of the dense ATTN family (PyTorch port of
+``repro.models.transformer``).
+
+The stack is ``n_periods`` repetitions of a period of block kinds (see
+``ArchConfig.period()``); parameters and decode states are stacked per
+period position with a leading ``n_per`` axis, as in the JAX package, and
+the periods run as a Python loop over that axis.
+
+Only the ATTN block kind is ported.  The other kinds (MoE, Mamba, shared
+attention, mLSTM, sLSTM, cross-attention, encoder-decoder) raise
+``NotImplementedError`` until the ROADMAP's model-families slice ports
+them.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import base as cb
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (dense_init, init_mlp, matmul, mlp,
+                                       rms_norm)
+from repro_torch.weights import tree_map
+
+
+def _unported(kind: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"block kind {kind!r} is not ported to repro_torch yet (ROADMAP, "
+        "'The port: slices', slice (d): the MoE, hybrid, xLSTM, audio and "
+        "VLM blocks)")
+
+
+# ---------------------------------------------------------------------------
+# Per-kind block init
+# ---------------------------------------------------------------------------
+def init_block(gen, kind: str, cfg, device="cuda") -> Dict[str, Any]:
+    dtype = cfg.torch_dtype()
+    dev = resolve_device(device)
+    if kind != cb.ATTN:
+        raise _unported(kind)
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=dev)
+    return {"ln1": ones(), "attn": attn.init_attention(gen, cfg, device=dev),
+            "ln2": ones(),
+            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                            device=dev)}
+
+
+def init_block_state(kind: str, cfg, batch: int, max_len: int, dtype,
+                     window: int = 0, device="cuda"):
+    """Decode-time state for one block (unstacked)."""
+    if kind != cb.ATTN:
+        raise _unported(kind)
+    return attn.init_kv_cache(cfg, batch, max_len, dtype, window=window,
+                              device=device)
+
+
+# ---------------------------------------------------------------------------
+# Per-kind block apply
+# ---------------------------------------------------------------------------
+def apply_block_seq(kind: str, p, x, cfg, ctx):
+    """x: (B,S,d) -> (x', aux_loss, state).
+
+    ``state`` is the decode-time KV handover when ``ctx["collect_state"]``
+    is set; otherwise None.
+    """
+    if kind != cb.ATTN:
+        raise _unported(kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h, (k, v) = attn.attention(
+        p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg,
+        ctx["positions"], causal=True, window=ctx.get("window", 0))
+    state = {"k": k, "v": v} if ctx.get("collect_state", False) else None
+    x = x + h
+    h = mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), cfg.act, cfg)
+    return x + h, aux, state
+
+
+def apply_block_decode(kind: str, p, x, state, cfg, ctx):
+    """x: (B,1,d) -> (x', state); the KV cache in ``state`` is updated in
+    place."""
+    if kind != cb.ATTN:
+        raise _unported(kind)
+    h, state = attn.decode_attention(
+        p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), state, cfg,
+        ctx["positions"], window=ctx.get("window", 0))
+    x = x + h
+    h = mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), cfg.act, cfg)
+    return x + h, state
+
+
+# ---------------------------------------------------------------------------
+# Whole-model init
+# ---------------------------------------------------------------------------
+def _stack(trees):
+    """Stack a list of identically-shaped dict trees along a new axis 0."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def init_params(gen: Optional[torch.Generator], cfg,
+                device="cuda") -> Dict[str, Any]:
+    """Random parameters drawn from ``gen`` (on its device, then moved to
+    ``device``).  ``device="meta"`` builds shapes only, with no generator."""
+    dev = resolve_device(device)
+    dtype = cfg.torch_dtype()
+    period = cfg.period()
+    n_per = cfg.n_periods()
+    params: Dict[str, Any] = {
+        "embed": dense_init(gen, (cfg.vocab, cfg.d_model), dtype, scale=0.02,
+                            device=dev),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dtype,
+                                       device=dev)
+    params["blocks"] = [
+        _stack([init_block(gen, kind, cfg, device=dev) for _ in range(n_per)])
+        for kind in period]
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (prefill)
+# ---------------------------------------------------------------------------
+def _head(params, cfg):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def forward(params, tokens, cfg, ctx: Optional[Dict[str, Any]] = None):
+    """tokens: (B,S) integer -> (logits (B,S,V), aux_loss, states).
+
+    ``states`` is a list of stacked per-period-position decode states when
+    ``ctx["collect_state"]`` (prefill), else None.  With
+    ``ctx["return_hidden"]`` the final-norm hidden states come back in
+    place of the logits.
+    """
+    ctx = dict(ctx or {})
+    s = tokens.shape[1]
+    x = params["embed"][tokens.long()]
+    ctx.setdefault("positions",
+                   torch.arange(s, device=tokens.device)[None, :])
+    collect = ctx.get("collect_state", False)
+    period = cfg.period()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    per_period = []
+    for i in range(cfg.n_periods()):
+        states = []
+        for kind, stacked in zip(period, params["blocks"]):
+            p = tree_map(lambda a: a[i], stacked)
+            x, a, st = apply_block_seq(kind, p, x, cfg, ctx)
+            aux = aux + a
+            states.append(st)
+        per_period.append(states)
+    states = ([_stack([pp[j] for pp in per_period])
+               for j in range(len(period))] if collect else None)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    if ctx.get("return_hidden"):
+        return x, aux, states
+    return matmul(x, _head(params, cfg)), aux, states
+
+
+# ---------------------------------------------------------------------------
+# Decode step
+# ---------------------------------------------------------------------------
+def init_decode_state(cfg, batch: int, max_len: int, dtype, window: int = 0,
+                      device="cuda"):
+    """Stacked per-period-position decode state (tree of (n_per, ...))."""
+    n_per = cfg.n_periods()
+    states = []
+    for kind in cfg.period():
+        one = init_block_state(kind, cfg, batch, max_len, dtype,
+                               window=window, device=device)
+        states.append(tree_map(
+            lambda a: a[None].repeat(n_per, *([1] * a.ndim)), one))
+    return states
+
+
+def decode_step(params, tokens, states, positions, cfg,
+                ctx: Optional[Dict[str, Any]] = None):
+    """One-token decode. tokens: (B,1); positions: (B,1) absolute.
+
+    states: output of ``init_decode_state`` (possibly filled by prefill);
+    updated in place.  Returns (logits (B,1,V), states).
+    """
+    ctx = dict(ctx or {})
+    ctx["positions"] = positions
+    x = params["embed"][tokens.long()]
+    period = cfg.period()
+    for i in range(cfg.n_periods()):
+        for kind, stacked, st in zip(period, params["blocks"], states):
+            p = tree_map(lambda a: a[i], stacked)
+            x, _ = apply_block_decode(kind, p, x,
+                                      tree_map(lambda a: a[i], st), cfg, ctx)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return matmul(x, _head(params, cfg)), states

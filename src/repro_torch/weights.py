@@ -1,0 +1,78 @@
+"""Parameters across the package boundary: numpy pytrees <-> torch dicts.
+
+The JAX package's params are nested dicts/lists of arrays; handed over as
+numpy (``jax.tree.map(np.asarray, params)``) they become the port's dict of
+tensors with the same keys and the same stacked layout (``embed``,
+``final_norm``, ``blocks[i][...]`` with the leading ``n_per`` axis).
+bfloat16 arrays cross as raw 16-bit words, so no value is rounded.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+
+def _leaf_to_torch(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree: Any, device="cuda") -> Any:
+    """Convert a pytree of numpy arrays (dicts, lists, tuples, None) into
+    the same structure of tensors on ``device``."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(conv(v) for v in x)
+        return _leaf_to_torch(x, dev)
+    return conv(tree)
+
+
+def params_to_numpy(tree: Any, bf16_dtype: Optional[np.dtype] = None) -> Any:
+    """The reverse of ``params_from_numpy``.  bfloat16 tensors come back
+    as their raw 16-bit words viewed as ``bf16_dtype`` (the caller's numpy
+    bfloat16 type); without one they stay ``uint16`` words."""
+    def conv(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(conv(v) for v in x)
+        t = x.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            words = t.view(torch.int16).numpy().view(np.uint16)
+            return words.view(bf16_dtype) if bf16_dtype is not None \
+                else words
+        return t.numpy()
+    return conv(tree)
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """Apply ``fn`` to every tensor leaf of a dict/list/tuple tree."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree: Any) -> list:
+    """Tensor leaves of a dict/list/tuple tree, in insertion order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
