@@ -13,19 +13,24 @@ non-zero before printing any result):
 2. Build the hand-written flash-attention kernel from
    ``src/repro_torch/kernels/flash_attention/csrc`` with nvcc.
 3. Hold the kernel against its plain PyTorch version on the card at
-   llama3.2-1b's prefill shapes (B=1, H=32, KV=8, hd=64; S 128, 256, 512,
-   1024 and a ragged 1000; a 256-token window; hd=80 through the padding
-   wrapper; non-causal; bf16 and f32) and time the kernel, the plain
+   llama3.2-1b's prefill shapes (H=32, KV=8, hd=64; B=1 at S 128, 256,
+   512, 1024 and a ragged 1000, and B=4 at S=512 as the fixed-batch
+   serve runs it; a 256-token window; hd=80 through the padding wrapper;
+   non-causal; bf16 and f32) and time the kernel, the plain
    version and ``torch.nn.functional.scaled_dot_product_attention`` (the
    library yardstick, which the port itself never calls).
 4. Serve full-width llama3.2-1b in bf16 (random weights from a seed):
    ``ContinuousServeLoop`` (8 slots, max_len 2048) under
    ``run_open_loop`` over 16 Poisson-arrival requests (prompts 256-1024
    tokens, 16-32 new tokens), then one ``ServeLoop`` batch of 4 equal
-   prompts under ``run_fixed_batch``.  Checks that every request finished,
-   that the kernel ran exactly (prefills x 16 layers) times, and that one
-   request's prefill logits match the plain attention path on the card.
-   Then profiles one 1024-token prefill and 8-lane decode steps
+   prompts under ``run_fixed_batch``.  Every shape of the two drives is
+   run once before anything else on the card, right after the build
+   (``first-call`` lines: what a freshly started server pays), so that
+   the drives time warm serving.  Checks that every request finished, that the kernel ran
+   exactly (prefills x 16 layers) times, and that the prefill logits of
+   three requests through the kernel are no further (within 1.25 times)
+   from an f32 forward of the same weights than the plain path's.  Then
+   profiles one 1024-token prefill and 8-lane decode steps
    (device time by kernel, the device's idle share).
 5. Prints the ``kernels`` JSON line and, last, the device JSON line.
 """
@@ -46,6 +51,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense bf16 tensor cores
               "float32": 67e12}    # f32 on the CUDA cores (TF32 off)
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+MAX_LEN = 2048                     # the serve loops' decode buffer
 
 
 def _sh(cmd):
@@ -88,19 +94,22 @@ def _bound(b, h, kv, s, hd, causal, window, dtype_name, esize):
 
 def check_kernel(torch, fa_ops, fa_ref, F):
     """Phase 3: kernel vs plain version at the serve path's shapes."""
-    b, h, kv = 1, 32, 8
-    cases = [  # (S, hd, causal, window, dtype)
-        (128, 64, True, 0, "bfloat16"), (128, 64, True, 0, "float32"),
-        (256, 64, True, 0, "bfloat16"), (512, 64, True, 0, "bfloat16"),
-        (1024, 64, True, 0, "bfloat16"), (1024, 64, True, 0, "float32"),
-        (1000, 64, True, 0, "bfloat16"), (1000, 64, True, 0, "float32"),
-        (1024, 64, True, 256, "bfloat16"), (1024, 64, True, 256, "float32"),
-        (1024, 80, True, 0, "bfloat16"), (1024, 80, True, 0, "float32"),
-        (1000, 64, False, 0, "float32"),
+    h, kv = 32, 8
+    cases = [  # (B, S, hd, causal, window, dtype)
+        (1, 128, 64, True, 0, "bfloat16"), (1, 128, 64, True, 0, "float32"),
+        (1, 256, 64, True, 0, "bfloat16"), (1, 512, 64, True, 0, "bfloat16"),
+        (1, 1024, 64, True, 0, "bfloat16"), (1, 1024, 64, True, 0, "float32"),
+        (1, 1000, 64, True, 0, "bfloat16"), (1, 1000, 64, True, 0, "float32"),
+        (1, 1024, 64, True, 256, "bfloat16"),
+        (1, 1024, 64, True, 256, "float32"),
+        (1, 1024, 80, True, 0, "bfloat16"), (1, 1024, 80, True, 0, "float32"),
+        (1, 1000, 64, False, 0, "float32"),
+        # the fixed-batch serve's prefill: 4 prompts of 512 tokens
+        (4, 512, 64, True, 0, "bfloat16"), (4, 512, 64, True, 0, "float32"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for s, hd, causal, window, dname in cases:
+    for b, s, hd, causal, window, dname in cases:
         dt = getattr(torch, dname)
         q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((b, s, kv, hd), generator=gen, device="cuda").to(dt)
@@ -113,7 +122,7 @@ def check_kernel(torch, fa_ops, fa_ref, F):
         err = (out.float() - ref.float()).abs().max().item()
         ok = bool(torch.isfinite(out.float()).all()) and torch.allclose(
             out.float(), ref.float(), atol=TOL[dname], rtol=TOL[dname])
-        row = {"S": s, "hd": hd, "causal": causal, "window": window,
+        row = {"B": b, "S": s, "hd": hd, "causal": causal, "window": window,
                "dtype": dname, "max_abs_err": err, "tol": TOL[dname],
                "ok": ok}
         if hd in (64, 128):
@@ -146,6 +155,69 @@ def check_kernel(torch, fa_ops, fa_ref, F):
     return rows
 
 
+def warm_up(torch, cfg, params, max_len):
+    """Run every shape of the timed drives once before them, so that the
+    serve numbers measure serving and not first use: the B=1 ragged
+    prefill at the 256, 512 and 1024 buckets and an 8-lane decode step,
+    then the 4 x 512 fixed-batch prefill and a 4-lane decode step.  Each
+    first call runs under ``torch.profiler`` (its own start-up is paid on
+    an empty region before) and is then repeated without it; a
+    ``first-call`` line gives both wall times, the first call's device
+    time, and its host operations by self time, which is where a one-time
+    cost shows."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from repro_torch.runtime.serve_loop import (ContinuousServeLoop, Request,
+                                                ServeLoop)
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with tprofile(activities=acts):
+        torch.ones(1, device=params["embed"].device).add_(1)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(3)
+
+    def req(n, new=4):
+        return Request(rid=0, prompt=rng.integers(0, cfg.vocab, n,
+                                                  dtype=np.int32),
+                       max_new_tokens=new)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def first_and_warm(name, fn):
+        with tprofile(activities=acts) as prof:
+            first = timed(fn)
+        device_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                        if e.device_type == DeviceType.CUDA)
+        host = sorted((e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CPU),
+                      key=lambda e: e.self_cpu_time_total, reverse=True)
+        warm = timed(fn)
+        row = {"call": name, "first_ms": first * 1e3, "warm_ms": warm * 1e3,
+               "first_device_ms": device_us * 1e-3,
+               "first_host_self_ms": [
+                   {"op": e.key[:60], "ms": e.self_cpu_time_total * 1e-3,
+                    "calls": e.count} for e in host[:6]]}
+        print(f"first-call {json.dumps(row)}", flush=True)
+
+    loop = ContinuousServeLoop(cfg, params, slots=8, max_len=max_len)
+    for n in (256, 512, 1024):
+        first_and_warm(f"prefill_1x{n}", lambda: loop.admit(req(n)))
+    first_and_warm("decode_step_8_lanes", loop.decode_step)
+    del loop
+    fixed = ServeLoop(cfg, params, max_len=max_len)
+    first_and_warm("fixed_prefill_4x512",
+                   lambda: fixed.start([req(512) for _ in range(4)]))
+    first_and_warm("fixed_decode_step_4_lanes", fixed.decode_step)
+    del fixed
+
+
 def serve(torch, cfg, params, n_layers):
     """Phase 4: the port's main serving path at full width."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -154,7 +226,7 @@ def serve(torch, cfg, params, n_layers):
                                                run_open_loop)
     from repro_torch.runtime.serve_loop import ContinuousServeLoop, ServeLoop
 
-    loop = ContinuousServeLoop(cfg, params, slots=8, max_len=2048)
+    loop = ContinuousServeLoop(cfg, params, slots=8, max_len=MAX_LEN)
     prefill_s, step_s = [], []
     orig_admit, orig_step = loop.admit, loop.decode_step
 
@@ -204,7 +276,7 @@ def serve(torch, cfg, params, n_layers):
     print(f"serve-continuous {json.dumps(cont)}", flush=True)
     del loop
 
-    fixed_loop = ServeLoop(cfg, params, max_len=2048)
+    fixed_loop = ServeLoop(cfg, params, max_len=MAX_LEN)
     fstart_s, fstep_s = [], []
     orig_start, orig_fstep = fixed_loop.start, fixed_loop.decode_step
 
@@ -246,36 +318,66 @@ def serve(torch, cfg, params, n_layers):
     return reqs, launches_cont + launches_fixed
 
 
-def check_prefill(torch, cfg, params, prompt):
-    """One request's prefill logits through the kernel vs the plain
-    attention path, both on the card."""
+def check_prefill(torch, cfg, params, reqs, max_len):
+    """Prefill logits through the kernel and through the plain attention
+    path, both in bf16 on the card, each held against an f32 forward of
+    the same weights on the plain path (the witness).  Runs the serve
+    path's own prefill (``make_ragged_prefill``) at the bucket the
+    continuous loop gave each prompt, over up to three prompts of
+    distinct buckets.  Passes when, for every prompt, the kernel path is
+    within the bf16 tolerance of the witness (normwise) and no further
+    from it than 1.25 times the plain path's distance."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import attention as attn
-    from repro_torch.models import model as model_mod
+    from repro_torch.runtime.serve_loop import _bucket, make_ragged_prefill
+    from repro_torch.weights import tree_map
 
-    prefill = model_mod.make_prefill_step(cfg)
-    tokens = torch.as_tensor(prompt[None], dtype=torch.int32,
+    with_bucket = [(r, min(max_len, _bucket(len(r.prompt)))) for r in reqs]
+    picked, seen = [], set()
+    for r, bucket in with_bucket:
+        if bucket not in seen:
+            seen.add(bucket)
+            picked.append((r, bucket))
+    rids = {r.rid for r, _ in picked}
+    picked += [(r, b) for r, b in with_bucket if r.rid not in rids]
+    picked = picked[:3]
+    prefill = make_ragged_prefill(cfg)
+    params32 = tree_map(lambda t: t.float(), params)
+    out = []
+    for r, bucket in picked:
+        plen = len(r.prompt)
+        tokens = torch.zeros((1, bucket), dtype=torch.int32,
                              device=params["embed"].device)
-    with torch.no_grad():
-        lk, _ = prefill(params, {"tokens": tokens})
+        tokens[0, :plen] = torch.as_tensor(r.prompt, device=tokens.device)
+        lk, _ = prefill(params, {"tokens": tokens}, plen)
         before = fa_ops.launches
         with mock.patch.object(attn, "causal_attention",
                                attn.plain_causal_attention):
-            lp, _ = prefill(params, {"tokens": tokens})
+            lp, _ = prefill(params, {"tokens": tokens}, plen)
+            lw, _ = prefill(params32, {"tokens": tokens}, plen)
         assert fa_ops.launches == before, "plain path launched the kernel"
-    torch.cuda.synchronize()
-    assert lk.shape == (1, 1, cfg.vocab) and bool(torch.isfinite(lk).all())
-    # Normwise: the two paths round to bf16 at different places in each of
-    # the 16 layers, so single logits drift by more than one layer's error.
-    rel = ((lk - lp).norm() / lp.norm()).item()
-    res = {"S": len(prompt), "rel_l2_err": rel,
-           "max_abs_err": (lk - lp).abs().max().item(),
-           "logit_absmax": lp.abs().max().item(),
-           "argmax_equal": bool(lk.argmax() == lp.argmax()),
-           "tol": TOL["bfloat16"]}
-    print(f"prefill-check {json.dumps(res)}", flush=True)
-    assert rel <= TOL["bfloat16"] and res["argmax_equal"], res
-    return res
+        torch.cuda.synchronize()
+        assert lk.shape == (1, 1, cfg.vocab)
+        assert bool(torch.isfinite(lk).all() & torch.isfinite(lw).all())
+
+        def rel(a, b):
+            return ((a - b).norm() / b.norm()).item()
+        res = {"S": plen, "bucket": bucket,
+               "kernel_vs_f32": rel(lk, lw), "plain_vs_f32": rel(lp, lw),
+               "kernel_vs_plain": rel(lk, lp),
+               "kernel_max_abs_vs_f32": (lk - lw).abs().max().item(),
+               "plain_max_abs_vs_f32": (lp - lw).abs().max().item(),
+               "logit_absmax": lw.abs().max().item(),
+               "argmax_kernel_plain_f32": [int(x.argmax())
+                                           for x in (lk, lp, lw)],
+               "tol": TOL["bfloat16"]}
+        print(f"prefill-check {json.dumps(res)}", flush=True)
+        assert res["kernel_vs_f32"] <= TOL["bfloat16"], res
+        assert res["kernel_vs_f32"] <= 1.25 * res["plain_vs_f32"], res
+        out.append(res)
+    del params32
+    torch.cuda.empty_cache()
+    return out
 
 
 def profile(torch, cfg, params):
@@ -288,7 +390,7 @@ def profile(torch, cfg, params):
     from repro_torch.runtime.serve_loop import (ContinuousServeLoop, Request,
                                                 ServeLoop)
 
-    loop = ContinuousServeLoop(cfg, params, slots=8, max_len=2048)
+    loop = ContinuousServeLoop(cfg, params, slots=8, max_len=MAX_LEN)
     rng = np.random.default_rng(7)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, 1024,
                                                dtype=np.int32),
@@ -324,7 +426,7 @@ def profile(torch, cfg, params):
     phase("decode_step_8_lanes",
           lambda: sum(1 for _ in range(10) if loop.decode_step()))
     del loop
-    fixed = ServeLoop(cfg, params, max_len=2048)
+    fixed = ServeLoop(cfg, params, max_len=MAX_LEN)
     batch = [Request(rid=i, prompt=r.prompt[:512], max_new_tokens=4)
              for i, r in enumerate(reqs[:4])]
     phase("fixed_prefill_4x512", lambda: (fixed.start(batch), 1)[1])
@@ -368,21 +470,25 @@ def main() -> int:
     print(f"build flash_attention {time.perf_counter() - t0:.1f}s "
           f"{json.dumps(ptxas)}", flush=True)
 
-    # 3. kernel vs plain version
-    rows = check_kernel(torch, fa_ops, fa_ref, F)
-    bad = [r for r in rows if not r["ok"]]
-    assert not bad, bad
-    main_row = next(r for r in rows if r["S"] == 1024 and r["hd"] == 64
-                    and r["window"] == 0 and r["causal"]
-                    and r["dtype"] == "bfloat16")
-
-    # 4. serve full-width llama3.2-1b
+    # first use of every serve shape, before anything else runs on the card
     cfg = get_config("llama3.2-1b")
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.no_grad():
         params = tf.init_params(gen, cfg, device="cuda")
+        warm_up(torch, cfg, params, MAX_LEN)
+
+    # 3. kernel vs plain version
+    rows = check_kernel(torch, fa_ops, fa_ref, F)
+    bad = [r for r in rows if not r["ok"]]
+    assert not bad, bad
+    main_row = next(r for r in rows if r["B"] == 1 and r["S"] == 1024
+                    and r["hd"] == 64 and r["window"] == 0 and r["causal"]
+                    and r["dtype"] == "bfloat16")
+
+    # 4. serve full-width llama3.2-1b
+    with torch.no_grad():
         reqs, launches = serve(torch, cfg, params, cfg.n_layers)
-        check_prefill(torch, cfg, params, reqs[0].prompt)
+        check_prefill(torch, cfg, params, reqs, MAX_LEN)
         profile(torch, cfg, params)
 
     # 5. results

@@ -20,14 +20,15 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,window,hd", [(128, 0, 64), (1000, 0, 64),
-                                         (1024, 256, 64), (300, 0, 80)])
+@pytest.mark.parametrize("b,s,window,hd", [(1, 128, 0, 64), (1, 1000, 0, 64),
+                                           (1, 1024, 256, 64), (1, 300, 0, 80),
+                                           (4, 512, 0, 64)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_kernel_matches_plain(cuda_device, s, window, hd, dtype):
+def test_cuda_kernel_matches_plain(cuda_device, b, s, window, hd, dtype):
     tol = {"float32": 2e-5, "bfloat16": 2e-2}[dtype]
     gen = torch.Generator(device=cuda_device).manual_seed(s)
     dt = getattr(torch, dtype)
-    q, k, v = (torch.randn((1, s, n, hd), generator=gen,
+    q, k, v = (torch.randn((b, s, n, hd), generator=gen,
                            device=cuda_device).to(dt) for n in (32, 8, 8))
     before = TO.launches
     out = TO.flash_attention(q, k, v, causal=True, window=window)
