@@ -10,8 +10,8 @@ non-zero before printing any result):
 
 1. Environment: the card's name and power limit (``nvidia-smi``), torch,
    CUDA, triton and nvcc versions.  TF32 is switched off.
-2. Build the hand-written flash-attention kernel from
-   ``src/repro_torch/kernels/flash_attention/csrc`` with nvcc.
+2. Build the hand-written kernels from ``src/repro_torch/kernels/*/csrc``
+   with nvcc (``build`` lines: time, ptxas registers and spills).
 3. Hold the kernel against its plain PyTorch version on the card at
    llama3.2-1b's prefill shapes (H=32, KV=8, hd=64; B=1 at S 128, 256,
    512, 1024 and a ragged 1000, and B=4 at S=512 as the fixed-batch
@@ -32,7 +32,24 @@ non-zero before printing any result):
    from an f32 forward of the same weights than the plain path's.  Then
    profiles one 1024-token prefill and 8-lane decode steps
    (device time by kernel, the device's idle share).
-5. Prints the ``kernels`` JSON line and, last, the device JSON line.
+5. Training (slice 2).  Checks one full-width micro-batch (2 x 1024
+   tokens): loss and flat gradient through the kernel path and the plain
+   path against an f32 witness (``train-check``); sends one step's four
+   per-rank gradients through every sync schedule (``sync-check``:
+   compressed at frac 1.0 bit-identical to hierarchical, flat and ring
+   within 1e-6); then trains full-width llama3.2-1b with
+   ``FaabricTrainRuntime``: 4 virtual ranks in 2 pods, compressed sync at
+   frac 0.05, global batch 8 x 1024, 12 steps (``train``: every loss,
+   step time p50/p99, tokens/s, peak memory, launches per kernel), times
+   one more step's parts (``train-anatomy``) and profiles another.
+6. Prints the ``kernels`` JSON line and, last, the device JSON line.
+
+Besides the forward kernel, phase 2 builds the flash-attention backward
+kernel and the collective_codec kernel (one nvcc each, all started
+together), and phase 3 holds each against its plain version: the
+backward's dq, dk, dv against autograd of the plain attention
+(``kernel-check bwd``), the codec bit for bit up to the main path's launch
+over four full-width shards (``kernel-check codec``).
 """
 from __future__ import annotations
 
@@ -106,6 +123,8 @@ def check_kernel(torch, fa_ops, fa_ref, F):
         (1, 1000, 64, False, 0, "float32"),
         # the fixed-batch serve's prefill: 4 prompts of 512 tokens
         (4, 512, 64, True, 0, "bfloat16"), (4, 512, 64, True, 0, "float32"),
+        # the training micro-batch: 2 sequences of 1024 tokens
+        (2, 1024, 64, True, 0, "bfloat16"), (2, 1024, 64, True, 0, "float32"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -380,12 +399,59 @@ def check_prefill(torch, cfg, params, reqs, max_len):
     return out
 
 
+# Device kernels by kind, matched on the kernel's name (first match wins).
+KERNEL_KINDS = [
+    ("flash_attention", ("fa_fwd_kernel",)),
+    ("flash_attention_bwd", ("fa_bwd_",)),
+    ("collective_codec", ("cc_select",)),
+    ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
+    ("copy_fill", ("Memcpy", "Memset", "copy_kernel", "fill_kernel")),
+    ("reduce", ("reduce_kernel",)),
+    ("index_scatter", ("index", "scatter", "gather", "embedding")),
+    ("elementwise", ("elementwise", "softmax", "CatArray")),
+]
+
+
+def profile_phase(torch, name, fn):
+    """Run ``fn`` (which returns its repeat count) under torch.profiler and
+    print device time by kernel, the device's busy time and idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}            # device activity only (kernels, copies)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, calls = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
+    rows = [(us, k, c) for k, (us, c) in kernels.items()]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) * 1e-6
+    by_kind = {}
+    for us, k, c in rows:
+        kind = next((kind for kind, keys in KERNEL_KINDS
+                     if any(key in k for key in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us * 1e-3 / n
+    out = {"phase": name, "repeats": n, "wall_ms": wall * 1e3 / n,
+           "device_ms": busy * 1e3 / n,
+           "idle_share": 1.0 - busy / wall if rows else None,
+           "device_events": sum(r[2] for r in rows) // n,
+           "by_kind_ms": by_kind,
+           "top": [{"kernel": k[:60], "ms": d * 1e-3 / n,
+                    "calls": c // n} for d, k, c in rows[:10]]}
+    print(f"profile {json.dumps(out)}", flush=True)
+    return out
+
+
 def profile(torch, cfg, params):
     """Where the time goes: device time by kernel and the device's idle
     share over one 1024-token prefill and over 8-lane decode steps."""
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
 
     from repro_torch.runtime.serve_loop import (ContinuousServeLoop, Request,
                                                 ServeLoop)
@@ -400,36 +466,434 @@ def profile(torch, cfg, params):
     loop.decode_step()
     torch.cuda.synchronize()
 
-    def phase(name, fn):
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            n = fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kernels = {}            # device activity only (kernels, copies)
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                us, calls = kernels.get(e.name, (0.0, 0))
-                kernels[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
-        rows = [(us, k, c) for k, (us, c) in kernels.items()]
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows) * 1e-6
-        out = {"phase": name, "repeats": n, "wall_ms": wall * 1e3 / n,
-               "device_ms": busy * 1e3 / n,
-               "idle_share": 1.0 - busy / wall if rows else None,
-               "top": [{"kernel": k[:60], "ms": d * 1e-3 / n,
-                        "calls": c // n} for d, k, c in rows[:8]]}
-        print(f"profile {json.dumps(out)}", flush=True)
-
-    phase("prefill_1024", lambda: (loop.admit(reqs[7]), 1)[1])
-    phase("decode_step_8_lanes",
-          lambda: sum(1 for _ in range(10) if loop.decode_step()))
+    profile_phase(torch, "prefill_1024",
+                  lambda: (loop.admit(reqs[7]), 1)[1])
+    profile_phase(torch, "decode_step_8_lanes",
+                  lambda: sum(1 for _ in range(10) if loop.decode_step()))
     del loop
     fixed = ServeLoop(cfg, params, max_len=MAX_LEN)
     batch = [Request(rid=i, prompt=r.prompt[:512], max_new_tokens=4)
              for i, r in enumerate(reqs[:4])]
-    phase("fixed_prefill_4x512", lambda: (fixed.start(batch), 1)[1])
+    profile_phase(torch, "fixed_prefill_4x512",
+                  lambda: (fixed.start(batch), 1)[1])
+
+
+# Backward tolerances (atol = rtol): the f32 sums run in another order
+# over up to S x G terms (f32); bf16 adds the rounding of O inside
+# D = rowsum(dO * O) and of the outputs.
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# train-check: bf16 loss and flat gradient against an f32 witness of the
+# same weights (relative), and the kernel path's distance from it at most
+# 1.25 times the plain path's.
+TRAIN_TOL = {"loss": 1e-2, "grad": 0.1}
+SHARD = 617_907_200        # one full-width shard: 1,235,814,400 / 2 data
+GANG = {"ranks": 4, "pods": 2, "global_batch": 8, "seq_len": 1024,
+        "frac": 0.05, "steps": 12, "lr": 1e-3}
+
+
+def build_all(torch):
+    """Build every kernel source with nvcc, one process each, all started
+    together; print each build's time and ptxas registers and spills."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.collective_codec import ops as co
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    src = os.path.join(REPO, "src", "repro_torch", "kernels")
+    jobs = {"flash_attention": os.path.join(
+                src, "flash_attention", "csrc", "flash_attention.cu"),
+            "flash_attention_bwd": os.path.join(
+                src, "flash_attention", "csrc", "flash_attention_bwd.cu"),
+            "collective_codec": os.path.join(
+                src, "collective_codec", "csrc", "collective_codec.cu")}
+
+    def one(name):
+        t0 = time.perf_counter()
+        _build.build(name, jobs[name])
+        return time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        secs = dict(zip(jobs, pool.map(one, jobs)))
+    fa_ops.fwd_lib()
+    fa_ops.bwd_lib()
+    co.lib()
+    for name in jobs:
+        ptxas = [ln.strip() for ln in _build.build_logs.get(name, "")
+                 .splitlines() if "registers" in ln or "spill" in ln]
+        print(f"build {name} {secs[name]:.1f}s {json.dumps(ptxas)}",
+              flush=True)
+    print(f"build all {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def check_codec(torch, co, cr):
+    """The codec kernel against its plain version, bit for bit: small
+    shapes of the JAX tests, one full-width shard at frac 0.05
+    (30,895,360 x 20) and at frac 1.0 (617,907,200 x 1), and the main
+    path's one launch over the 4 shards of a step (123,581,440 x 20).
+    Times: kernel, plain version, and ``torch.max(x.abs(), dim=1)``, the
+    nearest PyTorch call (partial: no column of the first maximum's
+    value, no residual)."""
+    k_shard = co.codec_geometry(SHARD, GANG["frac"])[0]
+    cases = [(8, 16), (24, 33), (16, 1), (1, 64), (k_shard, 20),
+             (SHARD, 1), (GANG["ranks"] * k_shard, 20)]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for k, m in cases:
+        x = torch.randn((k, m), generator=gen, device="cuda")
+        x[:min(k, 4096)] = torch.round(x[:min(k, 4096)] * 2)   # ties
+        vals, col, resid = co.chunk_select(x)
+        exact = True
+        step = max(1, k // 8)
+        for lo in range(0, k, step):            # the plain version in parts
+            rv, rc, rr = cr.chunk_select_ref(x[lo:lo + step])
+            exact &= bool(torch.equal(vals[lo:lo + step], rv)
+                          & torch.equal(col[lo:lo + step], rc)
+                          & torch.equal(resid[lo:lo + step], rr))
+            del rv, rc, rr
+        torch.cuda.synchronize()
+        del vals, col, resid
+        big = k * m > 1 << 20
+        ms = _time_ms(lambda: co.chunk_select(x), iters=5 if big else 20)
+        plain_ms = _time_ms(lambda: cr.chunk_select_ref(x),
+                            iters=2 if big else 5, warmup=1)
+        partial_ms = _time_ms(lambda: torch.max(x.abs(), dim=1),
+                              iters=5 if big else 20)
+        nbytes = 8 * k * m + 8 * k
+        row = {"rows": k, "m": m, "bit_exact": exact, "max_abs_err": 0.0
+               if exact else None, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": None, "nearest_call_ms_partial": partial_ms,
+               "nearest_call": "torch.max(x.abs(), dim=1)",
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "gbytes_per_s": nbytes / ms * 1e-6}
+        rows.append(row)
+        print(f"kernel-check codec {json.dumps(row)}", flush=True)
+        del x
+        torch.cuda.empty_cache()
+    co.reset_launches()
+    return rows
+
+
+def _bwd_bound(b, h, kv, s, hd, window, dtype_name, esize):
+    pairs = sum(qi + 1 - (max(0, qi - window + 1) if window else 0)
+                for qi in range(s))
+    flops = 10.0 * b * h * pairs * hd
+    nbytes = (4 * b * h * s * hd + 4 * b * kv * s * hd) * esize \
+        + 4 * b * h * s
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def check_backward(torch, fa_ops, fa_ref, F):
+    """dq, dk, dv of the backward kernel against autograd of the plain
+    version, at the training shape (B=2, S=1024) and the serve checks'
+    shapes (ragged S=1000, window 256, hd=80 padded, B=4 x 512), bf16 and
+    f32.  Times (backward only, inputs in the kernel layout): the kernel,
+    autograd of the plain version, and the backward of
+    ``scaled_dot_product_attention`` (the library yardstick)."""
+    h, kv = 32, 8
+    cases = [(2, 1024, 64, 0), (1, 1000, 64, 0), (1, 1024, 64, 256),
+             (1, 1024, 80, 0), (4, 512, 64, 0)]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for b, s, hd, window in cases:
+        for dname in ("bfloat16", "float32"):
+            dt = getattr(torch, dname)
+            tol = BWD_TOL[dname]
+            q, k, v = (torch.randn((b, s, n, hd), generator=gen,
+                                   device="cuda").to(dt).requires_grad_()
+                       for n in (h, kv, kv))
+            dout = torch.randn((b, s, h, hd), generator=gen,
+                               device="cuda").to(dt)
+            out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+            grads = torch.autograd.grad(out, (q, k, v), dout)
+            ref = fa_ref.attention_ref(*(x.transpose(1, 2) for x in
+                                         (q, k, v)), causal=True,
+                                       window=window).transpose(1, 2)
+            rgrads = torch.autograd.grad(ref, (q, k, v), dout)
+            torch.cuda.synchronize()
+            errs = [(g.float() - r.float()).abs().max().item()
+                    for g, r in zip(grads, rgrads)]
+            ok = all(bool(torch.isfinite(g.float()).all()) and
+                     torch.allclose(g.float(), r.float(), atol=tol, rtol=tol)
+                     for g, r in zip(grads, rgrads))
+            row = {"B": b, "S": s, "hd": hd, "window": window,
+                   "dtype": dname, "max_abs_err_dq_dk_dv": errs,
+                   "max_abs_err": max(errs), "tol": tol, "ok": ok}
+            del out, grads, ref, rgrads
+            if hd in (64, 128):
+                scale = hd ** -0.5
+                qt, kt, vt = (x.detach().transpose(1, 2).contiguous()
+                              for x in (q, k, v))
+                dot = dout.transpose(1, 2).contiguous()
+                o, lse = fa_ops._launch(qt, kt, vt, causal=True,
+                                        window=window, scale=scale,
+                                        with_lse=True)
+                ms = _time_ms(lambda: fa_ops._launch_bwd(
+                    qt, kt, vt, o, lse, dot, causal=True, window=window,
+                    scale=scale), iters=10)
+                leaves = tuple(t.clone().requires_grad_()
+                               for t in (qt, kt, vt))
+                ro = fa_ref.attention_ref(*leaves, causal=True,
+                                          window=window)
+                plain_ms = _time_ms(lambda: torch.autograd.grad(
+                    ro, leaves, dot, retain_graph=True), iters=3, warmup=1)
+                del ro
+                mask = None
+                if window:
+                    i = torch.arange(s, device="cuda")
+                    mask = (i[:, None] >= i[None, :]) & \
+                        (i[:, None] - i[None, :] < window)
+                try:
+                    so = F.scaled_dot_product_attention(
+                        *leaves, attn_mask=mask, is_causal=mask is None,
+                        enable_gqa=True)
+                    lib_ms = _time_ms(lambda: torch.autograd.grad(
+                        so, leaves, dot, retain_graph=True), iters=10)
+                    del so
+                except RuntimeError as e:  # the yardstick only
+                    print(f"library call unavailable: {e}", flush=True)
+                    lib_ms = None
+                bound_ms, bound_by, flops = _bwd_bound(
+                    b, h, kv, s, hd, window, dname, q.element_size())
+                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           tflops=flops / (ms * 1e-3) / 1e12)
+            rows.append(row)
+            print(f"kernel-check bwd {json.dumps(row)}", flush=True)
+    fa_ops.reset_launches()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _rank_batch(torch, cfg, rank):
+    from repro_torch.data import pipeline as dp
+    dcfg = dp.DataConfig(vocab=cfg.vocab, seq_len=GANG["seq_len"],
+                         global_batch=GANG["global_batch"])
+    batch = dp.shard_slice(dp.make_batch(dcfg, 0), rank, GANG["ranks"])
+    return {k: v.cuda() for k, v in batch.items()}
+
+
+def train_check(torch, cfg, params):
+    """One full-width micro-batch (2 x 1024 tokens): loss and flat
+    gradient through the kernel path and the plain path, both bf16, each
+    against an f32 witness (the same weights cast to f32, plain path)."""
+    from repro_torch.core.collectives import flatten_tree
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import attention as attn
+    from repro_torch.models import model as model_mod
+    from repro_torch.weights import tree_map
+
+    grad_fn = model_mod.make_grad_fn(cfg)
+    batch = _rank_batch(torch, cfg, 0)
+
+    def run(p, plain):
+        before = (fa_ops.launches, fa_ops.bwd_launches)
+        if plain:
+            with mock.patch.object(attn, "causal_attention",
+                                   attn.plain_causal_attention):
+                (loss, _), g = grad_fn(p, batch)
+            assert (fa_ops.launches, fa_ops.bwd_launches) == before
+        else:
+            (loss, _), g = grad_fn(p, batch)
+            assert fa_ops.launches > before[0] and \
+                fa_ops.bwd_launches > before[1]
+        vec = flatten_tree(g)[0]
+        del g
+        torch.cuda.synchronize()
+        return float(loss), vec
+
+    lk, gk = run(params, False)
+    lp, gp = run(params, True)
+    params32 = tree_map(lambda t: t.float(), params)
+    lw, gw = run(params32, True)
+    del params32
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+    res = {"loss_kernel": lk, "loss_plain": lp, "loss_f32": lw,
+           "loss_kernel_vs_f32": abs(lk - lw) / abs(lw),
+           "loss_plain_vs_f32": abs(lp - lw) / abs(lw),
+           "grad_kernel_vs_f32": rel(gk, gw),
+           "grad_plain_vs_f32": rel(gp, gw),
+           "grad_kernel_vs_plain": rel(gk, gp),
+           "grad_norm_f32": gw.norm().item(),
+           "finite": bool(torch.isfinite(gk).all()), "tol": TRAIN_TOL}
+    res["ratio"] = res["grad_kernel_vs_f32"] / res["grad_plain_vs_f32"]
+    print(f"train-check {json.dumps(res)}", flush=True)
+    del gk, gp, gw
+    torch.cuda.empty_cache()
+    assert res["finite"], res
+    assert res["loss_kernel_vs_f32"] <= TRAIN_TOL["loss"], res
+    assert res["grad_kernel_vs_f32"] <= TRAIN_TOL["grad"], res
+    assert res["ratio"] <= 1.25, res
+    return res
+
+
+def sync_check(torch, cfg, params):
+    """One full-width step's per-rank gradients (4 ranks, 2 pods) through
+    every schedule, compared as f32 mean vectors: compressed at frac 1.0
+    bit-identical to hierarchical, flat and ring within 1e-6 (relative
+    L2) of it."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.models import model as model_mod
+
+    grad_fn = model_mod.make_grad_fn(cfg)
+    grads = [grad_fn(params, _rank_batch(torch, cfg, r))[1]
+             for r in range(GANG["ranks"])]
+    n_ranks, pods = GANG["ranks"], GANG["pods"]
+    data = n_ranks // pods
+
+    def vectors():              # one f32 vector at a time
+        for g in grads:
+            yield coll.flatten_tree(g, pad_to=n_ranks)[0]
+
+    def sync(mode, frac=None):
+        resid = (coll.init_residual_buffer(grads[0], pods, data)
+                 if mode == "compressed" else None)
+        t0 = time.perf_counter()
+        out, new = coll.tree_sync(vectors(), mode, pods, data, frac, resid)
+        torch.cuda.synchronize()
+        return out, new, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    hier, _, t_hier = sync("hierarchical")
+    comp, new, t_comp = sync("compressed", 1.0)
+    res = {"n": hier.numel(), "bit_identical": bool(torch.equal(hier, comp)),
+           "residual_zero": not bool(new.any()),
+           "wall_s": {"hierarchical": t_hier, "compressed_1.0": t_comp}}
+    del comp, new
+    for mode in ("flat", "ring"):
+        out, _, t = sync(mode)
+        res[f"{mode}_vs_hierarchical"] = ((out - hier).norm()
+                                          / hier.norm()).item()
+        res["wall_s"][mode] = t
+        del out
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"sync-check {json.dumps(res)}", flush=True)
+    del grads, hier
+    torch.cuda.empty_cache()
+    assert res["bit_identical"] and res["residual_zero"], res
+    assert res["flat_vs_hierarchical"] <= 1e-6, res
+    assert res["ring_vs_hierarchical"] <= 1e-6, res
+    return res
+
+
+def train_anatomy(torch, cfg, ocfg, dcfg, state):
+    """Wall time of one gang step's parts, with the device synchronised
+    between them: each rank's forward and backward, the gradient sync
+    (flattening into the pods' shards, the codec, the merge), AdamW."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.data import pipeline as dp
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import adamw
+
+    n_ranks, pods = GANG["ranks"], GANG["pods"]
+    grad_fn = model_mod.make_grad_fn(cfg)
+    batch = {k: v.cuda() for k, v in dp.make_batch(dcfg, 0).items()}
+    resid = coll.init_residual_buffer(state["params"], pods,
+                                      n_ranks // pods)
+    grad_ms = []
+
+    def rank_grads():
+        for r in range(n_ranks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = grad_fn(state["params"], dp.shard_slice(batch, r,
+                                                        n_ranks))[1]
+            torch.cuda.synchronize()
+            grad_ms.append((time.perf_counter() - t0) * 1e3)
+            yield g
+            del g
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, resid = coll.tree_sync(rank_grads(), "compressed", pods,
+                                  n_ranks // pods, GANG["frac"], resid)
+    torch.cuda.synchronize()
+    sync_ms = (time.perf_counter() - t0) * 1e3 - sum(grad_ms)
+    del resid
+    t0 = time.perf_counter()
+    adamw.apply(grads, state["opt"], state["params"], ocfg)
+    torch.cuda.synchronize()
+    res = {"grad_ms": grad_ms, "sync_ms": sync_ms,
+           "adamw_ms": (time.perf_counter() - t0) * 1e3}
+    print(f"train-anatomy {json.dumps(res)}", flush=True)
+    del grads
+    torch.cuda.empty_cache()
+    return res
+
+
+def train(torch, cfg):
+    """The port's training path: ``FaabricTrainRuntime`` over 4 virtual
+    ranks in 2 pods, compressed sync at frac 0.05, global batch 8 x 1024
+    tokens, from seeded random weights.  Kernel counts are set to 0 just
+    before the run and read just after."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.collective_codec import ops as co
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import (FaabricTrainRuntime,
+                                                RuntimeConfig)
+
+    steps = GANG["steps"]
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=GANG["seq_len"],
+                      global_batch=GANG["global_batch"])
+    ocfg = AdamWConfig(lr=GANG["lr"], warmup_steps=max(steps // 10, 1),
+                       total_steps=steps)
+    rt = RuntimeConfig(total_steps=steps, sync_mode="compressed",
+                       compress_frac=GANG["frac"], pods=GANG["pods"],
+                       checkpoint_every=0)
+    runtime = FaabricTrainRuntime(cfg, ocfg, dcfg, rt, ranks=GANG["ranks"],
+                                  device="cuda")
+    state = runtime.init_state(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.reset_launches()
+    co.reset_launches()
+    t0 = time.perf_counter()
+    state, out = runtime.run(state=state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa_ops.launches,
+                "flash_attention_bwd": fa_ops.bwd_launches,
+                "collective_codec": co.launches}
+    losses = out["losses"]
+    times = [e["time"] for e in out["log"]]
+    warm = sorted(times[1:])
+
+    def pct(q):
+        return warm[min(len(warm) - 1, int(math.ceil(q / 100 * len(warm)))
+                        - 1)]
+    tokens = GANG["global_batch"] * GANG["seq_len"]
+    res = {"steps": len(losses), "losses": losses,
+           "first_step_s": times[0], "step_s_p50": pct(50),
+           "step_s_p99": pct(99), "wall_s": wall,
+           "tokens_per_s": tokens * len(losses) / wall,
+           "tokens_per_s_warm": tokens / pct(50),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "gang": GANG}
+    print(f"train {json.dumps(res)}", flush=True)
+    assert len(losses) >= 10 and all(math.isfinite(x) for x in losses), res
+    assert losses[-1] < losses[0], res
+    per_step = {"flash_attention": 2 * cfg.n_layers * GANG["ranks"],
+                "flash_attention_bwd": cfg.n_layers * GANG["ranks"],
+                "collective_codec": 1}
+    for name, n in per_step.items():
+        assert launches[name] == n * steps, (name, launches, per_step)
+
+    train_anatomy(torch, cfg, ocfg, dcfg, state)
+    prof_rt = FaabricTrainRuntime(
+        cfg, ocfg, dcfg, RuntimeConfig(
+            total_steps=1, sync_mode="compressed", compress_frac=GANG["frac"],
+            pods=GANG["pods"], checkpoint_every=0),
+        ranks=GANG["ranks"], device="cuda")
+    profile_phase(torch, "train_step",
+                  lambda: len(prof_rt.run(state=state)[1]["losses"]))
+    del state, runtime, prof_rt
+    torch.cuda.empty_cache()
+    return res, launches
 
 
 def main() -> int:
@@ -440,7 +904,9 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.flash_attention import build as fa_build
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.collective_codec import ops as co
+    from repro_torch.kernels.collective_codec import ref as cr
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.models import transformer as tf
@@ -455,20 +921,14 @@ def main() -> int:
         triton_v = triton.__version__
     except ImportError:
         triton_v = "absent"
-    nvcc_v = _sh([fa_build._nvcc(), "--version"]).splitlines()
+    nvcc_v = _sh([_build.nvcc(), "--version"]).splitlines()
     print(card, flush=True)
     print(f"env torch={torch.__version__} cuda={torch.version.cuda} "
           f"triton={triton_v} nvcc={nvcc_v[-1] if nvcc_v else '?'} "
           f"device={torch.cuda.get_device_name(0)}", flush=True)
 
-    # 2. build
-    t0 = time.perf_counter()
-    fa_build.build()
-    fa_build.lib()
-    ptxas = [ln.strip() for ln in fa_build.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"build flash_attention {time.perf_counter() - t0:.1f}s "
-          f"{json.dumps(ptxas)}", flush=True)
+    # 2. build every kernel source, all at once
+    build_all(torch)
 
     # first use of every serve shape, before anything else runs on the card
     cfg = get_config("llama3.2-1b")
@@ -477,30 +937,61 @@ def main() -> int:
         params = tf.init_params(gen, cfg, device="cuda")
         warm_up(torch, cfg, params, MAX_LEN)
 
-    # 3. kernel vs plain version
+    # 3. kernels vs plain versions
     rows = check_kernel(torch, fa_ops, fa_ref, F)
-    bad = [r for r in rows if not r["ok"]]
+    bwd_rows = check_backward(torch, fa_ops, fa_ref, F)
+    codec_rows = check_codec(torch, co, cr)
+    bad = [r for r in rows + bwd_rows if not r["ok"]] + \
+        [r for r in codec_rows if not r["bit_exact"]]
     assert not bad, bad
     main_row = next(r for r in rows if r["B"] == 1 and r["S"] == 1024
                     and r["hd"] == 64 and r["window"] == 0 and r["causal"]
                     and r["dtype"] == "bfloat16")
+    bwd_row = next(r for r in bwd_rows if r["B"] == 2 and r["S"] == 1024
+                   and r["hd"] == 64 and r["window"] == 0
+                   and r["dtype"] == "bfloat16")
+    codec_row = codec_rows[-1]          # the main path's 4-shard launch
 
     # 4. serve full-width llama3.2-1b
     with torch.no_grad():
-        reqs, launches = serve(torch, cfg, params, cfg.n_layers)
+        reqs, serve_launches = serve(torch, cfg, params, cfg.n_layers)
         check_prefill(torch, cfg, params, reqs, MAX_LEN)
         profile(torch, cfg, params)
 
-    # 5. results
+    # 5. train full-width llama3.2-1b: checks, then the gang
+    train_check(torch, cfg, params)
+    sync_check(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    _, train_launches = train(torch, cfg)
+
+    # 6. results
+    src = "src/repro_torch/kernels/"
     kernels = [{
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
+        "source": src + "flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
-        "launches": launches, "max_abs_err": main_row["max_abs_err"],
+        "launches": serve_launches + train_launches["flash_attention"],
+        "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]
+        "library_ms": main_row["library_ms"]}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": src + "flash_attention/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
+        "launches": train_launches["flash_attention_bwd"],
+        "max_abs_err": bwd_row["max_abs_err"],
+        "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
+        "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
+        "library_ms": bwd_row["library_ms"]}, {
+        "name": "collective_codec", "route": "cuda",
+        "source": src + "collective_codec/csrc/collective_codec.cu",
+        "replaces": "src/repro/kernels/collective_codec/kernel.py:36",
+        "launches": train_launches["collective_codec"],
+        "max_abs_err": codec_row["max_abs_err"],
+        "ms": codec_row["ms"], "plain_ms": codec_row["plain_ms"],
+        "bound_ms": codec_row["bound_ms"],
+        "bound_by": codec_row["bound_by"], "library_ms": None}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,10 @@
 // the kernel is bound by the FMA and shared-memory pipes, far from the
 // tensor-core bound.  mma.sync / wgmma products for bf16 are later work.
 //
+// With a non-null lse pointer it also writes each row's log-sum-exp
+// (m + log l, f32), which the backward kernels (flash_attention_bwd.cu)
+// use to recompute the probabilities; serving passes null.
+//
 // Interface: plain C, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing, does not synchronise, returns cudaGetLastError().
 
@@ -102,8 +106,9 @@ constexpr int smem_floats() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int H, int KV, int S,
-              float scale, int causal, int window) {
+              const T* __restrict__ v, T* __restrict__ o,
+              float* __restrict__ lse, int H, int KV, int S, float scale,
+              int causal, int window) {
   constexpr int LDQ = HD + 1, LDK = HD + 1, LDV = HD, LDP = BK + 1;
   constexpr int OPT = HD / TX;     // output columns per thread
   extern __shared__ float smem[];
@@ -227,12 +232,16 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < OPT; ++j)
       store1(ob + (size_t)qi * HD + tx + j * TX, acc[r][j] / denom);
+    // Every row sees at least its own key, so l >= 1 here; the backward
+    // pass recomputes P = exp(s - lse) from it.
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * S + qi] = m[r] + logf(denom);
   }
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KV, int S, float scale, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KV, int S, float scale, int causal, int window,
            cudaStream_t stream) {
   const int smem = smem_floats<HD>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -241,30 +250,36 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   fa_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KV, S, scale, causal,
-      window);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, KV, S, scale,
+      causal, window);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, o: (B, H, S, hd); k, v: (B, KV, S, hd); all contiguous, 16-byte aligned.
+// lse: (B, H, S) f32, the per-row log-sum-exp of the scaled logits that the
+// backward pass needs, or null (serving) to skip it.
 // dtype 0 = float32, 1 = bfloat16; hd 64 or 128.
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
-                          int B, int H, int KV, int S, int hd, float scale,
-                          int causal, int window, int dtype, void* stream) {
+                          void* lse, int B, int H, int KV, int S, int hd,
+                          float scale, int causal, int window, int dtype,
+                          void* stream) {
+  float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || KV <= 0 || S <= 0 || H % KV != 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0 && hd == 64)
-    return launch<float, 64>(q, k, v, o, B, H, KV, S, scale, causal, window, st);
+    return launch<float, 64>(q, k, v, o, l, B, H, KV, S, scale, causal,
+                             window, st);
   if (dtype == 0 && hd == 128)
-    return launch<float, 128>(q, k, v, o, B, H, KV, S, scale, causal, window, st);
+    return launch<float, 128>(q, k, v, o, l, B, H, KV, S, scale, causal,
+                              window, st);
   if (dtype == 1 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, B, H, KV, S, scale, causal,
+    return launch<__nv_bfloat16, 64>(q, k, v, o, l, B, H, KV, S, scale, causal,
                                      window, st);
   if (dtype == 1 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, B, H, KV, S, scale, causal,
+    return launch<__nv_bfloat16, 128>(q, k, v, o, l, B, H, KV, S, scale, causal,
                                       window, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
-"""Model API of the serving path (PyTorch port of ``repro.models.model``):
-prefill and serve steps, parameter counting and the decode window.  The
-train-side functions (loss, train step) come with the training slice.
+"""Model API (PyTorch port of ``repro.models.model``): the train state,
+loss, gradient and train step; prefill and serve steps; parameter
+counting and the decode window.
 """
 from __future__ import annotations
 
@@ -11,7 +11,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import transformer as tf
-from repro_torch.weights import tree_leaves
+from repro_torch.models.layers import fused_unembed_xent, matmul_f32out
+from repro_torch.optim import adamw
+from repro_torch.weights import tree_leaves, tree_map, tree_unflatten
 
 # zamba2's shared attention block uses this sliding window for the
 # long_500k shape (sub-quadratic adaptation, DESIGN.md §4).
@@ -34,17 +36,119 @@ def _ctx_from_batch(cfg, batch, **extra):
     return ctx
 
 
+# ---------------------------------------------------------------------------
+# Train
+# ---------------------------------------------------------------------------
+def init_train_state(gen, cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
+                     device="cuda"):
+    params = tf.init_params(gen, cfg, device=device)
+    return {"params": params, "opt": adamw.init(params)}
+
+
+def make_loss_fn(cfg: ArchConfig) -> Callable:
+    """(params, batch) -> (loss, {"loss", "xent", "aux_loss"}).  One loss
+    function covers the JAX package's ``deploy`` and default modes (see
+    ``layers.fused_unembed_xent``)."""
+    def loss_fn(params, batch):
+        ctx = _ctx_from_batch(cfg, batch, return_hidden=True)
+        hidden, aux, _ = tf.forward(params, batch["tokens"], cfg, ctx)
+        xent = fused_unembed_xent(hidden, tf._head(params, cfg),
+                                  batch["labels"])
+        loss = xent + aux
+        return loss, {"loss": loss, "xent": xent, "aux_loss": aux}
+    return loss_fn
+
+
+def _grad_leaves(params):
+    """(tree for the forward pass, its leaves that take gradients).
+
+    Each stacked block leaf is split into per-period views, so autograd
+    hands back one gradient per period instead of scattering every
+    period's gradient into a zero tensor of the whole stack."""
+    def leaf(t):
+        return t.detach().requires_grad_()
+    blocks = [[tree_map(lambda a, i=i: leaf(a[i]), stacked)
+               for i in range(tree_leaves(stacked)[0].shape[0])]
+              for stacked in params["blocks"]]
+    tree = {k: (blocks if k == "blocks" else tree_map(leaf, v))
+            for k, v in params.items()}
+    return tree, tree_leaves(tree)
+
+
+def make_grad_fn(cfg: ArchConfig) -> Callable:
+    """(params, batch) -> ((loss, metrics), grads): the port's
+    ``jax.value_and_grad(loss_fn, has_aux=True)``.  ``grads`` has the
+    params' structure and dtypes; metrics are detached."""
+    loss_fn = make_loss_fn(cfg)
+
+    def grad_fn(params, batch):
+        with torch.enable_grad():
+            tree, leaves = _grad_leaves(params)
+            loss, metrics = loss_fn(tree, batch)
+            flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+        flat = [torch.zeros_like(x) if g is None else g
+                for x, g in zip(leaves, flat)]
+        per_period = tree_unflatten(tree, flat)
+        grads = {k: v for k, v in per_period.items() if k != "blocks"}
+        grads["blocks"] = [
+            tree_unflatten(periods[0], [
+                torch.stack(xs) for xs in
+                zip(*(tree_leaves(p) for p in periods))])
+            for periods in per_period["blocks"]]
+        grads = {k: grads[k] for k in params}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return (loss.detach(), metrics), grads
+    return grad_fn
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
+                    grad_accum: int = 1) -> Callable:
+    """(state, batch) -> (state, metrics).
+
+    ``grad_accum`` splits the batch into that many microbatches and
+    accumulates their gradients in f32 (the JAX package's unrolled loop;
+    its ``deploy`` scan is the same sum).  The optimizer updates the
+    state's tensors in place (``optim.adamw``)."""
+    grad_fn = make_grad_fn(cfg)
+
+    def train_step(state, batch):
+        params = state["params"]
+        if grad_accum == 1:
+            (_, metrics), grads = grad_fn(params, batch)
+        else:
+            b = batch["tokens"].shape[0]
+            mb = b // grad_accum
+            grads = metrics = None
+            for i in range(grad_accum):
+                sl = {k: x[i * mb:(i + 1) * mb] for k, x in batch.items()}
+                (_, m), g = grad_fn(params, sl)
+                g = tree_map(lambda a: a.float(), g)
+                grads = g if grads is None else tree_unflatten(g, [
+                    a + b_ for a, b_ in zip(tree_leaves(grads),
+                                            tree_leaves(g))])
+                metrics = m if metrics is None else {
+                    k: metrics[k] + m[k] for k in metrics}
+            grads = tree_map(lambda a: a / grad_accum, grads)
+            metrics = {k: v / grad_accum for k, v in metrics.items()}
+        params, opt, om = adamw.apply(grads, state["opt"], params, opt_cfg)
+        return {"params": params, "opt": opt}, {**metrics, **om}
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Inference
+# ---------------------------------------------------------------------------
 def make_prefill_step(cfg: ArchConfig, window: int = 0) -> Callable:
     """(params, batch) -> (last_logits (B,1,V) f32, decode states).
 
     Unembeds ONLY the last position: the (B, S, V) logits of a long
-    prefill would otherwise dominate device memory."""
+    prefill would otherwise dominate device memory.  The product is
+    ``matmul_f32out``: f32 logits without an f32 copy of the head."""
     def prefill_step(params, batch):
         ctx = _ctx_from_batch(cfg, batch, collect_state=True, window=window,
                               return_hidden=True)
         hidden, _, states = tf.forward(params, batch["tokens"], cfg, ctx)
-        head = tf._head(params, cfg)
-        logits = torch.matmul(hidden[:, -1:].float(), head.float())
+        logits = matmul_f32out(hidden[:, -1:], tf._head(params, cfg))
         return logits, states
     return prefill_step
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs import base as cb
@@ -130,30 +132,54 @@ def _head(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def period_params(stacked, i: int):
+    """Period ``i``'s parameters of one period position: a slice of the
+    stacked tree, or entry ``i`` where the caller split the stack into a
+    list of per-period trees (``model.make_grad_fn`` does, so that each
+    period's gradient is its own tensor rather than a scatter into the
+    whole stack)."""
+    if isinstance(stacked, list):
+        return stacked[i]
+    return tree_map(lambda a: a[i], stacked)
+
+
+def _period_body(x, aux, ps, period, cfg, ctx):
+    states = []
+    for kind, p in zip(period, ps):
+        x, a, st = apply_block_seq(kind, p, x, cfg, ctx)
+        aux = aux + a
+        states.append(st)
+    return x, aux, states
+
+
 def forward(params, tokens, cfg, ctx: Optional[Dict[str, Any]] = None):
     """tokens: (B,S) integer -> (logits (B,S,V), aux_loss, states).
 
     ``states`` is a list of stacked per-period-position decode states when
     ``ctx["collect_state"]`` (prefill), else None.  With
     ``ctx["return_hidden"]`` the final-norm hidden states come back in
-    place of the logits.
+    place of the logits.  With ``cfg.remat`` and gradients on, each period
+    runs under ``torch.utils.checkpoint`` (the JAX package's
+    ``jax.checkpoint`` of the period body): its activations are recomputed
+    in the backward pass instead of being kept.
     """
     ctx = dict(ctx or {})
     s = tokens.shape[1]
-    x = params["embed"][tokens.long()]
+    x = F.embedding(tokens.long(), params["embed"])
     ctx.setdefault("positions",
                    torch.arange(s, device=tokens.device)[None, :])
     collect = ctx.get("collect_state", False)
+    remat = cfg.remat and not collect and torch.is_grad_enabled()
     period = cfg.period()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_period = []
     for i in range(cfg.n_periods()):
-        states = []
-        for kind, stacked in zip(period, params["blocks"]):
-            p = tree_map(lambda a: a[i], stacked)
-            x, a, st = apply_block_seq(kind, p, x, cfg, ctx)
-            aux = aux + a
-            states.append(st)
+        ps = [period_params(stacked, i) for stacked in params["blocks"]]
+        if remat:
+            x, aux, states = checkpoint(_period_body, x, aux, ps, period,
+                                        cfg, ctx, use_reentrant=False)
+        else:
+            x, aux, states = _period_body(x, aux, ps, period, cfg, ctx)
         per_period.append(states)
     states = ([_stack([pp[j] for pp in per_period])
                for j in range(len(period))] if collect else None)
@@ -188,11 +214,11 @@ def decode_step(params, tokens, states, positions, cfg,
     """
     ctx = dict(ctx or {})
     ctx["positions"] = positions
-    x = params["embed"][tokens.long()]
+    x = F.embedding(tokens.long(), params["embed"])
     period = cfg.period()
     for i in range(cfg.n_periods()):
         for kind, stacked, st in zip(period, params["blocks"], states):
-            p = tree_map(lambda a: a[i], stacked)
+            p = period_params(stacked, i)
             x, _ = apply_block_decode(kind, p, x,
                                       tree_map(lambda a: a[i], st), cfg, ctx)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)

@@ -39,6 +39,7 @@ from repro_torch.configs.base import MAMBA, MLSTM, SLSTM, ArchConfig
 from repro_torch.core import telemetry
 from repro_torch.models import model as model_mod
 from repro_torch.models import transformer as tf
+from repro_torch.models.layers import matmul_f32out
 from repro_torch.weights import tree_leaves, tree_map
 
 
@@ -250,7 +251,7 @@ def make_ragged_prefill(cfg: ArchConfig, window: int = 0):
                                         window=window, return_hidden=True)
         hidden, _, states = tf.forward(params, batch["tokens"], cfg, ctx)
         last = hidden[:, length - 1:length]
-        logits = torch.matmul(last.float(), tf._head(params, cfg).float())
+        logits = matmul_f32out(last, tf._head(params, cfg))
         return logits, states
     return prefill
 

@@ -5,6 +5,13 @@ numpy (``jax.tree.map(np.asarray, params)``) they become the port's dict of
 tensors with the same keys and the same stacked layout (``embed``,
 ``final_norm``, ``blocks[i][...]`` with the leading ``n_per`` axis).
 bfloat16 arrays cross as raw 16-bit words, so no value is rounded.
+Train states (``{"params", "opt": {"m", "v", "step"}}``) cross with
+``state_from_numpy`` / ``state_to_numpy``.
+
+Leaf order is ``jax.tree.flatten``'s: dict keys sorted, lists and tuples
+in order, None an empty subtree.  Whatever flattens a tree into one
+vector (the gradient sync, the optimizer's global norm) walks it in this
+order, so its layout is the JAX package's.
 """
 from __future__ import annotations
 
@@ -72,7 +79,53 @@ def tree_map(fn, tree: Any) -> Any:
 
 
 def tree_leaves(tree: Any) -> list:
-    """Tensor leaves of a dict/list/tuple tree, in insertion order."""
-    out: list = []
-    tree_map(out.append, tree)
+    """Tensor leaves of a dict/list/tuple tree in ``jax.tree.flatten``
+    order (dict keys sorted)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like: Any, leaves) -> Any:
+    """A tree of ``like``'s structure whose leaves, in ``tree_leaves``
+    order, are ``leaves`` (the inverse of ``tree_leaves``)."""
+    it = iter(leaves)
+
+    def build(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            built = {k: build(x[k]) for k in sorted(x)}
+            return {k: built[k] for k in x}     # keep the key order
+        if isinstance(x, (list, tuple)):
+            return type(x)(build(v) for v in x)
+        return next(it)
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("tree_unflatten: more leaves than the tree holds")
     return out
+
+
+def state_from_numpy(state: Any, device="cuda") -> dict:
+    """A JAX train state as numpy (``jax.tree.map(np.asarray, state)``)
+    -> the port's: the same params and f32 moments as tensors, the step
+    count as an int."""
+    opt = state["opt"]
+    return {"params": params_from_numpy(state["params"], device),
+            "opt": {"m": params_from_numpy(opt["m"], device),
+                    "v": params_from_numpy(opt["v"], device),
+                    "step": int(np.asarray(opt["step"]))}}
+
+
+def state_to_numpy(state: Any, bf16_dtype: Optional[np.dtype] = None) -> dict:
+    """The reverse of ``state_from_numpy``; the step is an int32 scalar as
+    in the JAX package."""
+    opt = state["opt"]
+    return {"params": params_to_numpy(state["params"], bf16_dtype),
+            "opt": {"m": params_to_numpy(opt["m"]),
+                    "v": params_to_numpy(opt["v"]),
+                    "step": np.asarray(opt["step"], dtype=np.int32)}}

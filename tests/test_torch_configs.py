@@ -59,7 +59,16 @@ def test_port_imports_no_jax_and_no_repro():
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))
         assert not bad, bad
-        assert len(names) >= 20, names
+        need = {"repro_torch.kernels._build",
+                "repro_torch.kernels.collective_codec.ops",
+                "repro_torch.kernels.collective_codec.ref",
+                "repro_torch.kernels.flash_attention.ops",
+                "repro_torch.core.collectives", "repro_torch.data.pipeline",
+                "repro_torch.optim.adamw", "repro_torch.optim.compress",
+                "repro_torch.runtime.train_loop", "repro_torch.launch.train",
+                "repro_torch.models.model", "repro_torch.weights"}
+        assert need <= set(names), sorted(need - set(names))
+        assert len(names) >= 40, names
         print("imported", len(names))
     """)
     env = {**os.environ, "PYTHONPATH": SRC}

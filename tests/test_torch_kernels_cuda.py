@@ -5,6 +5,8 @@ installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
+from unittest import mock
+
 import pytest
 import torch
 
@@ -52,3 +54,144 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     q = torch.zeros((1, 128, 4, 64), device=cuda_device).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         TO._launch(q, q[:, :2], q[:, :2], causal=True, window=0, scale=0.125)
+
+
+# Backward tolerances: f32 accumulation order over up to S * G terms
+# (f32), and the bf16 rounding of O (in D = rowsum(dO * O)) and of the
+# outputs (bf16).
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,window,hd", [(2, 1024, 0, 64), (1, 1000, 0, 64),
+                                           (1, 1024, 256, 64), (1, 300, 0, 80),
+                                           (4, 512, 0, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_backward_matches_autograd_of_plain(cuda_device, b, s, window,
+                                                 hd, dtype):
+    tol = BWD_TOL[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(s + window)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=cuda_device)
+               .to(dt).requires_grad_() for n in (32, 8, 8))
+    dout = torch.randn((b, s, 32, hd), generator=gen,
+                       device=cuda_device).to(dt)
+    before = (TO.launches, TO.bwd_launches)
+    out = TO.flash_attention(q, k, v, causal=True, window=window)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert (TO.launches, TO.bwd_launches) == (before[0] + 1, before[1] + 1)
+    ref = TR.attention_ref(*(x.transpose(1, 2) for x in (q, k, v)),
+                           causal=True, window=window).transpose(1, 2)
+    rgrads = torch.autograd.grad(ref, (q, k, v), dout)
+    torch.cuda.synchronize()
+    for g, r in zip(grads, rgrads):
+        assert g.dtype == dt and g.shape == r.shape
+        assert bool(torch.isfinite(g.float()).all())
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_is_deterministic(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = (torch.randn((2, 1024, n, 64), generator=gen,
+                           device=cuda_device).bfloat16().requires_grad_()
+               for n in (32, 8, 8))
+    dout = torch.randn((2, 1024, 32, 64), generator=gen,
+                       device=cuda_device).bfloat16()
+    first = torch.autograd.grad(TO.flash_attention(q, k, v), (q, k, v), dout)
+    second = torch.autograd.grad(TO.flash_attention(q, k, v), (q, k, v), dout)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_layer_gives_qkv_weights_gradients(cuda_device):
+    """A backward pass through an attention layer on the card reaches wq,
+    wk and wv (the forward kernel alone has no grad_fn)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import attention as attn
+    cfg = get_config("llama3.2-1b").with_(dtype="float32")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = attn.init_attention(gen, cfg, device=cuda_device)
+    params = {n: w.requires_grad_() for n, w in params.items()}
+    x = torch.randn((1, 256, cfg.d_model), generator=gen, device=cuda_device)
+    pos = torch.arange(256, device=cuda_device)[None]
+    before = TO.bwd_launches
+    out, _ = attn.attention(params, x, cfg, pos)
+    grads = torch.autograd.grad(out.square().sum(), list(params.values()))
+    assert TO.bwd_launches == before + 1
+    with mock.patch.object(attn, "causal_attention",
+                           attn.plain_causal_attention):
+        rout, _ = attn.attention(params, x, cfg, pos)
+        rgrads = torch.autograd.grad(rout.square().sum(),
+                                     list(params.values()))
+    for name, g, r in zip(params, grads, rgrads):
+        assert float(g.abs().max()) > 0, name
+        assert float((g - r).norm() / r.norm()) < 1e-4, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m", [(8, 16), (24, 33), (16, 1), (1, 64),
+                                 (100_000, 20), (3, 5000)])
+def test_cuda_codec_bit_exact_to_plain(cuda_device, k, m):
+    from repro_torch.kernels.collective_codec import ops as CO
+    from repro_torch.kernels.collective_codec import ref as CR
+    gen = torch.Generator(device=cuda_device).manual_seed(k + m)
+    x = torch.randn((k, m), generator=gen, device=cuda_device)
+    x[0, :] = torch.round(x[0, :])          # ties in the first row
+    if k > 1:
+        x[1, m // 2] = float("nan")         # a NaN row
+    before = CO.launches
+    vals, col, resid = CO.chunk_select(x)
+    assert CO.launches == before + 1
+    rv, rc, rr = CR.chunk_select_ref(x)
+    torch.cuda.synchronize()
+    assert torch.equal(col, rc) and col.dtype == torch.int32
+    assert torch.equal(vals, rv)
+    assert torch.equal(torch.nan_to_num(resid, 7.0),
+                       torch.nan_to_num(rr, 7.0))
+
+
+@pytest.mark.cuda
+def test_cuda_codec_shards_and_compressed_sync(cuda_device):
+    from repro_torch.core import collectives as C
+    from repro_torch.kernels.collective_codec import ops as CO
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    trees = [{"w": torch.randn((64, 33), generator=gen, device=cuda_device),
+              "b": torch.randn((71,), generator=gen, device=cuda_device)}
+             for _ in range(4)]
+    cpu = [{n: t.cpu() for n, t in tr.items()} for tr in trees]
+    for frac in (0.05, 1.0):
+        before = CO.launches
+        resid = C.init_residual_buffer(trees[0], 2, 2)
+        out, new = C.tree_sync(trees, "compressed", 2, 2, frac, resid)
+        assert CO.launches == before + 1            # one launch, 4 shards
+        cresid = C.init_residual_buffer(cpu[0], 2, 2)
+        cout, cnew = C.tree_sync(cpu, "compressed", 2, 2, frac, cresid)
+        assert torch.equal(new.cpu(), cnew)
+        for n in out:
+            torch.testing.assert_close(out[n].cpu(), cout[n], atol=0, rtol=0)
+    hier, _ = C.tree_sync(trees, "hierarchical", 2, 2)
+    comp, _ = C.tree_sync(trees, "compressed", 2, 2, 1.0,
+                          C.init_residual_buffer(trees[0], 2, 2))
+    for n in hier:
+        assert torch.equal(hier[n], comp[n])
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_f32out_has_no_f32_copy_and_a_gradient(cuda_device):
+    from repro_torch.models.layers import matmul_f32out
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn((2, 16, 256), generator=gen,
+                    device=cuda_device).bfloat16().requires_grad_()
+    w = torch.randn((512, 256), generator=gen,
+                    device=cuda_device).bfloat16().requires_grad_()
+    out = matmul_f32out(x, w.t())
+    assert out.dtype == torch.float32
+    ref = torch.matmul(x.float(), w.float().t())
+    torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-3)
+    gx, gw = torch.autograd.grad(out.sum(), (x, w))
+    rx, rw = torch.autograd.grad(ref.sum(), (x, w))
+    assert gx.dtype == gw.dtype == torch.bfloat16
+    torch.testing.assert_close(gx.float(), rx.float(), atol=0.1, rtol=2e-2)
+    torch.testing.assert_close(gw.float(), rw.float(), atol=0.1, rtol=2e-2)
