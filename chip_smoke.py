@@ -42,20 +42,40 @@ non-zero before printing any result):
    frac 0.05, global batch 8 x 1024, 12 steps (``train``: every loss,
    step time p50/p99, tokens/s, peak memory, launches per kernel), times
    one more step's parts (``train-anatomy``) and profiles another.
-6. Prints the ``kernels`` JSON line and, last, the device JSON line.
+6. The data plane (slice 3) over the full-width llama3.2-1b train state
+   (params bf16, AdamW moments f32: 12.36 GB).  ``diffsync-check``: fork
+   a copy of a state, take one gang step from it to get the child, and
+   merge child into fork with ``core.diffsync.fused_diff_apply`` leaf by
+   leaf (op ``sum``, then ``overwrite``): every leaf of 2^20 elements or
+   more goes through the diff_merge kernel, bit for bit equal to its
+   plain version; the norms and the step take the host path; the
+   overwrite merge has the child's fingerprint.  ``ckpt``: the gang
+   runtime (4 ranks, 2 pods, compressed sync at frac 1.0, checkpoints
+   every 2 of 4 steps) run once uninterrupted and once with a failure at
+   step 3 (recovery to the step-2 checkpoint), losses equal within 1e-6;
+   then a delta-chain manager over 3 saves restored bit for bit, and a
+   delta migration checked with ``verify_migration``.
+7. Prints the ``kernels`` JSON line and, last, the device JSON line.
 
 Besides the forward kernel, phase 2 builds the flash-attention backward
-kernel and the collective_codec kernel (one nvcc each, all started
-together), and phase 3 holds each against its plain version: the
-backward's dq, dk, dv against autograd of the plain attention
+kernel, the collective_codec kernel and the diff_merge kernel (one nvcc
+each, all started together), and phase 3 holds each against its plain
+version: the backward's dq, dk, dv against autograd of the plain attention
 (``kernel-check bwd``), the codec bit for bit up to the main path's launch
-over four full-width shards (``kernel-check codec``).
+over four full-width shards (``kernel-check codec``), diff_merge bit for
+bit over every merge op and dtype at the JAX tests' shapes, then timed at
+the embedding's size (``kernel-check diff_merge``).
+
+Checkpoints go to ``build/chip_smoke_ckpt`` in the checkout and are
+removed at the end; the phase raises if the disk cannot hold three full
+checkpoints of the state.
 """
 from __future__ import annotations
 
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -69,6 +89,7 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense bf16 tensor cores
               "float32": 67e12}    # f32 on the CUDA cores (TF32 off)
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 MAX_LEN = 2048                     # the serve loops' decode buffer
+CKPT_ROOT = os.path.join(REPO, "build", "chip_smoke_ckpt")
 
 
 def _sh(cmd):
@@ -498,6 +519,7 @@ def build_all(torch):
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.collective_codec import ops as co
+    from repro_torch.kernels.diff_merge import ops as dm
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     src = os.path.join(REPO, "src", "repro_torch", "kernels")
@@ -506,7 +528,9 @@ def build_all(torch):
             "flash_attention_bwd": os.path.join(
                 src, "flash_attention", "csrc", "flash_attention_bwd.cu"),
             "collective_codec": os.path.join(
-                src, "collective_codec", "csrc", "collective_codec.cu")}
+                src, "collective_codec", "csrc", "collective_codec.cu"),
+            "diff_merge": os.path.join(
+                src, "diff_merge", "csrc", "diff_merge.cu")}
 
     def one(name):
         t0 = time.perf_counter()
@@ -518,6 +542,7 @@ def build_all(torch):
     fa_ops.fwd_lib()
     fa_ops.bwd_lib()
     co.lib()
+    dm.lib()
     for name in jobs:
         ptxas = [ln.strip() for ln in _build.build_logs.get(name, "")
                  .splitlines() if "registers" in ln or "spill" in ln]
@@ -571,6 +596,151 @@ def check_codec(torch, co, cr):
         del x
         torch.cuda.empty_cache()
     co.reset_launches()
+    return rows
+
+
+DM_OPS = ("sum", "subtract", "multiply", "divide", "overwrite")
+EMBED_N = 128256 * 2048            # the full-width embedding's elements
+
+
+def _dm_inputs(torch, shape, dtype, op, seed):
+    """a0, b0 and b1 = b0 with some elements changed; float cases with 3+
+    chunks also get a clean chunk holding a -0 / +0 pair and a NaN in b0
+    and b1 (a dirty chunk)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if dtype.is_floating_point:
+        a0, b0 = ((torch.randn(shape, generator=gen, device="cuda") + 2.0)
+                  .to(dtype) for _ in range(2))
+    else:
+        lo = 1 if op in ("multiply", "divide") else -2 ** 20
+        a0, b0 = (torch.randint(lo, 2 ** 20, shape, generator=gen,
+                                device="cuda", dtype=dtype)
+                  for _ in range(2))
+    b1 = b0.clone()
+    flat = b1.view(-1)
+    flat[::97] *= 3
+    flat[5:40] += 7
+    if dtype.is_floating_point and flat.numel() > 3 * 1024:
+        b0.view(-1)[2048 + 9] = float("nan")
+        flat[2048 + 9] = float("nan")
+        flat[1024:2048] = b0.view(-1)[1024:2048]
+        b0.view(-1)[1024 + 7] = 0.0
+        flat[1024 + 7] = -0.0
+    return a0, b0, b1
+
+
+def _dm_same(torch, x, y):
+    """Bit for bit where not NaN, NaN where NaN (a NaN's payload is not
+    part of the function)."""
+    if not x.dtype.is_floating_point:
+        return bool(torch.equal(x, y))
+    nan = torch.isnan(x)
+    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+    return bool(torch.equal(nan, torch.isnan(y))
+                and torch.equal(x.view(view)[~nan], y.view(view)[~nan]))
+
+
+def _dm_bytes(n, esize):
+    """Least traffic of one fused pass: a0, b0, b1 read once, a1 written
+    once, one dirty byte per chunk."""
+    return 4 * n * esize + -(-n // 1024)
+
+
+def check_diff_merge(torch, dm, dr):
+    """diff_merge against its plain version, bit for bit (values and dirty
+    masks): every op over bf16, f32, f64 and int32 (int64 for the exact
+    ops) at the JAX tests' shapes (32 x 1024, 13 x 77, a ragged 3333),
+    the JAX tests' own cases (16 x 1024 int32, 3000 f64 with a 1e-12
+    step), NaN and -0 chunks, and an int32 leaf above 2^24 under
+    multiply (clean chunks round through f32).  Then timed at the
+    embedding's size (128256 x 2048) in bf16 (the params) and f32 (a
+    moment), 5% and 100% of the chunks dirty, sum and overwrite: the
+    kernel, the plain version, and ``(b0 != b1).view(-1, 1024).any(1)``,
+    the nearest PyTorch call (partial: the dirty mask only)."""
+    dtypes = [torch.bfloat16, torch.float32, torch.float64, torch.int32,
+              torch.int64]
+    cases, bad = 0, []
+    for op in DM_OPS:
+        for dt in dtypes:
+            if dt == torch.int64 and op in ("multiply", "divide"):
+                continue
+            for shape in [(32, 1024), (13, 77), (3333,)]:
+                a0, b0, b1 = _dm_inputs(torch, shape, dt, op, cases)
+                out, dirty = dm.diff_merge_leaf(a0, b0, b1, op=op)
+                rout, rdirty = dr.diff_merge_leaf_ref(a0, b0, b1, op=op)
+                cases += 1
+                if not (_dm_same(torch, out, rout)
+                        and torch.equal(dirty, rdirty)):
+                    bad.append([op, str(dt), shape])
+    # the JAX tests' own inputs, and the int32 rounding of clean chunks
+    a0 = torch.randint(-2 ** 30, 2 ** 30, (16, 1024), device="cuda",
+                       dtype=torch.int32)
+    b1 = a0.clone()
+    b1[3:5] += 7
+    out, dirty = dm.diff_merge_leaf(a0, a0.clone(), b1, op="sum")
+    want = a0.clone()
+    want[3:5] += 7
+    exact_int = bool(torch.equal(out, want)) and int(dirty.sum()) == 2
+    a0 = torch.full((3000,), 1.0, dtype=torch.float64, device="cuda")
+    b1 = a0.clone()
+    b1[:1024] += 1e-12
+    out, dirty = dm.diff_merge_leaf(a0, a0.clone(), b1, op="sum")
+    exact_f64 = bool(torch.equal(out, b1)) and dirty.tolist() == \
+        [True, False, False]
+    big = torch.full((2, 1024), 2 ** 24 + 1, dtype=torch.int32,
+                     device="cuda")
+    b0 = torch.full_like(big, 4)
+    b1 = b0.clone()
+    b1[1, 0] = 8
+    out, dirty = dm.diff_merge_leaf(big, b0, b1, op="multiply")
+    rout, rdirty = dr.diff_merge_leaf_ref(big, b0, b1, op="multiply")
+    rounding = bool(torch.equal(out, rout) and (out[0] == 2 ** 24).all()
+                    and torch.equal(dirty, rdirty))
+    torch.cuda.synchronize()
+    res = {"cases": cases + 3, "bit_exact": cases - len(bad)
+           + exact_int + exact_f64 + rounding, "failed": bad,
+           "int32_16x1024": exact_int, "f64_3000": exact_f64,
+           "int32_clean_rounding": rounding}
+    print(f"kernel-check diff_merge {json.dumps(res)}", flush=True)
+    assert not bad and exact_int and exact_f64 and rounding, res
+
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        a0 = torch.randn((EMBED_N,), generator=gen, device="cuda").to(dt)
+        b0 = torch.randn((EMBED_N,), generator=gen, device="cuda").to(dt)
+        for share in (0.05, 1.0):
+            b1 = b0.clone()
+            b1.view(-1, 1024)[::round(1 / share), 0] += 1
+            for op in ("sum", "overwrite"):
+                out, dirty = dm._launch(a0, b0, b1, op)
+                rout, rdirty = dr.diff_merge_leaf_ref(a0, b0, b1, op=op)
+                exact = _dm_same(torch, out, rout) and bool(
+                    torch.equal(dirty, rdirty))
+                del out, dirty, rout, rdirty
+                ms = _time_ms(lambda: dm._launch(a0, b0, b1, op), iters=10)
+                plain_ms = _time_ms(lambda: dr.diff_merge_leaf_ref(
+                    a0, b0, b1, op=op), iters=3, warmup=1)
+                near_ms = _time_ms(lambda: (b0 != b1).view(-1, 1024).any(1),
+                                   iters=10)
+                nbytes = _dm_bytes(EMBED_N, a0.element_size())
+                row = {"n": EMBED_N, "dtype": str(dt).split(".")[-1],
+                       "dirty_share": share, "op": op, "bit_exact": exact,
+                       "max_abs_err": 0.0 if exact else None, "ms": ms,
+                       "plain_ms": plain_ms, "library_ms": None,
+                       "nearest_call_ms_partial": near_ms,
+                       "nearest_call": "(b0 != b1).view(-1, 1024).any(1)",
+                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                       "bound_by": "bytes",
+                       "gbytes_per_s": nbytes / ms * 1e-6}
+                rows.append(row)
+                print(f"kernel-check diff_merge {json.dumps(row)}",
+                      flush=True)
+            del b1
+        del a0, b0
+        torch.cuda.empty_cache()
+    dm.reset_launches()
+    assert all(r["bit_exact"] for r in rows), rows
     return rows
 
 
@@ -825,11 +995,13 @@ def train_anatomy(torch, cfg, ocfg, dcfg, state):
     return res
 
 
-def train(torch, cfg):
+def train(torch, cfg, state_bytes):
     """The port's training path: ``FaabricTrainRuntime`` over 4 virtual
     ranks in 2 pods, compressed sync at frac 0.05, global batch 8 x 1024
     tokens, from seeded random weights.  Kernel counts are set to 0 just
-    before the run and read just after."""
+    before the run and read just after.  The runtime saves the state
+    before step 0 (blocking), as the JAX runtime does; its time is in
+    the run's wall time and reported as ``ckpt_step0_s``."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels.collective_codec import ops as co
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -842,9 +1014,11 @@ def train(torch, cfg):
                       global_batch=GANG["global_batch"])
     ocfg = AdamWConfig(lr=GANG["lr"], warmup_steps=max(steps // 10, 1),
                        total_steps=steps)
+    _disk_check(state_bytes)
     rt = RuntimeConfig(total_steps=steps, sync_mode="compressed",
                        compress_frac=GANG["frac"], pods=GANG["pods"],
-                       checkpoint_every=0)
+                       checkpoint_every=0,
+                       ckpt_dir=os.path.join(CKPT_ROOT, "train"))
     runtime = FaabricTrainRuntime(cfg, ocfg, dcfg, rt, ranks=GANG["ranks"],
                                   device="cuda")
     state = runtime.init_state(seed=0)
@@ -867,7 +1041,9 @@ def train(torch, cfg):
         return warm[min(len(warm) - 1, int(math.ceil(q / 100 * len(warm)))
                         - 1)]
     tokens = GANG["global_batch"] * GANG["seq_len"]
+    shutil.rmtree(os.path.join(CKPT_ROOT, "train"))
     res = {"steps": len(losses), "losses": losses,
+           "ckpt_step0_s": runtime.ckpt.stats[0]["device_to_host_s"],
            "first_step_s": times[0], "step_s_p50": pct(50),
            "step_s_p99": pct(99), "wall_s": wall,
            "tokens_per_s": tokens * len(losses) / wall,
@@ -884,16 +1060,256 @@ def train(torch, cfg):
         assert launches[name] == n * steps, (name, launches, per_step)
 
     train_anatomy(torch, cfg, ocfg, dcfg, state)
-    prof_rt = FaabricTrainRuntime(
-        cfg, ocfg, dcfg, RuntimeConfig(
-            total_steps=1, sync_mode="compressed", compress_frac=GANG["frac"],
-            pods=GANG["pods"], checkpoint_every=0),
-        ranks=GANG["ranks"], device="cuda")
-    profile_phase(torch, "train_step",
-                  lambda: len(prof_rt.run(state=state)[1]["losses"]))
-    del state, runtime, prof_rt
+    # one gang step as the runtime runs it (its batch on the card first)
+    from repro_torch.core import collectives as coll
+    from repro_torch.data import pipeline as dp
+    step_fn = _gang_step(torch, cfg, ocfg, GANG["frac"])
+    batch = {k: v.cuda() for k, v in dp.make_batch(dcfg, 0).items()}
+    resid = coll.init_residual_buffer(state["params"], GANG["pods"],
+                                      GANG["ranks"] // GANG["pods"])
+
+    def one_step():
+        float(step_fn(state, batch, resid)[1]["loss"])
+        return 1
+    profile_phase(torch, "train_step", one_step)
+    del state, runtime, batch, resid
     torch.cuda.empty_cache()
     return res, launches
+
+
+def _clone_state(torch, state):
+    from repro_torch.weights import tree_map
+    return tree_map(lambda x: x if isinstance(x, int) else x.clone(), state)
+
+
+def _gang_step(torch, cfg, ocfg, frac):
+    """One step of the training phase's gang (4 ranks, 2 pods,
+    compressed sync): the function the runtime runs each step."""
+    from repro_torch.runtime.train_loop import make_dp_train_step
+    return make_dp_train_step(cfg, ocfg, GANG["pods"],
+                              GANG["ranks"] // GANG["pods"], "compressed",
+                              frac)
+
+
+def diffsync_check(torch, cfg):
+    """The fused diff + merge over the full-width train state: fork = a
+    seeded state, child = the fork after one gang step, and every leaf of
+    the child merged into the fork (main = fork) by
+    ``fused_diff_apply(use_kernel=None)``, once with op sum and once with
+    overwrite.  Leaves of 2^20 elements or more must reach the kernel
+    (counted), bit for bit equal to the plain version; the rest take the
+    host path; the overwrite merge has the child's fingerprint.  Kernel
+    and plain times are CUDA-event times of the one call per leaf."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import diffsync as ds
+    from repro_torch.core.snapshot import _fingerprint
+    from repro_torch.data import pipeline as dp
+    from repro_torch.kernels.diff_merge import ops as dm
+    from repro_torch.kernels.diff_merge import ref as dr
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.weights import tree_leaves, tree_leaves_with_path
+
+    ocfg = AdamWConfig(lr=GANG["lr"], warmup_steps=1, total_steps=4)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    fork = model_mod.init_train_state(gen, cfg, ocfg, device="cuda")
+    child = _clone_state(torch, fork)
+    dcfg = dp.DataConfig(vocab=cfg.vocab, seq_len=GANG["seq_len"],
+                         global_batch=GANG["global_batch"])
+    batch = {k: v.cuda() for k, v in dp.make_batch(dcfg, 0).items()}
+    resid = coll.init_residual_buffer(child["params"], GANG["pods"],
+                                      GANG["ranks"] // GANG["pods"])
+    child, _, _ = _gang_step(torch, cfg, ocfg, GANG["frac"])(child, batch,
+                                                              resid)
+    del batch, resid
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    child_fp = _fingerprint(tree_leaves(child))
+    pairs = list(zip(tree_leaves_with_path(fork), tree_leaves(child)))
+    res = {"leaves": len(pairs), "state_bytes": ds.tree_nbytes(fork),
+           "child_fingerprint": child_fp}
+    dm.reset_launches()
+    for op in ("sum", "overwrite"):
+        per = {"kernel_leaves": 0, "host_leaves": [], "kernel_ms": 0.0,
+               "plain_ms": 0.0, "host_ms": 0.0, "bytes": 0,
+               "bit_exact": True}
+
+        def merged_leaves():
+            for (path, f), c in pairs:
+                before = dm.launches
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                merged, dirty = ds.fused_diff_apply(f, f, c, op=op)
+                end.record()
+                torch.cuda.synchronize()
+                n = ds.as_tensor(f).numel()
+                if dm.launches == before:
+                    per["host_leaves"].append(path)
+                    per["host_ms"] += start.elapsed_time(end)
+                else:
+                    assert n >= ds.KERNEL_MIN_ELEMS, path
+                    per["kernel_leaves"] += 1
+                    per["kernel_ms"] += start.elapsed_time(end)
+                    per["bytes"] += _dm_bytes(n, f.element_size())
+                    start.record()
+                    rm, rd = dr.diff_merge_leaf_ref(f, f, c, op=op)
+                    end.record()
+                    torch.cuda.synchronize()
+                    per["plain_ms"] += start.elapsed_time(end)
+                    per["bit_exact"] &= _dm_same(torch, merged, rm) and \
+                        bool(torch.equal(dirty, rd))
+                    del rm, rd
+                yield merged
+                del merged, dirty
+
+        if op == "overwrite":
+            per["fingerprint"] = _fingerprint(merged_leaves())
+            per["fingerprint_is_childs"] = per["fingerprint"] == child_fp
+        else:
+            for _ in merged_leaves():
+                pass
+        per["bound_ms"] = per["bytes"] / HBM_BYTES_PER_S * 1e3
+        per["gbytes_per_s"] = per["bytes"] / per["kernel_ms"] * 1e-6
+        res[op] = per
+    res["launches"] = dm.launches
+    big = sum(ds.as_tensor(f).numel() >= ds.KERNEL_MIN_ELEMS
+              for (_, f), _ in pairs)
+    print(f"diffsync-check {json.dumps(res)}", flush=True)
+    del fork, child, pairs
+    torch.cuda.empty_cache()
+    assert res["launches"] == 2 * big, (res["launches"], big)
+    for op in ("sum", "overwrite"):
+        assert res[op]["kernel_leaves"] == big and res[op]["bit_exact"], res
+        assert all("norm" in p or "step" in p or "ln" in p
+                   for p in res[op]["host_leaves"]), res
+    assert res["overwrite"]["fingerprint_is_childs"], res
+    return res
+
+
+def _disk_check(need_bytes):
+    os.makedirs(CKPT_ROOT, exist_ok=True)
+    usage = shutil.disk_usage(CKPT_ROOT)
+    row = {"dir": CKPT_ROOT, "free_gb": usage.free / 1e9,
+           "need_gb": need_bytes / 1e9}
+    print(f"ckpt-disk {json.dumps(row)}", flush=True)
+    if usage.free < need_bytes:
+        raise RuntimeError(f"{CKPT_ROOT} has {usage.free / 1e9:.1f} GB free; "
+                           f"the ckpt phase writes {need_bytes / 1e9:.1f} GB")
+
+
+def ckpt_check(torch, cfg, state_bytes):
+    """Checkpoints, failure recovery, a delta chain and a delta migration
+    of the full-width train state.  The gang runs 4 ranks in 2 pods with
+    compressed sync at frac 1.0: recovery resets the error-feedback
+    residual as the JAX runtime does, and at frac 1.0 the residual is
+    zero, so the recovered run must repeat the lost steps' losses (at
+    frac 0.05 it could not; tests/test_torch_train_loop.py pins that)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import migration as mig
+    from repro_torch.core import snapshot as snap_mod
+    from repro_torch.core import telemetry
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import (FaabricTrainRuntime,
+                                                RuntimeConfig)
+    from repro_torch.weights import tree_leaves
+
+    steps = 4
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=GANG["seq_len"],
+                      global_batch=GANG["global_batch"])
+    ocfg = AdamWConfig(lr=GANG["lr"], warmup_steps=1, total_steps=steps)
+    _disk_check(3 * state_bytes)       # run b keeps three full checkpoints
+    def gang(name, failures):
+        rt = RuntimeConfig(total_steps=steps, sync_mode="compressed",
+                           compress_frac=1.0, pods=GANG["pods"],
+                           checkpoint_every=2,
+                           ckpt_dir=os.path.join(CKPT_ROOT, name),
+                           inject_failures=failures)
+        runtime = FaabricTrainRuntime(cfg, ocfg, dcfg, rt,
+                                      ranks=GANG["ranks"], device="cuda")
+        tel = telemetry.enable()
+        t0 = time.perf_counter()
+        try:
+            state, out = runtime.run(seed=0)
+        finally:
+            telemetry.disable()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        spans = [{"name": sp["name"], "s": sp["t1"] - sp["t0"],
+                  **{k: sp["attrs"][k] for k in ("step", "kind")}}
+                 for sp in tel.spans if sp["name"].startswith("ckpt.")]
+        return state, out, runtime.ckpt.stats, spans, wall
+
+    state, base, stats_a, spans_a, wall_a = gang("a", {})
+    full_bytes = stats_a[0]["full_bytes"]
+    fp_a = snap_mod._fingerprint(tree_leaves(state))
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(CKPT_ROOT, "a"))
+    state, failed, stats_b, spans_b, wall_b = gang("b", {3: "chip_smoke"})
+    fp_b = snap_mod._fingerprint(tree_leaves(state))
+    shutil.rmtree(os.path.join(CKPT_ROOT, "b"))
+    diff = max(abs(x - y) for x, y in zip(base["losses"], failed["losses"]))
+    res = {"recoveries": failed["recoveries"], "losses": base["losses"],
+           "losses_recovered": failed["losses"], "max_abs_diff": diff,
+           "atol": 1e-6, "fingerprints_equal": fp_a == fp_b,
+           "full_bytes": full_bytes, "wall_s": [wall_a, wall_b],
+           "saves": [{k: s[k] for k in ("step", "kind", "bytes",
+                                        "device_to_host_s")}
+                     for s in stats_b],
+           "spans": {run: [{**sp, "gbytes_per_s": full_bytes / sp["s"] * 1e-9}
+                           for sp in spans]
+                     for run, spans in (("a", spans_a), ("b", spans_b))}}
+    print(f"ckpt {json.dumps(res)}", flush=True)
+    assert res["recoveries"] == 1, res
+    assert len(failed["losses"]) == steps and diff <= 1e-6, res
+
+    # a (base, delta*) chain over 3 saves: rows of the embedding and the
+    # step move between saves, as a sparse update would
+    mgr = CheckpointManager(os.path.join(CKPT_ROOT, "chain"), job_id="chain",
+                            delta_chain=True)
+    emb = state["params"]["embed"]
+    t0 = time.perf_counter()
+    for s in range(3):
+        if s:
+            emb[1000 * s:1000 * s + 16].add_(1.0)
+            state["opt"]["step"] += 1
+        mgr.save(s, state, blocking=s == 2)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, step = mgr.restore(2, device="cuda")
+    restore_s = time.perf_counter() - t0
+    exact = step == 2 and all(
+        a == b if isinstance(a, int) else bool(torch.equal(a, b))
+        for a, b in zip(tree_leaves(restored), tree_leaves(state)))
+    del restored
+    chain = {"kinds": [s["kind"] for s in mgr.stats],
+             "bytes": [s["bytes"] for s in mgr.stats],
+             "full_bytes": mgr.stats[0]["full_bytes"],
+             "save_s": save_s, "restore_s": restore_s, "bit_exact": exact}
+    shutil.rmtree(os.path.join(CKPT_ROOT, "chain"))
+
+    # a delta migration: the target holds the step-4 snapshot already
+    prior = snap_mod.take("job0", 4, state)
+    emb[5000:5008].mul_(2.0)
+    state["opt"]["step"] += 1
+    moved, mst = mig.migrate_via_snapshot("job0", 5, state, "cuda",
+                                          prior=prior)
+    del prior
+    verified = mig.verify_migration(state, moved)
+    migration = {k: mst[k] for k in ("full_bytes", "moved_bytes", "delta",
+                                      "seconds")}
+    migration["verified"] = verified
+    res2 = {"chain": chain, "migration": migration}
+    print(f"ckpt-delta {json.dumps(res2)}", flush=True)
+    del state, moved
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    assert chain["kinds"] == ["full", "delta", "delta"] and exact, res2
+    assert max(chain["bytes"][1:]) * 100 < chain["full_bytes"], res2
+    assert verified and mst["moved_bytes"] * 100 < mst["full_bytes"], res2
+    return res, res2
 
 
 def main() -> int:
@@ -907,9 +1323,12 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.collective_codec import ops as co
     from repro_torch.kernels.collective_codec import ref as cr
+    from repro_torch.kernels.diff_merge import ops as dm
+    from repro_torch.kernels.diff_merge import ref as dr
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.models import transformer as tf
+    from repro_torch.weights import tree_leaves
 
     # 1. environment
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -941,8 +1360,9 @@ def main() -> int:
     rows = check_kernel(torch, fa_ops, fa_ref, F)
     bwd_rows = check_backward(torch, fa_ops, fa_ref, F)
     codec_rows = check_codec(torch, co, cr)
+    dm_rows = check_diff_merge(torch, dm, dr)
     bad = [r for r in rows + bwd_rows if not r["ok"]] + \
-        [r for r in codec_rows if not r["bit_exact"]]
+        [r for r in codec_rows + dm_rows if not r["bit_exact"]]
     assert not bad, bad
     main_row = next(r for r in rows if r["B"] == 1 and r["S"] == 1024
                     and r["hd"] == 64 and r["window"] == 0 and r["causal"]
@@ -961,17 +1381,41 @@ def main() -> int:
     # 5. train full-width llama3.2-1b: checks, then the gang
     train_check(torch, cfg, params)
     sync_check(torch, cfg, params)
+    # the train state: params, and the f32 moments m and v; the int step
+    state_bytes = sum(t.numel() * (t.element_size() + 8)
+                      for t in tree_leaves(params)) + 4
     del params
     torch.cuda.empty_cache()
-    _, train_launches = train(torch, cfg)
+    _, train_launches = train(torch, cfg, state_bytes)
 
-    # 6. results
+    # 6. the data plane over the full-width train state; every kernel's
+    # count is set to 0 before each path and read after it
+    mods = {"flash_attention": (fa_ops, "launches"),
+            "flash_attention_bwd": (fa_ops, "bwd_launches"),
+            "collective_codec": (co, "launches"),
+            "diff_merge": (dm, "launches")}
+    plane = dict.fromkeys(mods, 0)
+
+    def counted(path):
+        for mod, attr in mods.values():
+            setattr(mod, attr, 0)
+        out = path()
+        for name, (mod, attr) in mods.items():
+            plane[name] += getattr(mod, attr)
+        return out
+    ds_res = counted(lambda: diffsync_check(torch, cfg))
+    counted(lambda: ckpt_check(torch, cfg, state_bytes))
+    print(f"data-plane-launches {json.dumps(plane)}", flush=True)
+    assert plane["diff_merge"] > 0, plane
+
+    # 7. results
     src = "src/repro_torch/kernels/"
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": src + "flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
-        "launches": serve_launches + train_launches["flash_attention"],
+        "launches": serve_launches + train_launches["flash_attention"]
+        + plane["flash_attention"],
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -979,7 +1423,8 @@ def main() -> int:
         "name": "flash_attention_bwd", "route": "cuda",
         "source": src + "flash_attention/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
-        "launches": train_launches["flash_attention_bwd"],
+        "launches": train_launches["flash_attention_bwd"]
+        + plane["flash_attention_bwd"],
         "max_abs_err": bwd_row["max_abs_err"],
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
@@ -987,11 +1432,22 @@ def main() -> int:
         "name": "collective_codec", "route": "cuda",
         "source": src + "collective_codec/csrc/collective_codec.cu",
         "replaces": "src/repro/kernels/collective_codec/kernel.py:36",
-        "launches": train_launches["collective_codec"],
+        "launches": train_launches["collective_codec"]
+        + plane["collective_codec"],
         "max_abs_err": codec_row["max_abs_err"],
         "ms": codec_row["ms"], "plain_ms": codec_row["plain_ms"],
         "bound_ms": codec_row["bound_ms"],
-        "bound_by": codec_row["bound_by"], "library_ms": None}]
+        "bound_by": codec_row["bound_by"], "library_ms": None}, {
+        # the main path's shapes: the whole train state's fused sum pass
+        "name": "diff_merge", "route": "cuda",
+        "source": src + "diff_merge/csrc/diff_merge.cu",
+        "replaces": "src/repro/kernels/diff_merge/kernel.py:64",
+        "launches": plane["diff_merge"],
+        "max_abs_err": 0.0 if ds_res["sum"]["bit_exact"] else None,
+        "ms": ds_res["sum"]["kernel_ms"],
+        "plain_ms": ds_res["sum"]["plain_ms"],
+        "bound_ms": ds_res["sum"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

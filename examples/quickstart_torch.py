@@ -28,7 +28,8 @@ def main(argv=None):
     cfg = reduced_config("llama3.2-1b")
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=8, seed=0)
     ocfg = AdamWConfig(lr=3e-3, warmup_steps=3, total_steps=30)
-    rt = RuntimeConfig(total_steps=30, checkpoint_every=0, pods=2,
+    rt = RuntimeConfig(total_steps=30, checkpoint_every=10,
+                       ckpt_dir="/tmp/repro-quickstart", pods=2,
                        sync_mode="compressed", compress_frac=0.05)
 
     runtime = FaabricTrainRuntime(cfg, ocfg, dcfg, rt, ranks=4,

@@ -87,6 +87,7 @@ class Telemetry:
         self.gauges: Dict[str, float] = {}
         self.gauge_series: Dict[str, List[Tuple[float, float]]] = {}
         self.histograms: Dict[str, _Histogram] = {}
+        self.instants: List[Dict[str, Any]] = []
         self._t_origin = time.perf_counter()
 
     # ---- recording ----------------------------------------------------------
@@ -95,6 +96,13 @@ class Telemetry:
         """Record a span with explicit start/end (either clock)."""
         self.spans.append({"name": name, "t0": t0, "t1": t1,
                            "track": track, "clock": clock, "attrs": attrs})
+
+    def instant(self, name: str, t: Optional[float] = None,
+                track: str = "main", clock: str = "wall", **attrs) -> None:
+        if t is None:
+            t = time.perf_counter()
+        self.instants.append({"name": name, "t": t, "track": track,
+                              "clock": clock, "attrs": attrs})
 
     def count(self, name: str, inc: float = 1) -> None:
         self.counters[name] = self.counters.get(name, 0) + inc
@@ -126,6 +134,7 @@ class Telemetry:
             span_n[s["name"]] = span_n.get(s["name"], 0) + 1
         return {
             "spans_total": len(self.spans),
+            "instants_total": len(self.instants),
             "span_counts": dict(sorted(span_n.items())),
             "span_seconds": {k: round(v, 9)
                              for k, v in sorted(span_s.items())},
@@ -186,6 +195,18 @@ class Telemetry:
                 "dur": max(0.0, round((s["t1"] - s["t0"]) * 1e6, 3)),
                 "args": _plain(s["attrs"]),
             })
+        for ev in self.instants:
+            pid = pid_for(ev["track"], ev["clock"])
+            ensure_pid(pid)
+            t = ev["t"] if ev["clock"] == "virtual" \
+                else ev["t"] - self._t_origin
+            events.append({
+                "ph": "i", "s": "t", "name": ev["name"],
+                "cat": cat_of(ev["name"]),
+                "pid": pid, "tid": tid_for(pid, ev["track"]),
+                "ts": round(t * 1e6, 3),
+                "args": _plain(ev["attrs"]),
+            })
         ensure_pid(10)
         ctr_tid = 0   # counter events render per-name, tid unused
         for name, series in sorted(self.gauge_series.items()):
@@ -226,6 +247,9 @@ class _NoopTelemetry(Telemetry):
         super().__init__()
 
     def span_at(self, *a, **k) -> None:
+        pass
+
+    def instant(self, *a, **k) -> None:
         pass
 
     def count(self, *a, **k) -> None:

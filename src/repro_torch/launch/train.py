@@ -3,9 +3,10 @@
 
 Runs the gang runtime (``runtime.train_loop``) over ``--ranks`` virtual
 ranks on one device, ``--pods`` pods of ``ranks / pods``; gradients sync
-with the chosen schedule.  Checkpoints, failure injection and rescale
-(``--checkpoint-every``, ``--ckpt-dir``, ``--fail-at``, ``--rescale``)
-wait for later slices of the port and raise if set.
+with the chosen schedule; control points checkpoint every
+``--checkpoint-every`` steps into ``--ckpt-dir`` and recover from a
+failure injected with ``--fail-at``.  Elastic rescale (``--rescale``)
+waits for a later slice of the port and raises if set.
 
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
@@ -25,8 +26,6 @@ from repro_torch.data.pipeline import DataConfig
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.train_loop import FaabricTrainRuntime, RuntimeConfig
 
-LATER = "not ported yet (ROADMAP slice %s); must stay at its default"
-
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -45,19 +44,15 @@ def main(argv=None):
                     help="virtual ranks (Granules) of the gang on the device")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs without a GPU")
-    ap.add_argument("--checkpoint-every", type=int, default=0,
-                    help="checkpoint cadence: " + LATER % "(b)")
-    ap.add_argument("--ckpt-dir", default="",
-                    help="checkpoint directory: " + LATER % "(b)")
+    ap.add_argument("--checkpoint-every", type=int, default=20)
+    ap.add_argument("--ckpt-dir", default="/tmp/repro-train")
     ap.add_argument("--fail-at", type=int, default=-1,
-                    help="inject a failure at this step: " + LATER % "(b)")
+                    help="inject a failure at this step (recovery demo)")
     ap.add_argument("--rescale", default="",
-                    help="step:world pairs, e.g. '20:4,40:8': "
-                    + LATER % "(c)")
+                    help="step:world pairs, e.g. '20:4,40:8': not ported "
+                    "yet (ROADMAP slice (c)); must stay at its default")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: " + LATER % "(b)")
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
@@ -72,7 +67,7 @@ def main(argv=None):
     rt = RuntimeConfig(
         total_steps=args.steps, sync_mode=args.sync,
         compress_frac=args.compress_frac, pods=args.pods,
-        checkpoint_every=args.checkpoint_every,
+        checkpoint_every=args.checkpoint_every, ckpt_dir=args.ckpt_dir,
         inject_failures=({args.fail_at: "cli"} if args.fail_at >= 0 else {}),
         rescale_at=rescale)
 

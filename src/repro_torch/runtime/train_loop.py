@@ -10,11 +10,19 @@ devices on one CPU: rank ``r`` computes its gradient on batch slice ``r``,
 and the ranks' gradients are summed into their pods' shards as they
 finish, so one rank's gradient is held at a time.
 
+Every step boundary is a control point (``core.control``): the runtime
+checkpoints through ``checkpoint.manager`` (a blocking save of step 0,
+then non-blocking saves at the runner's ``checkpoint`` actions) and, at an
+injected failure, restarts the gang from the latest checkpoint with a
+fresh residual buffer (paper §3.4), as the JAX runtime does.  The
+deterministic (seed, step)-keyed batches make the recovered run repeat
+the lost steps.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: checkpoints, failure recovery and incremental checkpoints
-(slice (b), ``CheckpointManager``), elastic rescale, migration, the
-``auto`` sync mode and the placement settings (slice (c), ``Fabric`` /
-``GangHandle`` / ``CollectiveTuner``).
+ignored: elastic rescale, the ``auto`` sync mode and the placement
+settings (slice (c), ``Fabric`` / ``GangHandle`` / ``CollectiveTuner``).
+A straggler's ``migrate`` action is kept in ``control.history``; the gang
+stays where it is until slice (c) gives it somewhere to go.
 """
 from __future__ import annotations
 
@@ -25,14 +33,15 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import collectives as coll
+from repro_torch.core import control as ctl
 from repro_torch.data import pipeline as dp
 from repro_torch.models import model as model_mod
 from repro_torch.optim import adamw
 from repro_torch.weights import tree_leaves
 
-_SLICE_B = "slice (b): checkpoints and recovery (CheckpointManager)"
 _SLICE_C = "slice (c): the fabric (Fabric, GangHandle, CollectiveTuner)"
 
 
@@ -43,11 +52,12 @@ class RuntimeConfig:
     # fabric's CollectiveTuner; not ported yet)
     sync_mode: str = "hierarchical"
     compress_frac: float = 0.05
-    checkpoint_every: int = 10         # not ported yet: pass 0
+    checkpoint_every: int = 10
     ckpt_dir: str = "/tmp/repro-ckpt"
     chips_per_host: int = 4            # host granularity of the fabric
     incremental_ckpt_every: int = 0
-    # fault injection: {step: description}
+    # fault injection: {step: description}; a failure at step s is found
+    # before step s runs and restarts the gang from the latest checkpoint
     inject_failures: Dict[int, str] = dataclasses.field(default_factory=dict)
     # elastic schedule: {step: new_world_size}
     rescale_at: Dict[int, int] = dataclasses.field(default_factory=dict)
@@ -60,9 +70,6 @@ class RuntimeConfig:
 def _refuse_unported(rt: RuntimeConfig) -> None:
     """Raise for every field that asks for a feature not ported yet."""
     asks = [
-        (rt.checkpoint_every > 0, "checkpoint_every > 0", _SLICE_B),
-        (rt.incremental_ckpt_every > 0, "incremental_ckpt_every", _SLICE_B),
-        (bool(rt.inject_failures), "inject_failures", _SLICE_B),
         (bool(rt.rescale_at), "rescale_at", _SLICE_C),
         (rt.elastic is not None, "elastic", _SLICE_C),
         (rt.sync_mode == "auto", 'sync_mode="auto"', _SLICE_C),
@@ -145,6 +152,11 @@ class FaabricTrainRuntime:
         self.pods = rt.pods
         self.data = ranks // rt.pods
         self.sync_mode = rt.sync_mode
+        self.ckpt = CheckpointManager(
+            rt.ckpt_dir, job_id=job_id,
+            incremental_every=rt.incremental_ckpt_every)
+        self.control = ctl.ControlPointRunner(
+            checkpoint_every=rt.checkpoint_every)
         self.log: List[Dict[str, Any]] = []
         self._step_fn = make_dp_train_step(cfg, opt_cfg, self.pods,
                                            self.data, self.sync_mode,
@@ -160,29 +172,53 @@ class FaabricTrainRuntime:
         return model_mod.init_train_state(gen, self.cfg, self.opt_cfg,
                                           device=self.device)
 
+    def _init_resid(self, state):
+        return (coll.init_residual_buffer(state["params"], self.pods,
+                                          self.data)
+                if self.sync_mode == "compressed" else None)
+
     def run(self, seed: int = 0, state=None,
             batch_fn: Optional[Callable[[dp.DataConfig, int],
                                         Dict[str, Any]]] = None):
         """Train ``rt.total_steps`` steps; returns (state, report) with the
         JAX runtime's report keys.  ``batch_fn(data_cfg, step)`` gives the
         global batch of a step (default ``data.pipeline.make_batch``)."""
+        rt = self.rt
         batch_fn = batch_fn or dp.make_batch
         if state is None:
             state = self.init_state(seed)
-        resid = (coll.init_residual_buffer(state["params"], self.pods,
-                                           self.data)
-                 if self.sync_mode == "compressed" else None)
-        losses = []
-        for step in range(self.rt.total_steps):
+        resid = self._init_resid(state)
+        # checkpoint step semantics: "state before running step k"
+        self.ckpt.save(0, state, blocking=True)
+        step = 0
+        losses: Dict[int, float] = {}
+        recoveries = 0
+        while step < rt.total_steps:
+            # control point A: failure detection before the step
+            if step in rt.inject_failures and recoveries < 8:
+                rt.inject_failures.pop(step, None)
+                state = resid = None    # the gang's device state is lost
+                state, step = self.ckpt.restore(device=self.device)
+                recoveries += 1
+                resid = self._init_resid(state)
+                continue
             t0 = time.perf_counter()
             batch = {k: torch.as_tensor(v).to(self.device)
                      for k, v in batch_fn(self.data_cfg, step).items()}
             state, metrics, resid = self._step_fn(state, batch, resid)
             loss = float(metrics["loss"])       # waits for the device
             step_time = time.perf_counter() - t0
-            losses.append(loss)
+            losses[step] = loss
             self.log.append({"step": step, "loss": loss, "time": step_time,
                              "world": self.ranks})
-        return state, {"losses": losses, "recoveries": 0, "rescales": 0,
+            # control point B (a barrier: the gradient sync is complete);
+            # migrate and rescale actions wait for slice (c)
+            for act in self.control.on_step(step + 1, step_time, self.ranks):
+                if act.kind == "checkpoint":
+                    self.ckpt.save(step + 1, state, blocking=False)
+            step += 1
+        self.ckpt.wait()
+        return state, {"losses": [losses[s] for s in sorted(losses)],
+                       "recoveries": recoveries, "rescales": 0,
                        "migrations": 0, "straggler_migrations": 0,
                        "log": self.log}

@@ -90,6 +90,21 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
+def tree_leaves_with_path(tree: Any, prefix: str = "") -> list:
+    """``(path, leaf)`` pairs in ``tree_leaves`` order; a path is the
+    string ``jax.tree_util.keystr`` gives the same leaf of the JAX tree
+    (``"['opt']['m']['embed']"``, ``"['params']['blocks'][0]['wq']"``)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree) for pair in
+                tree_leaves_with_path(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [pair for i, v in enumerate(tree) for pair in
+                tree_leaves_with_path(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
 def tree_unflatten(like: Any, leaves) -> Any:
     """A tree of ``like``'s structure whose leaves, in ``tree_leaves``
     order, are ``leaves`` (the inverse of ``tree_leaves``)."""

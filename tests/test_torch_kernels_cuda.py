@@ -195,3 +195,110 @@ def test_cuda_matmul_f32out_has_no_f32_copy_and_a_gradient(cuda_device):
     assert gx.dtype == gw.dtype == torch.bfloat16
     torch.testing.assert_close(gx.float(), rx.float(), atol=0.1, rtol=2e-2)
     torch.testing.assert_close(gw.float(), rw.float(), atol=0.1, rtol=2e-2)
+
+
+def _dm_inputs(shape, dtype, op, device, seed):
+    """a0, b0 and b1 = b0 with a few chunks changed (plus NaN and -0
+    chunks for floats)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    if dt.is_floating_point:
+        a0, b0 = ((torch.randn(shape, generator=gen, device=device) + 2.0)
+                  .to(dt) for _ in range(2))
+    else:
+        lo = 1 if op in ("multiply", "divide") else -2 ** 20
+        a0, b0 = (torch.randint(lo, 2 ** 20, shape, generator=gen,
+                                device=device, dtype=dt) for _ in range(2))
+    b1 = b0.clone()
+    flat = b1.view(-1)
+    flat[::97] *= 3
+    flat[5:40] += 7
+    if dt.is_floating_point and flat.numel() > 3 * 1024:
+        b0.view(-1)[2048 + 9] = float("nan")    # NaN in both: dirty
+        flat[2048 + 9] = float("nan")
+        flat[1024:2048] = b0.view(-1)[1024:2048]
+        b0.view(-1)[1024 + 7] = 0.0
+        flat[1024 + 7] = -0.0                     # -0 vs +0: clean
+    return a0, b0, b1
+
+
+def _dm_bits_equal(x, y):
+    """Bit for bit where not NaN; NaN where NaN (payloads aside)."""
+    if not x.dtype.is_floating_point:
+        return torch.equal(x, y)
+    nan = torch.isnan(x)
+    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+    return torch.equal(nan, torch.isnan(y)) and torch.equal(
+        x.view(view)[~nan], y.view(view)[~nan])
+
+
+DM_CASES = [(op, dt) for op in ("sum", "subtract", "multiply", "divide",
+                                "overwrite")
+            for dt in ("bfloat16", "float32", "float64", "float16", "int32")]
+DM_CASES += [(op, "int64") for op in ("sum", "subtract", "overwrite")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dtype", DM_CASES)
+@pytest.mark.parametrize("shape", [(32, 1024), (13, 77), (3333,)])
+def test_cuda_diff_merge_bit_exact_to_plain(cuda_device, op, dtype, shape):
+    from repro_torch.kernels.diff_merge import ops as DO
+    from repro_torch.kernels.diff_merge import ref as DR
+    a0, b0, b1 = _dm_inputs(shape, dtype, op, cuda_device, len(op))
+    before = DO.launches
+    out, dirty = DO.diff_merge_leaf(a0, b0, b1, op=op)
+    assert DO.launches == before + 1
+    rout, rdirty = DR.diff_merge_leaf_ref(a0, b0, b1, op=op)
+    torch.cuda.synchronize()
+    assert out.shape == a0.shape and out.dtype == a0.dtype
+    assert torch.equal(dirty, rdirty) and bool(dirty.any())
+    assert _dm_bits_equal(out, rout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float64"])
+def test_cuda_diff_merge_unaligned_views(cuda_device, dtype):
+    """Views that start one element in take the kernel's scalar loads."""
+    from repro_torch.kernels.diff_merge import ops as DO
+    from repro_torch.kernels.diff_merge import ref as DR
+    a0, b0, b1 = (x.view(-1)[1:5001] for x in
+                  _dm_inputs((5002,), dtype, "sum", cuda_device, 9))
+    out, dirty = DO.diff_merge_leaf(a0, b0, b1, op="sum")
+    rout, rdirty = DR.diff_merge_leaf_ref(a0, b0, b1, op="sum")
+    torch.cuda.synchronize()
+    assert torch.equal(dirty, rdirty) and _dm_bits_equal(out, rout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["multiply", "divide"])
+def test_cuda_diff_merge_int32_clean_chunks_round(cuda_device, op):
+    from repro_torch.kernels.diff_merge import ops as DO
+    a0 = torch.full((2, 1024), 2 ** 24 + 1, dtype=torch.int32,
+                    device=cuda_device)
+    b0 = torch.full_like(a0, 4)
+    b1 = b0.clone()
+    b1[1, 0] = 8
+    b1[1, 1] = 2 ** 30                    # saturates under multiply
+    out, dirty = DO.diff_merge_leaf(a0, b0, b1, op=op)
+    assert dirty.tolist() == [False, True]
+    assert bool((out[0] == 2 ** 24).all())   # clean, yet rounded in f32
+    if op == "multiply":
+        assert out[1, 1].item() == 2 ** 31 - 1
+
+
+@pytest.mark.cuda
+def test_cuda_fused_diff_apply_sends_large_leaves_to_the_kernel(cuda_device):
+    from repro_torch.core import diffsync as DS
+    from repro_torch.kernels.diff_merge import ops as DO
+    big = _dm_inputs((DS.KERNEL_MIN_ELEMS,), "float32", "sum", cuda_device, 1)
+    small = _dm_inputs((3000,), "float32", "sum", cuda_device, 2)
+    before = DO.launches
+    merged, dirty = DS.fused_diff_apply(*big, op="overwrite")
+    assert DO.launches == before + 1 and merged.is_cuda
+    assert torch.equal(merged, big[2]) or bool(torch.isnan(big[2]).any())
+    host, hdirty = DS.fused_diff_apply(*small, op="sum")
+    assert DO.launches == before + 1      # small: the host path
+    assert host.is_cuda and hdirty.is_cuda
+    want, wdirty = DS.fused_diff_apply(*(x.cpu() for x in small), op="sum",
+                                       use_kernel=False)
+    assert torch.equal(host.cpu(), want) and torch.equal(hdirty.cpu(), wdirty)
