@@ -1,0 +1,113 @@
+"""Wrapper of the moe_gmm kernel: the fused expert FFN over
+capacity-dispatched MoE inputs (PyTorch port of
+``repro.kernels.moe_gmm.ops``).
+
+``expert_ffn`` takes the model layout (G, E, C, d) and reshapes it to the
+kernel's (E, G·C, d), experts outermost, as the JAX wrapper does.  A CUDA
+tensor goes to the hand-written kernel (``csrc/moe_gmm.cu``) or the call
+raises; a CPU tensor goes to the plain version (``ref.expert_ffn_ref``).
+There is no fallback from one to the other.  The kernel has no backward
+yet, so on CUDA the wrapper refuses inputs that want a gradient.
+``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.moe_gmm.ref import expert_ffn_ref
+
+launches = 0            # kernel launches since the last reset
+
+ACTS = ("silu", "gelu")
+MAX_D = 1024            # widest d_model the kernel's f32 accumulator holds
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# x, w1, w3, w2, y; E, M, d, ff; act, dtype, stream
+_SIG = {"mg_ffn": [_P] * 5 + [_I] * 4 + [_I, _I, _P]}
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def lib():
+    from repro_torch.kernels import _build
+    return _build.load("moe_gmm", _SOURCE, _SIG)
+
+
+def _check(x, w1, w2, w3, act):
+    if act not in ACTS:
+        raise ValueError(f"moe_gmm: act {act!r} not in {ACTS}")
+    if x.dim() != 3:
+        raise ValueError(f"moe_gmm: x must be (E, M, d), got "
+                         f"{tuple(x.shape)}")
+    e, _, d = x.shape
+    ff = w1.shape[-1]
+    if (w1.shape != (e, d, ff) or w3.shape != (e, d, ff)
+            or w2.shape != (e, ff, d)):
+        raise ValueError(f"moe_gmm: shapes x {tuple(x.shape)} w1 "
+                         f"{tuple(w1.shape)} w3 {tuple(w3.shape)} w2 "
+                         f"{tuple(w2.shape)}")
+
+
+def _launch(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+            w3: torch.Tensor, act: str) -> torch.Tensor:
+    """The kernel on contiguous CUDA tensors x (E, M, d), w1/w3 (E, d, ff),
+    w2 (E, ff, d) of one dtype -> y (E, M, d)."""
+    global launches
+    _check(x, w1, w2, w3, act)
+    ts = (x, w1, w2, w3)
+    if not all(t.is_cuda and t.device == x.device for t in ts):
+        raise TypeError("moe_gmm: x, w1, w2 and w3 must be on one CUDA "
+                        "device")
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in ts):
+        raise TypeError(f"moe_gmm: dtypes {[t.dtype for t in ts]}; need "
+                        "float32 or bfloat16, all alike")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("moe_gmm: x, w1, w2 and w3 must be contiguous")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            "moe_gmm: the kernel has no backward yet (ROADMAP, 'The port: "
+            "slices': training of the MoE and hybrid families)")
+    e, m, d = x.shape
+    ff = w1.shape[-1]
+    if not (e > 0 and m > 0 and ff > 0 and 0 < d <= MAX_D):
+        raise ValueError(f"moe_gmm: E {e}, M {m}, ff {ff}, d {d}; need "
+                         f"all > 0 and d <= {MAX_D}")
+    y = torch.empty_like(x)
+    handle = lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = handle.mg_ffn(x.data_ptr(), w1.data_ptr(), w3.data_ptr(),
+                            w2.data_ptr(), y.data_ptr(), e, m, d, ff,
+                            ACTS.index(act), _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"moe_gmm: CUDA error {err} at launch")
+    launches += 1
+    return y
+
+
+def expert_ffn_kernel_layout(x: torch.Tensor, w1: torch.Tensor,
+                             w2: torch.Tensor, w3: torch.Tensor, *,
+                             act: str = "silu") -> torch.Tensor:
+    """x: (E, M, d) -> (E, M, d): the kernel on CUDA tensors, the plain
+    version on CPU ones (the JAX package's ``kernel.expert_ffn``)."""
+    _check(x, w1, w2, w3, act)
+    if x.is_cuda:
+        return _launch(x.contiguous(), w1.contiguous(), w2.contiguous(),
+                       w3.contiguous(), act)
+    return expert_ffn_ref(x, w1, w2, w3, act=act)
+
+
+def expert_ffn(xe: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+               w3: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
+    """xe: (G, E, C, d) dispatched tokens -> (G, E, C, d)."""
+    g, e, c, d = xe.shape
+    x = xe.transpose(0, 1).reshape(e, g * c, d)
+    y = expert_ffn_kernel_layout(x, w1, w2, w3, act=act)
+    return y.reshape(e, g, c, d).transpose(0, 1)

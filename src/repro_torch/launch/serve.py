@@ -6,13 +6,17 @@ bursty) and enter a ``ContinuousServeLoop`` slot as soon as one frees;
 ``--engine fixed`` replays the same stream through the drain-to-slowest
 batch loop, and ``--engine both`` reports the head-to-head.  Latency
 percentiles are in virtual seconds (one decode step = ``--step-ms``);
-``wall_s`` is real time.  The port serves the dense family; other
-families raise ``NotImplementedError``.
+``wall_s`` is real time.  The port serves the dense, MoE and hybrid
+families (llama3.2-1b, granite-moe-1b-a400m, zamba2-2.7b, ...); the
+xLSTM, audio and VLM families raise ``NotImplementedError``.  Hybrid
+configs prefill at the exact prompt length.
 
 Example:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --engine both --arrival-regime burst --offered-load 0.6 \\
         --requests 24 --target-p99-ms 400 --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --engine both --device cpu
 """
 from __future__ import annotations
 

@@ -13,7 +13,8 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import fused_unembed_xent, matmul_f32out
 from repro_torch.optim import adamw
-from repro_torch.weights import tree_leaves, tree_map, tree_unflatten
+from repro_torch.weights import (tree_leaves, tree_leaves_with_path,
+                                 tree_map, tree_unflatten)
 
 # zamba2's shared attention block uses this sliding window for the
 # long_500k shape (sub-quadratic adaptation, DESIGN.md §4).
@@ -21,10 +22,19 @@ LONG_CONTEXT_WINDOW = 4096
 
 
 @functools.lru_cache(maxsize=64)
-def count_params(cfg: ArchConfig) -> int:
-    """Exact parameter count, from the init's shapes on the meta device."""
+def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
+    """Exact parameter count, from the init's shapes on the meta device.
+    With ``active_only`` an MoE's expert weights count ``top_k`` of their
+    ``n_experts`` (the parameters one token runs through)."""
     params = tf.init_params(None, cfg, device="meta")
-    return int(sum(t.numel() for t in tree_leaves(params)))
+    total = 0
+    for path, leaf in tree_leaves_with_path(params):
+        n = leaf.numel()
+        if active_only and cfg.n_experts and "['moe']" in path \
+                and path.endswith(("['w1']", "['w2']", "['w3']")):
+            n = n * cfg.top_k // cfg.n_experts
+        total += n
+    return int(total)
 
 
 def _ctx_from_batch(cfg, batch, **extra):
@@ -67,7 +77,8 @@ def _grad_leaves(params):
     period's gradient into a zero tensor of the whole stack."""
     def leaf(t):
         return t.detach().requires_grad_()
-    blocks = [[tree_map(lambda a, i=i: leaf(a[i]), stacked)
+    blocks = [None if stacked is None else
+              [tree_map(lambda a, i=i: leaf(a[i]), stacked)
                for i in range(tree_leaves(stacked)[0].shape[0])]
               for stacked in params["blocks"]]
     tree = {k: (blocks if k == "blocks" else tree_map(leaf, v))
@@ -91,6 +102,7 @@ def make_grad_fn(cfg: ArchConfig) -> Callable:
         per_period = tree_unflatten(tree, flat)
         grads = {k: v for k, v in per_period.items() if k != "blocks"}
         grads["blocks"] = [
+            None if periods is None else
             tree_unflatten(periods[0], [
                 torch.stack(xs) for xs in
                 zip(*(tree_leaves(p) for p in periods))])

@@ -1,15 +1,17 @@
-"""Block stack of the dense ATTN family (PyTorch port of
+"""Block stack of the dense, MoE and hybrid families (PyTorch port of
 ``repro.models.transformer``).
 
 The stack is ``n_periods`` repetitions of a period of block kinds (see
 ``ArchConfig.period()``); parameters and decode states are stacked per
 period position with a leading ``n_per`` axis, as in the JAX package, and
-the periods run as a Python loop over that axis.
+the periods run as a Python loop over that axis.  zamba2's shared
+attention block lives unstacked in ``params["shared"]``, with ``None`` at
+its place in ``params["blocks"]``; it keeps a KV state per period like any
+attention block.
 
-Only the ATTN block kind is ported.  The other kinds (MoE, Mamba, shared
-attention, mLSTM, sLSTM, cross-attention, encoder-decoder) raise
-``NotImplementedError`` until the ROADMAP's model-families slice ports
-them.
+Ported kinds: ATTN, MOE, MAMBA and SHARED_ATTN.  The others (mLSTM,
+sLSTM, cross-attention, encoder-decoder) raise ``NotImplementedError``
+until the ROADMAP's slices port them.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs import base as cb
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, init_mlp, matmul, mlp,
                                        rms_norm)
 from repro_torch.weights import tree_map
@@ -30,8 +34,10 @@ from repro_torch.weights import tree_map
 def _unported(kind: str) -> NotImplementedError:
     return NotImplementedError(
         f"block kind {kind!r} is not ported to repro_torch yet (ROADMAP, "
-        "'The port: slices', slice (d): the MoE, hybrid, xLSTM, audio and "
-        "VLM blocks)")
+        "'The port: slices': the xLSTM, audio and VLM blocks)")
+
+
+_ATTN_KINDS = (cb.ATTN, cb.SHARED_ATTN, cb.MOE)
 
 
 # ---------------------------------------------------------------------------
@@ -40,22 +46,32 @@ def _unported(kind: str) -> NotImplementedError:
 def init_block(gen, kind: str, cfg, device="cuda") -> Dict[str, Any]:
     dtype = cfg.torch_dtype()
     dev = resolve_device(device)
-    if kind != cb.ATTN:
-        raise _unported(kind)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=dev)
-    return {"ln1": ones(), "attn": attn.init_attention(gen, cfg, device=dev),
-            "ln2": ones(),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype,
-                            device=dev)}
+    if kind in (cb.ATTN, cb.SHARED_ATTN):
+        return {"ln1": ones(),
+                "attn": attn.init_attention(gen, cfg, device=dev),
+                "ln2": ones(),
+                "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                                device=dev)}
+    if kind == cb.MOE:
+        return {"ln1": ones(),
+                "attn": attn.init_attention(gen, cfg, device=dev),
+                "ln2": ones(), "moe": moe_mod.init_moe(gen, cfg, device=dev)}
+    if kind == cb.MAMBA:
+        return {"ln1": ones(),
+                "mamba": ssm_mod.init_mamba(gen, cfg, device=dev)}
+    raise _unported(kind)
 
 
 def init_block_state(kind: str, cfg, batch: int, max_len: int, dtype,
                      window: int = 0, device="cuda"):
     """Decode-time state for one block (unstacked)."""
-    if kind != cb.ATTN:
-        raise _unported(kind)
-    return attn.init_kv_cache(cfg, batch, max_len, dtype, window=window,
-                              device=device)
+    if kind in _ATTN_KINDS:
+        return attn.init_kv_cache(cfg, batch, max_len, dtype, window=window,
+                                  device=device)
+    if kind == cb.MAMBA:
+        return ssm_mod.init_mamba_state(cfg, batch, dtype, device=device)
+    raise _unported(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -64,32 +80,54 @@ def init_block_state(kind: str, cfg, batch: int, max_len: int, dtype,
 def apply_block_seq(kind: str, p, x, cfg, ctx):
     """x: (B,S,d) -> (x', aux_loss, state).
 
-    ``state`` is the decode-time KV handover when ``ctx["collect_state"]``
-    is set; otherwise None.
+    ``state`` is the decode-time handover (KV cache or SSM state) when
+    ``ctx["collect_state"]`` is set; otherwise None.
     """
-    if kind != cb.ATTN:
-        raise _unported(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h, (k, v) = attn.attention(
-        p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg,
-        ctx["positions"], causal=True, window=ctx.get("window", 0))
-    state = {"k": k, "v": v} if ctx.get("collect_state", False) else None
-    x = x + h
-    h = mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), cfg.act, cfg)
-    return x + h, aux, state
+    collect = ctx.get("collect_state", False)
+    if kind in _ATTN_KINDS:
+        h, (k, v) = attn.attention(
+            p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg,
+            ctx["positions"], causal=True, window=ctx.get("window", 0))
+        state = {"k": k, "v": v} if collect else None
+        x = x + h
+        if kind == cb.MOE:
+            h, aux = moe_mod.moe_ffn(p["moe"],
+                                     rms_norm(p["ln2"], x, cfg.norm_eps), cfg)
+        else:
+            h = mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), cfg.act,
+                    cfg)
+        return x + h, aux, state
+    if kind == cb.MAMBA:
+        h, st = ssm_mod.mamba_forward(p["mamba"],
+                                      rms_norm(p["ln1"], x, cfg.norm_eps),
+                                      cfg)
+        return x + h, aux, (st if collect else None)
+    raise _unported(kind)
 
 
 def apply_block_decode(kind: str, p, x, state, cfg, ctx):
-    """x: (B,1,d) -> (x', state); the KV cache in ``state`` is updated in
-    place."""
-    if kind != cb.ATTN:
-        raise _unported(kind)
-    h, state = attn.decode_attention(
-        p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), state, cfg,
-        ctx["positions"], window=ctx.get("window", 0))
-    x = x + h
-    h = mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), cfg.act, cfg)
-    return x + h, state
+    """x: (B,1,d) -> (x', state); ``state`` (a KV cache or an SSM state)
+    is updated in place and returned."""
+    if kind in _ATTN_KINDS:
+        h, state = attn.decode_attention(
+            p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), state, cfg,
+            ctx["positions"], window=ctx.get("window", 0))
+        x = x + h
+        if kind == cb.MOE:
+            h, _ = moe_mod.moe_ffn(p["moe"],
+                                   rms_norm(p["ln2"], x, cfg.norm_eps), cfg)
+        else:
+            h = mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), cfg.act,
+                    cfg)
+        return x + h, state
+    if kind == cb.MAMBA:
+        h, new = ssm_mod.mamba_decode(
+            p["mamba"], rms_norm(p["ln1"], x, cfg.norm_eps), state, cfg)
+        for key, t in new.items():
+            state[key].copy_(t)
+        return x + h, state
+    raise _unported(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -119,9 +157,13 @@ def init_params(gen: Optional[torch.Generator], cfg,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dtype,
                                        device=dev)
+    # the shared block's weights live in params["shared"], unstacked
     params["blocks"] = [
+        None if kind == cb.SHARED_ATTN else
         _stack([init_block(gen, kind, cfg, device=dev) for _ in range(n_per)])
         for kind in period]
+    if cb.SHARED_ATTN in period:
+        params["shared"] = init_block(gen, cb.SHARED_ATTN, cfg, device=dev)
     return params
 
 
@@ -141,6 +183,14 @@ def period_params(stacked, i: int):
     if isinstance(stacked, list):
         return stacked[i]
     return tree_map(lambda a: a[i], stacked)
+
+
+def _period_ps(params, period, i: int):
+    """Every block's parameters of period ``i``: the shared block's own
+    where the period says SHARED_ATTN."""
+    return [params["shared"] if kind == cb.SHARED_ATTN
+            else period_params(stacked, i)
+            for kind, stacked in zip(period, params["blocks"])]
 
 
 def _period_body(x, aux, ps, period, cfg, ctx):
@@ -174,7 +224,7 @@ def forward(params, tokens, cfg, ctx: Optional[Dict[str, Any]] = None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_period = []
     for i in range(cfg.n_periods()):
-        ps = [period_params(stacked, i) for stacked in params["blocks"]]
+        ps = _period_ps(params, period, i)
         if remat:
             x, aux, states = checkpoint(_period_body, x, aux, ps, period,
                                         cfg, ctx, use_reentrant=False)
@@ -217,8 +267,8 @@ def decode_step(params, tokens, states, positions, cfg,
     x = F.embedding(tokens.long(), params["embed"])
     period = cfg.period()
     for i in range(cfg.n_periods()):
-        for kind, stacked, st in zip(period, params["blocks"], states):
-            p = period_params(stacked, i)
+        for kind, p, st in zip(period, _period_ps(params, period, i),
+                               states):
             x, _ = apply_block_decode(kind, p, x,
                                       tree_map(lambda a: a[i], st), cfg, ctx)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)

@@ -20,7 +20,9 @@ the lost steps.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
 ignored: elastic rescale, the ``auto`` sync mode and the placement
-settings (slice (c), ``Fabric`` / ``GangHandle`` / ``CollectiveTuner``).
+settings (slice (c), ``Fabric`` / ``GangHandle`` / ``CollectiveTuner``),
+and training the MoE and hybrid families (their kernels have no backward
+yet).
 A straggler's ``migrate`` action is kept in ``control.history``; the gang
 stays where it is until slice (c) gives it somewhere to go.
 """
@@ -43,6 +45,8 @@ from repro_torch.optim import adamw
 from repro_torch.weights import tree_leaves
 
 _SLICE_C = "slice (c): the fabric (Fabric, GangHandle, CollectiveTuner)"
+_TRAIN_FAMILIES = ("training of the MoE and hybrid families: gradients "
+                   "through moe_gmm and mamba_scan")
 
 
 @dataclasses.dataclass
@@ -67,8 +71,13 @@ class RuntimeConfig:
     job_kind: Optional[str] = None
 
 
-def _refuse_unported(rt: RuntimeConfig) -> None:
+def _refuse_unported(cfg: ArchConfig, rt: RuntimeConfig) -> None:
     """Raise for every field that asks for a feature not ported yet."""
+    if cfg.family in ("moe", "hybrid"):
+        raise NotImplementedError(
+            f"training the {cfg.family} family ({cfg.name}) is not ported to "
+            f"repro_torch yet (ROADMAP, 'The port: slices', "
+            f"{_TRAIN_FAMILIES})")
     asks = [
         (bool(rt.rescale_at), "rescale_at", _SLICE_C),
         (rt.elastic is not None, "elastic", _SLICE_C),
@@ -131,7 +140,7 @@ class FaabricTrainRuntime:
     def __init__(self, cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
                  data_cfg: dp.DataConfig, rt: RuntimeConfig,
                  ranks: int = 1, device="cuda", job_id: str = "job0"):
-        _refuse_unported(rt)
+        _refuse_unported(cfg, rt)
         if rt.sync_mode not in coll.MODES:
             raise ValueError(f"sync_mode {rt.sync_mode!r} not in "
                              f"{coll.MODES + ('auto',)}")

@@ -71,9 +71,14 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.kernels.diff_merge.ref",
                 "repro_torch.core.snapshot", "repro_torch.core.diffsync",
                 "repro_torch.core.migration", "repro_torch.core.control",
-                "repro_torch.checkpoint.manager"}
+                "repro_torch.checkpoint.manager",
+                "repro_torch.kernels.moe_gmm.ops",
+                "repro_torch.kernels.moe_gmm.ref",
+                "repro_torch.kernels.mamba_scan.ops",
+                "repro_torch.kernels.mamba_scan.ref",
+                "repro_torch.models.moe", "repro_torch.models.ssm"}
         assert need <= set(names), sorted(need - set(names))
-        assert len(names) >= 48, names
+        assert len(names) >= 56, names
         print("imported", len(names))
     """)
     env = {**os.environ, "PYTHONPATH": SRC}

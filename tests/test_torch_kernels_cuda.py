@@ -302,3 +302,124 @@ def test_cuda_fused_diff_apply_sends_large_leaves_to_the_kernel(cuda_device):
     want, wdirty = DS.fused_diff_apply(*(x.cpu() for x in small), op="sum",
                                        use_kernel=False)
     assert torch.equal(host.cpu(), want) and torch.equal(hdirty.cpu(), wdirty)
+
+
+# ---------------------------------------------------------------------------
+# moe_gmm and mamba_scan (slice 4).  Tolerances: f32 sums in another order
+# (moe_gmm over d and ff, mamba_scan over N and the chunk; the mamba ones
+# are the JAX kernel tests' own); bf16 adds one rounding of the output.
+# ---------------------------------------------------------------------------
+GMM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SCAN_TOL = {"float32": {"y": (5e-4, 1e-3), "state": (5e-5, 1e-3)},
+            "bfloat16": {"y": (2e-2, 2e-2), "state": (5e-5, 1e-3)}}
+
+
+def _gmm_inputs(e, m, d, ff, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x = (torch.randn((e, m, d), generator=gen, device=device) * 0.5).to(dt)
+    w1, w3 = ((torch.randn((e, d, ff), generator=gen, device=device)
+               * 0.05).to(dt) for _ in range(2))
+    w2 = (torch.randn((e, ff, d), generator=gen, device=device)
+          * 0.05).to(dt)
+    return x, w1, w2, w3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,d,ff,act", [
+    (32, 320, 1024, 512, "silu"), (32, 8, 1024, 512, "silu"),
+    (32, 100, 1024, 512, "silu"), (32, 8, 1024, 512, "gelu"),
+    (4, 256, 64, 256, "silu"), (2, 128, 128, 512, "gelu"),
+    (8, 64, 32, 128, "silu"), (2, 40, 130, 96, "gelu"),
+    (3, 33, 1000, 200, "silu")])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_moe_gmm_matches_plain(cuda_device, e, m, d, ff, act, dtype):
+    from repro_torch.kernels.moe_gmm import ops as GO
+    from repro_torch.kernels.moe_gmm import ref as GR
+    x, w1, w2, w3 = _gmm_inputs(e, m, d, ff, dtype, cuda_device, m + d)
+    before = GO.launches
+    out = GO.expert_ffn_kernel_layout(x, w1, w2, w3, act=act)
+    assert GO.launches == before + 1
+    ref = GR.expert_ffn_ref(x, w1, w2, w3, act=act)
+    torch.cuda.synchronize()
+    tol = GMM_TOL[dtype]
+    assert out.dtype == x.dtype and out.shape == (e, m, d)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_gmm_model_layout_and_refusals(cuda_device):
+    from repro_torch.kernels.moe_gmm import ops as GO
+    from repro_torch.kernels.moe_gmm import ref as GR
+    x, w1, w2, w3 = _gmm_inputs(4, 2 * 24, 64, 96, "float32", cuda_device, 3)
+    xe = x.reshape(4, 2, 24, 64).transpose(0, 1)          # (G, E, C, d)
+    out = GO.expert_ffn(xe, w1, w2, w3)
+    ref = GR.expert_ffn_ref(x, w1, w2, w3).reshape(4, 2, 24, 64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref.transpose(0, 1), atol=1e-4,
+                               rtol=1e-4)
+    with pytest.raises(TypeError, match="dtype"):
+        GO.expert_ffn_kernel_layout(x, w1.bfloat16(), w2, w3)
+    with pytest.raises(NotImplementedError, match="backward"):
+        GO.expert_ffn_kernel_layout(x, w1.requires_grad_(), w2, w3)
+    wide = torch.zeros((1, 8, 2048), device=cuda_device)
+    with pytest.raises(ValueError, match="1024"):
+        GO.expert_ffn_kernel_layout(
+            wide, torch.zeros((1, 2048, 8), device=cuda_device),
+            torch.zeros((1, 8, 2048), device=cuda_device),
+            torch.zeros((1, 2048, 8), device=cuda_device))
+
+
+def _scan_inputs(b, length, h, p, n, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x = (torch.randn((b, length, h, p), generator=gen, device=device)
+         * 0.5).to(dt)
+    dtt = torch.nn.functional.softplus(
+        torch.randn((b, length, h), generator=gen, device=device))
+    a = -torch.exp(torch.randn((h,), generator=gen, device=device) * 0.3)
+    bb, cc = ((torch.randn((b, length, n), generator=gen, device=device)
+               * 0.5).to(dt) for _ in range(2))
+    return x, dtt, a, bb, cc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,length,h,p,n,chunk", [
+    (1, 1024, 80, 64, 64, 64), (1, 64, 80, 64, 64, 64),
+    (1, 256, 80, 64, 64, 64), (1, 40, 80, 64, 64, 64),
+    (4, 512, 80, 64, 64, 64), (2, 128, 3, 32, 16, 32),
+    (1, 256, 2, 64, 64, 64), (2, 64, 2, 16, 8, 16), (1, 64, 2, 24, 16, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mamba_scan_matches_plain(cuda_device, b, length, h, p, n,
+                                       chunk, dtype):
+    from repro_torch.kernels.mamba_scan import ops as SO
+    from repro_torch.kernels.mamba_scan import ref as SR
+    x, dtt, a, bb, cc = _scan_inputs(b, length, h, p, n, dtype, cuda_device,
+                                     length + h)
+    before = SO.launches
+    y, s = SO.ssd(x, dtt, a, bb, cc, chunk=chunk)
+    assert SO.launches == before + 1
+    yr, sr = SR.ssd_chunked(x, dtt, a, bb, cc, chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == x.dtype and s.dtype == torch.float32
+    assert s.shape == (b, h, p, n)
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(y.float(), yr.float(), atol=tol["y"][0],
+                               rtol=tol["y"][1])
+    torch.testing.assert_close(s, sr, atol=tol["state"][0],
+                               rtol=tol["state"][1])
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_refusals(cuda_device):
+    from repro_torch.kernels.mamba_scan import ops as SO
+    x, dtt, a, bb, cc = _scan_inputs(1, 96, 2, 16, 8, "float32",
+                                     cuda_device, 0)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        SO.ssd(x, dtt, a, bb, cc, chunk=64)
+    with pytest.raises(ValueError, match="chunk"):
+        SO.ssd(x, dtt, a, bb, cc, chunk=96)
+    with pytest.raises(TypeError, match="dtypes"):
+        SO.ssd(x, dtt, a, bb.bfloat16(), cc, chunk=32)
+    with pytest.raises(NotImplementedError, match="backward"):
+        SO.ssd(x.requires_grad_(), dtt, a, bb, cc, chunk=32)

@@ -1,0 +1,110 @@
+"""The port's mamba_scan plain version (the chunked SSD) and wrapper
+against the JAX package: its Pallas kernel in interpret mode, its
+sequential oracle ``ref.ssd_ref``, and ``models.ssm.ssd_chunked``, on the
+same numpy inputs.  Tolerances: the JAX kernel test's own
+(tests/test_kernels.py:183-201), y atol 5e-4 / rtol 1e-3 and the state
+atol 5e-5 / rtol 1e-3."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.mamba_scan import kernel as JK
+from repro.kernels.mamba_scan import ref as JR
+from repro.models import ssm as JS
+from repro_torch.kernels.mamba_scan import ops as TO
+from repro_torch.kernels.mamba_scan import ref as TR
+
+torch.set_num_threads(2)   # several test workers share the cores
+
+Y_TOL = dict(atol=5e-4, rtol=1e-3)
+S_TOL = dict(atol=5e-5, rtol=1e-3)
+
+
+def _inputs(b, length, h, p, n, seed):
+    """Model layout: x (B,L,H,P), dt (B,L,H) > 0, a (H,) < 0, b/c (B,L,N)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, length, h, p)).astype(np.float32) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((b, length, h)))).astype(
+        np.float32)
+    a = -np.exp(rng.standard_normal(h) * 0.3).astype(np.float32)
+    bb, cc = (rng.standard_normal((b, length, n)).astype(np.float32) * 0.5
+              for _ in range(2))
+    return x, dt, a, bb, cc
+
+
+def _kernel_layout(x, dt, a):
+    return (np.moveaxis(x, 2, 1), np.moveaxis(dt, 2, 1)[..., None],
+            a[:, None, None])
+
+
+# the JAX kernel test's shapes (b, h, l, p, n, chunk), plus a prompt
+# shorter than the chunk (q = L) and zamba2's head width at a short L
+SHAPES = [(2, 3, 128, 32, 16, 32), (1, 2, 256, 64, 64, 64),
+          (2, 2, 64, 16, 8, 16), (1, 2, 40, 16, 8, 64),
+          (1, 4, 128, 64, 64, 64)]
+
+
+@pytest.mark.parametrize("b,h,length,p,n,chunk", SHAPES)
+def test_plain_matches_jax_kernel_and_oracle(b, h, length, p, n, chunk):
+    x, dt, a, bb, cc = _inputs(b, length, h, p, n, b * length + h)
+    y, s = TR.ssd_chunked(*(torch.from_numpy(v) for v in
+                            (x, dt, a, bb, cc)), chunk)
+    assert y.shape == x.shape and s.shape == (b, h, p, n)
+    assert y.dtype == torch.float32 and s.dtype == torch.float32
+    xk, dtk, ak = _kernel_layout(x, dt, a)
+    jy, js = JK.ssd_scan(xk, dtk, ak, bb, cc, chunk=chunk, interpret=True)
+    ey, es = JR.ssd_ref(xk, dtk, ak, bb, cc)
+    for wy, ws in ((jy, js), (ey, es)):
+        np.testing.assert_allclose(y.numpy(), np.moveaxis(np.asarray(wy),
+                                                          1, 2), **Y_TOL)
+        np.testing.assert_allclose(s.numpy(), np.asarray(ws), **S_TOL)
+
+
+@pytest.mark.parametrize("b,h,length,p,n,chunk", SHAPES)
+def test_wrapper_matches_jax_ssd_chunked(b, h, length, p, n, chunk):
+    x, dt, a, bb, cc = _inputs(b, length, h, p, n, length + p)
+    before = TO.launches
+    y, s = TO.ssd(*(torch.from_numpy(v) for v in (x, dt, a, bb, cc)),
+                  chunk=chunk)
+    assert TO.launches == before          # the CPU runs the plain version
+    jy, js = JS.ssd_chunked(jnp.asarray(x), jnp.asarray(dt), jnp.asarray(a),
+                            jnp.asarray(bb), jnp.asarray(cc), chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **Y_TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), **S_TOL)
+
+
+def test_bf16_inputs_scan_in_f32_and_round_y_once():
+    x, dt, a, bb, cc = _inputs(1, 64, 2, 16, 8, 5)
+    xb, bbb, ccb = (torch.from_numpy(v).bfloat16() for v in (x, bb, cc))
+    dtt, at = torch.from_numpy(dt), torch.from_numpy(a)
+    y, s = TR.ssd_chunked(xb, dtt, at, bbb, ccb, 32)
+    y32, s32 = TR.ssd_chunked(xb.float(), dtt, at, bbb.float(), ccb.float(),
+                              32)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    assert torch.equal(y, y32.bfloat16()) and torch.equal(s, s32)
+
+
+@pytest.mark.parametrize("length,chunk", [(96, 64), (100, 32), (65, 64)])
+def test_ragged_tail_raises(length, chunk):
+    """L > chunk with L % chunk != 0 cannot be scanned: the JAX kernel
+    asserts (kernel.py:84) and ssd_chunked's reshape fails (ssm.py:79-80);
+    the port raises ValueError."""
+    x, dt, a, bb, cc = _inputs(1, length, 2, 16, 8, 0)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        TO.ssd(*(torch.from_numpy(v) for v in (x, dt, a, bb, cc)),
+               chunk=chunk)
+    with pytest.raises(TypeError):
+        JS.ssd_chunked(jnp.asarray(x), jnp.asarray(dt), jnp.asarray(a),
+                       jnp.asarray(bb), jnp.asarray(cc), chunk)
+
+
+def test_wrapper_rejects_bad_shapes():
+    x, dt, a, bb, cc = (torch.from_numpy(v)
+                        for v in _inputs(1, 32, 2, 16, 8, 1))
+    with pytest.raises(ValueError, match="shapes"):
+        TO.ssd(x, dt[:, :, :1], a, bb, cc, chunk=32)
+    with pytest.raises(ValueError, match="shapes"):
+        TO.ssd(x, dt, a, bb, cc[..., :4], chunk=32)
+    assert jax.default_backend() == "cpu"
