@@ -55,16 +55,27 @@ non-zero before printing any result):
    step 3 (recovery to the step-2 checkpoint), losses equal within 1e-6;
    then a delta-chain manager over 3 saves restored bit for bit, and a
    delta migration checked with ``verify_migration``.
-7. Prints the ``kernels`` JSON line and, last, the device JSON line.
+7. Serves the MoE, hybrid and xLSTM families at full width and depth
+   (granite-moe-1b-a400m, zamba2-2.7b, xlstm-1.3b; bf16, random weights
+   from a seed): first use of every serve shape, 8 Poisson requests
+   through ``ContinuousServeLoop`` and a ``ServeLoop`` batch of 4 x 512
+   (``serve-moe``, ``serve-hybrid``, ``serve-ssm``: every kernel count
+   against the path's formula), the prefill check against an f32
+   witness, and a profile of each.
+8. Prints the ``kernels`` JSON line and, last, the device JSON line.
 
 Besides the forward kernel, phase 2 builds the flash-attention backward
-kernel, the collective_codec kernel and the diff_merge kernel (one nvcc
-each, all started together), and phase 3 holds each against its plain
-version: the backward's dq, dk, dv against autograd of the plain attention
-(``kernel-check bwd``), the codec bit for bit up to the main path's launch
-over four full-width shards (``kernel-check codec``), diff_merge bit for
-bit over every merge op and dtype at the JAX tests' shapes, then timed at
-the embedding's size (``kernel-check diff_merge``).
+kernel and the collective_codec, diff_merge, moe_gmm, mamba_scan and
+mlstm kernels (one nvcc each, all started together), and phase 3 holds
+each against its plain version: the backward's dq, dk, dv against
+autograd of the plain attention (``kernel-check bwd``), the codec bit for
+bit up to the main path's launch over four full-width shards
+(``kernel-check codec``), diff_merge bit for bit over every merge op and
+dtype at the JAX tests' shapes, then timed at the embedding's size
+(``kernel-check diff_merge``), moe_gmm at granite's
+shapes, mamba_scan at zamba2's and mlstm at xlstm-1.3b's (``kernel-check
+mlstm``: a 1024-token prefill, a ragged 1000, the 4 x 512 batch, an
+initial state, and the JAX tests' small shapes).
 
 Checkpoints go to ``build/chip_smoke_ckpt`` in the checkout and are
 removed at the end; the phase raises if the disk cannot hold three full
@@ -195,16 +206,16 @@ def check_kernel(torch, fa_ops, fa_ref, F):
     return rows
 
 
-def warm_up(torch, cfg, params, max_len):
+def warm_up(torch, cfg, params, max_len, profiled=None):
     """Run every shape of the timed drives once before them, so that the
     serve numbers measure serving and not first use: the B=1 ragged
     prefill at the 256, 512 and 1024 buckets and an 8-lane decode step,
     then the 4 x 512 fixed-batch prefill and a 4-lane decode step.  Each
-    first call runs under ``torch.profiler`` (its own start-up is paid on
-    an empty region before) and is then repeated without it; a
-    ``first-call`` line gives both wall times, the first call's device
-    time, and its host operations by self time, which is where a one-time
-    cost shows."""
+    first call named in ``profiled`` (all when None) runs under
+    ``torch.profiler`` (its own start-up is paid on an empty region
+    before) and is then repeated without it; a ``first-call`` line gives
+    both wall times, the first call's device time, and its host
+    operations by self time, which is where a one-time cost shows."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -231,6 +242,13 @@ def warm_up(torch, cfg, params, max_len):
         return time.perf_counter() - t0
 
     def first_and_warm(name, fn):
+        if profiled is not None and name not in profiled:
+            first, warm = timed(fn), timed(fn)
+            row = {"call": name, "first_ms": first * 1e3,
+                   "warm_ms": warm * 1e3, "first_device_ms": None,
+                   "first_host_self_ms": None}
+            print(f"first-call {json.dumps(row)}", flush=True)
+            return
         with tprofile(activities=acts) as prof:
             first = timed(fn)
         device_us = sum(e.time_range.elapsed_us() for e in prof.events()
@@ -384,6 +402,8 @@ def _plain_paths():
 
     from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.mamba_scan import ref as scan_ref
+    from repro_torch.kernels.mlstm import ops as ml_ops
+    from repro_torch.kernels.mlstm import ref as ml_ref
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.kernels.moe_gmm import ref as gmm_ref
     from repro_torch.models import attention as attn
@@ -397,14 +417,19 @@ def _plain_paths():
     stack.enter_context(mock.patch.object(
         scan_ops, "_launch", lambda x, dt, a, b, c, chunk:
         scan_ref.ssd_chunked(x, dt, a, b, c, chunk)))
+    stack.enter_context(mock.patch.object(
+        ml_ops, "_launch", lambda q, k, v, logi, logf, state, chunk:
+        ml_ref.mlstm_chunked(q, k, v, logi, logf, state, chunk)))
     return stack
 
 
 def _launch_counts():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mlstm import ops as ml_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
-    return (fa_ops.launches, gmm_ops.launches, scan_ops.launches)
+    return (fa_ops.launches, gmm_ops.launches, scan_ops.launches,
+            ml_ops.launches)
 
 
 def _route_recorder(routes):
@@ -551,6 +576,7 @@ KERNEL_KINDS = [
     ("flash_attention", ("fa_fwd_kernel",)),
     ("moe_gmm", ("mg_ffn_kernel",)),
     ("mamba_scan", ("ms_ssd_kernel",)),
+    ("mlstm", ("ml_gates_kernel", "ml_scores_kernel", "ml_state_kernel")),
     ("flash_attention_bwd", ("fa_bwd_",)),
     ("collective_codec", ("cc_select",)),
     ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
@@ -597,10 +623,11 @@ def profile_phase(torch, name, fn):
     return out
 
 
-def profile(torch, cfg, params, tag=""):
+def profile(torch, cfg, params, tag="", fixed=True):
     """Where the time goes: device time by kernel and the device's idle
-    share over one 1024-token prefill and over 8-lane decode steps (phase
-    names prefixed with ``tag``)."""
+    share over one 1024-token prefill, over 8-lane decode steps and, with
+    ``fixed``, over the 4 x 512 fixed-batch prefill (phase names prefixed
+    with ``tag``)."""
     import numpy as np
 
     from repro_torch.runtime.serve_loop import (ContinuousServeLoop, Request,
@@ -621,11 +648,13 @@ def profile(torch, cfg, params, tag=""):
     profile_phase(torch, tag + "decode_step_8_lanes",
                   lambda: sum(1 for _ in range(10) if loop.decode_step()))
     del loop
-    fixed = ServeLoop(cfg, params, max_len=MAX_LEN)
+    if not fixed:
+        return
+    floop = ServeLoop(cfg, params, max_len=MAX_LEN)
     batch = [Request(rid=i, prompt=r.prompt[:512], max_new_tokens=4)
              for i, r in enumerate(reqs[:4])]
     profile_phase(torch, tag + "fixed_prefill_4x512",
-                  lambda: (fixed.start(batch), 1)[1])
+                  lambda: (floop.start(batch), 1)[1])
 
 
 # Backward tolerances (atol = rtol): the f32 sums run in another order
@@ -651,6 +680,7 @@ def build_all(torch):
     from repro_torch.kernels.diff_merge import ops as dm
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mlstm import ops as ml_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
 
     src = os.path.join(REPO, "src", "repro_torch", "kernels")
@@ -664,7 +694,8 @@ def build_all(torch):
                 src, "diff_merge", "csrc", "diff_merge.cu"),
             "moe_gmm": os.path.join(src, "moe_gmm", "csrc", "moe_gmm.cu"),
             "mamba_scan": os.path.join(
-                src, "mamba_scan", "csrc", "mamba_scan.cu")}
+                src, "mamba_scan", "csrc", "mamba_scan.cu"),
+            "mlstm": os.path.join(src, "mlstm", "csrc", "mlstm.cu")}
 
     def one(name):
         t0 = time.perf_counter()
@@ -679,6 +710,7 @@ def build_all(torch):
     dm.lib()
     gmm_ops.lib()
     scan_ops.lib()
+    ml_ops.lib()
     for name in jobs:
         ptxas = [ln.strip() for ln in _build.build_logs.get(name, "")
                  .splitlines() if "registers" in ln or "spill" in ln]
@@ -1608,17 +1640,132 @@ def check_mamba_scan(torch, cfg):
     return rows
 
 
+# mlstm: f32 sums over hd_k = 1024 terms in another order than the plain
+# version's; their error follows the size of the terms, so the absolute
+# tolerance of h and of the state scales with its largest magnitude (as
+# moe_gmm's); bf16 adds one rounding of h; m is a log-domain stabiliser
+# (the JAX kernel test's atol 1e-3).
+MLSTM_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def _mlstm_bound(b, length, h, hd, q, state, esize, dtype_name):
+    """Least time of the chunked mLSTM on this input: the larger of its
+    bytes (q, k, v and the gates read once, h and the final state written
+    once, an initial state read once) over HBM bandwidth and its
+    operations over the peak of the inputs' type: per (b, h) and chunk of
+    c tokens, S and S V over the c (c + 1) / 2 causal pairs, Q C^T and
+    the C update over c hd^2 (Q C^T and q . n not in the first chunk
+    when the state is zero), the n update and q . n over c hd.  Also the
+    operations over the f32 CUDA-core peak, on which the kernel runs
+    them."""
+    flops = 0.0
+    for ci, l0 in enumerate(range(0, length, q)):
+        c = min(q, length - l0)
+        inter = 1 if (state or ci > 0) else 0
+        flops += 4.0 * hd * c * (c + 1) / 2 + 2.0 * c * hd * hd * (1 + inter) \
+            + 2.0 * c * hd * (1 + inter)
+    flops *= b * h
+    nbytes = 4 * b * length * h * hd * esize + 2 * 4 * b * length * h \
+        + 4 * b * h * (hd * hd + hd + 1) * (2 if state else 1)
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes,
+            max(flops / PEAK_FLOPS["float32"], t_bytes) * 1e3)
+
+
+def check_mlstm(torch, cfg):
+    """mlstm against its plain version at xlstm-1.3b's shapes (H 4, hd
+    1024, chunk 128; q, k, v ~ N(0, 1), logi ~ N(-1, 1), logf =
+    -softplus(N(0, 1)) as the JAX kernel test draws them): a 1024-token
+    prefill, a ragged 1000, the 4 x 512 batch, 300 tokens from a nonzero
+    initial state, each in bf16 and f32, then the JAX tests' small
+    shapes (hd 16-64).  Times: the kernel, the plain version, and one
+    ``torch.bmm`` of Q C^T over the whole sequence (partial: no PyTorch
+    call computes the function)."""
+    from repro_torch.kernels.mlstm import ops as mo
+    from repro_torch.kernels.mlstm import ref as mr
+    from repro_torch.models import xlstm as xlstm_mod
+
+    _, hd = xlstm_mod.mlstm_dims(cfg)
+    h, chunk = cfg.n_heads, 128
+    big = [(1, 1024, h, hd, chunk, False), (1, 1000, h, hd, chunk, False),
+           (4, 512, h, hd, chunk, False), (1, 300, h, hd, chunk, True)]
+    small = [(2, 128, 2, 32, 32, False), (1, 256, 4, 64, 64, False),
+             (2, 64, 1, 16, 16, False), (2, 100, 2, 48, 32, True)]
+    cases = [c + (d,) for d in ("bfloat16", "float32") for c in big] \
+        + [c + ("float32",) for c in small] + [small[0] + ("bfloat16",)]
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = []
+    for b, length, nh, d, ck, with_state, dname in cases:
+        dt_ = getattr(torch, dname)
+        q, k, v = (torch.randn((b, length, nh, d), generator=gen,
+                               device="cuda").to(dt_) for _ in range(3))
+        li = torch.randn((b, length, nh), generator=gen, device="cuda") - 1
+        lf = -torch.nn.functional.softplus(
+            torch.randn((b, length, nh), generator=gen, device="cuda"))
+        st = None
+        if with_state:
+            st = (torch.randn((b, nh, d, d), generator=gen,
+                              device="cuda") * 0.3,
+                  torch.randn((b, nh, d), generator=gen, device="cuda") * .3,
+                  torch.randn((b, nh), generator=gen, device="cuda"))
+        out, (c, n, m) = mo.mlstm(q, k, v, li, lf, st, chunk=ck)
+        ref, (cr, nr, m_r) = mr.mlstm_chunked(q, k, v, li, lf, st, ck)
+        torch.cuda.synchronize()
+        tol = MLSTM_TOL[dname]
+        h_scale = max(1.0, ref.float().abs().max().item())
+        c_scale = max(1.0, cr.abs().max().item())
+        n_scale = max(1.0, nr.abs().max().item())
+        ok = (bool(torch.isfinite(out.float()).all())
+              and torch.allclose(out.float(), ref.float(),
+                                 atol=tol * h_scale, rtol=tol)
+              and torch.allclose(c, cr, atol=1e-4 * c_scale, rtol=1e-3)
+              and torch.allclose(n, nr, atol=1e-4 * n_scale, rtol=1e-3)
+              and torch.allclose(m, m_r, atol=1e-3, rtol=0))
+        ms = _time_ms(lambda: mo._launch(q, k, v, li, lf, st, ck),
+                      iters=10)
+        plain_ms = _time_ms(lambda: mr.mlstm_chunked(q, k, v, li, lf, st,
+                                                     ck), iters=3)
+        qb = q.transpose(1, 2).reshape(b * nh, length, d)
+        cb = cr.to(dt_).reshape(b * nh, d, d)
+        part_ms = _time_ms(lambda: torch.bmm(qb, cb.transpose(1, 2)))
+        bound_ms, bound_by, flops, nbytes, f32_ms = _mlstm_bound(
+            b, length, nh, d, min(ck, length), with_state,
+            q.element_size(), dname)
+        row = {"B": b, "L": length, "H": nh, "hd": d, "chunk": ck,
+               "state": with_state, "dtype": dname,
+               "max_abs_err": (out.float() - ref.float()).abs().max()
+               .item(), "c_max_abs_err": (c - cr).abs().max().item(),
+               "m_max_abs_err": (m - m_r).abs().max().item(),
+               "h_absmax": h_scale, "c_absmax": c_scale,
+               "atol": tol * h_scale, "rtol": tol, "ok": ok, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": None,
+               "nearest_call_ms_partial": part_ms,
+               "nearest_call": "torch.bmm(q, C^T)", "bound_ms": bound_ms,
+               "bound_by": bound_by, "bound_f32_cores_ms": f32_ms,
+               "tflops": flops / (ms * 1e-3) / 1e12,
+               "gbytes_per_s": nbytes / ms * 1e-6}
+        rows.append(row)
+        print(f"kernel-check mlstm {json.dumps(row)}", flush=True)
+    mo.reset_launches()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def serve_family(torch, cfg, params, tag, counters):
     """The serving path of one family at full width and depth: 8 Poisson
     requests (prompts 256-1024 tokens, cut to whole 64-token chunks for
-    a hybrid config, whose prefill runs at the exact length; 16-32 new
+    a hybrid config, whose prefill runs at the exact length; an xLSTM
+    config's prefill runs at the exact, ragged length; 16-32 new
     tokens) through ``ContinuousServeLoop`` (8 slots, max_len 2048), then
     one ``ServeLoop`` batch of 4 x 512.  Every kernel count is set to 0
     just before and read just after; each must equal what the path
-    implies: per prefill one launch per attention block (flash) and per
-    Mamba block (mamba_scan), per prefill and decode step one per MoE
-    block (moe_gmm)."""
-    from repro_torch.configs.base import MAMBA, MOE
+    implies: per prefill one launch per attention block (flash), per
+    Mamba block (mamba_scan) and per mLSTM block (mlstm), per prefill and
+    decode step one per MoE block (moe_gmm)."""
+    from repro_torch.configs.base import ATTN, MAMBA, MLSTM, MOE, \
+        SHARED_ATTN
     from repro_torch.runtime.admission import request_stream
 
     reqs = request_stream(8, 0.25, seed=2, regime="poisson",
@@ -1638,13 +1785,15 @@ def serve_family(torch, cfg, params, tag, counters):
     launches = {name: getattr(mod, attr)
                 for name, (mod, attr) in counters.items()}
     kinds = cfg.period() * cfg.n_periods()
-    n_moe, n_mamba = kinds.count(MOE), kinds.count(MAMBA)
+    n_moe = kinds.count(MOE)
+    n_attn = sum(kinds.count(k) for k in (ATTN, SHARED_ATTN, MOE))
     prefills = admitted + 1
     steps = cont["steps"] + fixed["steps"]
     expect = dict.fromkeys(counters, 0)
-    expect["flash_attention"] = (len(kinds) - n_mamba) * prefills
+    expect["flash_attention"] = n_attn * prefills
     expect["moe_gmm"] = n_moe * (prefills + steps)
-    expect["mamba_scan"] = n_mamba * prefills
+    expect["mamba_scan"] = kinds.count(MAMBA) * prefills
+    expect["mlstm"] = kinds.count(MLSTM) * prefills
     res = {"arch": cfg.name, "continuous": cont, "fixed": fixed,
            "prefills": prefills, "decode_steps": steps,
            "launches": launches, "expected_launches": expect}
@@ -1653,28 +1802,39 @@ def serve_family(torch, cfg, params, tag, counters):
     return reqs, launches
 
 
-def families(torch, counters):
-    """Phase 7: serve full-width granite-moe-1b-a400m and zamba2-2.7b in
-    bf16 (random weights from a seed): first use of every serve shape,
-    the serving drive, the prefill check and a profile, for each."""
+def families(torch, counters, phase_time):
+    """Phase 7: serve full-width granite-moe-1b-a400m, zamba2-2.7b and
+    xlstm-1.3b in bf16 (random weights from a seed): first use of every
+    serve shape, the serving drive, the prefill check and a profile, for
+    each.  An xLSTM prefill launches about 140 kernels a token (the sLSTM
+    token loop), and the profiler's own processing of a 1024-token one
+    takes tens of seconds, so for xLSTM only the shortest prefill's and
+    the decode steps' first calls run under the profiler, and the fixed
+    batch's prefill is not profiled.  ``phase_time`` marks each family's
+    end."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer as tf
 
     total = dict.fromkeys(counters, 0)
+    few = {"prefill_1x256", "decode_step_8_lanes",
+           "fixed_decode_step_4_lanes"}
     for arch, tag in (("granite-moe-1b-a400m", "moe"),
-                      ("zamba2-2.7b", "hybrid")):
+                      ("zamba2-2.7b", "hybrid"), ("xlstm-1.3b", "ssm")):
         cfg = get_config(arch)
         gen = torch.Generator(device="cuda").manual_seed(0)
+        heavy = tag == "ssm"
         with torch.no_grad():
             params = tf.init_params(gen, cfg, device="cuda")
-            warm_up(torch, cfg, params, MAX_LEN)
+            warm_up(torch, cfg, params, MAX_LEN,
+                    profiled=few if heavy else None)
             reqs, launches = serve_family(torch, cfg, params, tag, counters)
             check_prefill(torch, cfg, params, reqs, MAX_LEN)
-            profile(torch, cfg, params, tag=f"{tag}_")
+            profile(torch, cfg, params, tag=f"{tag}_", fixed=not heavy)
         for name in total:
             total[name] += launches[name]
         del params
         torch.cuda.empty_cache()
+        phase_time(f"family-{tag}")
     return total
 
 
@@ -1694,11 +1854,21 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mlstm import ops as ml_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.models import transformer as tf
     from repro_torch.weights import tree_leaves
 
     # 1. environment
+    last = [time.perf_counter()]
+
+    def phase_time(name):
+        """Print the wall time since the last mark: where the script's
+        time limit goes."""
+        now = time.perf_counter()
+        print(f"phase-time {name} {now - last[0]:.1f}s", flush=True)
+        last[0] = now
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = _sh(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1716,6 +1886,7 @@ def main() -> int:
 
     # 2. build every kernel source, all at once
     build_all(torch)
+    phase_time("build")
 
     # first use of every serve shape, before anything else runs on the card
     cfg = get_config("llama3.2-1b")
@@ -1723,6 +1894,7 @@ def main() -> int:
     with torch.no_grad():
         params = tf.init_params(gen, cfg, device="cuda")
         warm_up(torch, cfg, params, MAX_LEN)
+    phase_time("first-call")
 
     # 3. kernels vs plain versions
     rows = check_kernel(torch, fa_ops, fa_ref, F)
@@ -1731,7 +1903,8 @@ def main() -> int:
     dm_rows = check_diff_merge(torch, dm, dr)
     gmm_rows = check_moe_gmm(torch, get_config("granite-moe-1b-a400m"))
     scan_rows = check_mamba_scan(torch, get_config("zamba2-2.7b"))
-    bad = [r for r in rows + bwd_rows + gmm_rows + scan_rows
+    ml_rows = check_mlstm(torch, get_config("xlstm-1.3b"))
+    bad = [r for r in rows + bwd_rows + gmm_rows + scan_rows + ml_rows
            if not r["ok"]] + \
         [r for r in codec_rows + dm_rows if not r["bit_exact"]]
     assert not bad, bad
@@ -1745,22 +1918,27 @@ def main() -> int:
     gmm_row = gmm_rows[0]               # a 1024-token prefill, bf16
     scan_row = next(r for r in scan_rows if r["B"] == 1
                     and r["L"] == 1024 and r["dtype"] == "bfloat16")
+    ml_row = ml_rows[0]                 # a 1024-token prefill, bf16
+    phase_time("kernel-check")
 
     # 4. serve full-width llama3.2-1b
     with torch.no_grad():
         reqs, serve_launches = serve(torch, cfg, params, cfg.n_layers)
         check_prefill(torch, cfg, params, reqs, MAX_LEN)
         profile(torch, cfg, params)
+    phase_time("serve")
 
     # 5. train full-width llama3.2-1b: checks, then the gang
     train_check(torch, cfg, params)
     sync_check(torch, cfg, params)
+    phase_time("train-check")
     # the train state: params, and the f32 moments m and v; the int step
     state_bytes = sum(t.numel() * (t.element_size() + 8)
                       for t in tree_leaves(params)) + 4
     del params
     torch.cuda.empty_cache()
     _, train_launches = train(torch, cfg, state_bytes)
+    phase_time("train")
 
     # 6. the data plane over the full-width train state; every kernel's
     # count is set to 0 before each path and read after it
@@ -1769,7 +1947,8 @@ def main() -> int:
             "collective_codec": (co, "launches"),
             "diff_merge": (dm, "launches"),
             "moe_gmm": (gmm_ops, "launches"),
-            "mamba_scan": (scan_ops, "launches")}
+            "mamba_scan": (scan_ops, "launches"),
+            "mlstm": (ml_ops, "launches")}
     plane = dict.fromkeys(mods, 0)
 
     def counted(path):
@@ -1780,16 +1959,19 @@ def main() -> int:
             plane[name] += getattr(mod, attr)
         return out
     ds_res = counted(lambda: diffsync_check(torch, cfg))
+    phase_time("diffsync-check")
     counted(lambda: ckpt_check(torch, cfg, state_bytes))
     print(f"data-plane-launches {json.dumps(plane)}", flush=True)
     assert plane["diff_merge"] > 0, plane
+    phase_time("ckpt")
 
-    # 7. serve the MoE and hybrid families (slice 4)
+    # 7. serve the MoE, hybrid (slice 4) and xLSTM (slice 5) families
     torch.cuda.empty_cache()
-    fam = families(torch, mods)
-    assert fam["moe_gmm"] > 0 and fam["mamba_scan"] > 0, fam
+    fam = families(torch, mods, phase_time)
+    assert fam["moe_gmm"] > 0 and fam["mamba_scan"] > 0 \
+        and fam["mlstm"] > 0, fam
 
-    # 7. results
+    # 8. results
     src = "src/repro_torch/kernels/"
     kernels = [{
         "name": "flash_attention", "route": "cuda",
@@ -1844,6 +2026,14 @@ def main() -> int:
         "max_abs_err": scan_row["max_abs_err"],
         "ms": scan_row["ms"], "plain_ms": scan_row["plain_ms"],
         "bound_ms": scan_row["bound_ms"], "bound_by": scan_row["bound_by"],
+        "library_ms": None}, {
+        "name": "mlstm", "route": "cuda",
+        "source": src + "mlstm/csrc/mlstm.cu",
+        "replaces": "src/repro/kernels/mlstm/kernel.py:23",
+        "launches": fam["mlstm"],
+        "max_abs_err": ml_row["max_abs_err"],
+        "ms": ml_row["ms"], "plain_ms": ml_row["plain_ms"],
+        "bound_ms": ml_row["bound_ms"], "bound_by": ml_row["bound_by"],
         "library_ms": None}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

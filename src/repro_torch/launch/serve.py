@@ -6,16 +6,19 @@ bursty) and enter a ``ContinuousServeLoop`` slot as soon as one frees;
 ``--engine fixed`` replays the same stream through the drain-to-slowest
 batch loop, and ``--engine both`` reports the head-to-head.  Latency
 percentiles are in virtual seconds (one decode step = ``--step-ms``);
-``wall_s`` is real time.  The port serves the dense, MoE and hybrid
-families (llama3.2-1b, granite-moe-1b-a400m, zamba2-2.7b, ...); the
-xLSTM, audio and VLM families raise ``NotImplementedError``.  Hybrid
-configs prefill at the exact prompt length.
+``wall_s`` is real time.  The port serves the dense, MoE, hybrid and
+xLSTM families (llama3.2-1b, granite-moe-1b-a400m, zamba2-2.7b,
+xlstm-1.3b, ...); the audio and VLM families raise
+``NotImplementedError``.  Hybrid and xLSTM configs prefill at the exact
+prompt length.
 
 Example:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --engine both --arrival-regime burst --offered-load 0.6 \\
         --requests 24 --target-p99-ms 400 --device cuda
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+        --engine both --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
         --engine both --device cpu
 """
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Block stack of the dense, MoE and hybrid families (PyTorch port of
-``repro.models.transformer``).
+"""Block stack of the dense, MoE, hybrid and xLSTM families (PyTorch port
+of ``repro.models.transformer``).
 
 The stack is ``n_periods`` repetitions of a period of block kinds (see
 ``ArchConfig.period()``); parameters and decode states are stacked per
@@ -9,9 +9,9 @@ attention block lives unstacked in ``params["shared"]``, with ``None`` at
 its place in ``params["blocks"]``; it keeps a KV state per period like any
 attention block.
 
-Ported kinds: ATTN, MOE, MAMBA and SHARED_ATTN.  The others (mLSTM,
-sLSTM, cross-attention, encoder-decoder) raise ``NotImplementedError``
-until the ROADMAP's slices port them.
+Ported kinds: ATTN, MOE, MAMBA, SHARED_ATTN, MLSTM and SLSTM.  The others
+(cross-attention, encoder-decoder) raise ``NotImplementedError`` until the
+ROADMAP's slices port them.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from repro_torch.configs import base as cb
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (dense_init, init_mlp, matmul, mlp,
                                        rms_norm)
 from repro_torch.weights import tree_map
@@ -34,10 +35,16 @@ from repro_torch.weights import tree_map
 def _unported(kind: str) -> NotImplementedError:
     return NotImplementedError(
         f"block kind {kind!r} is not ported to repro_torch yet (ROADMAP, "
-        "'The port: slices': the xLSTM, audio and VLM blocks)")
+        "'The port: slices': the audio and VLM blocks)")
 
 
 _ATTN_KINDS = (cb.ATTN, cb.SHARED_ATTN, cb.MOE)
+# recurrent kinds: (params key, full-sequence forward, one-token decode)
+_RECURRENT = {
+    cb.MAMBA: ("mamba", ssm_mod.mamba_forward, ssm_mod.mamba_decode),
+    cb.MLSTM: ("mlstm", xlstm_mod.mlstm_forward, xlstm_mod.mlstm_decode),
+    cb.SLSTM: ("slstm", xlstm_mod.slstm_forward, xlstm_mod.slstm_decode),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -60,6 +67,12 @@ def init_block(gen, kind: str, cfg, device="cuda") -> Dict[str, Any]:
     if kind == cb.MAMBA:
         return {"ln1": ones(),
                 "mamba": ssm_mod.init_mamba(gen, cfg, device=dev)}
+    if kind == cb.MLSTM:
+        return {"ln1": ones(),
+                "mlstm": xlstm_mod.init_mlstm(gen, cfg, device=dev)}
+    if kind == cb.SLSTM:
+        return {"ln1": ones(),
+                "slstm": xlstm_mod.init_slstm(gen, cfg, device=dev)}
     raise _unported(kind)
 
 
@@ -71,6 +84,10 @@ def init_block_state(kind: str, cfg, batch: int, max_len: int, dtype,
                                   device=device)
     if kind == cb.MAMBA:
         return ssm_mod.init_mamba_state(cfg, batch, dtype, device=device)
+    if kind == cb.MLSTM:
+        return xlstm_mod.init_mlstm_state(cfg, batch, dtype, device=device)
+    if kind == cb.SLSTM:
+        return xlstm_mod.init_slstm_state(cfg, batch, dtype, device=device)
     raise _unported(kind)
 
 
@@ -98,17 +115,18 @@ def apply_block_seq(kind: str, p, x, cfg, ctx):
             h = mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), cfg.act,
                     cfg)
         return x + h, aux, state
-    if kind == cb.MAMBA:
-        h, st = ssm_mod.mamba_forward(p["mamba"],
-                                      rms_norm(p["ln1"], x, cfg.norm_eps),
-                                      cfg)
+    if kind in _RECURRENT:
+        key, fwd, _ = _RECURRENT[kind]
+        h, st = fwd(p[key], rms_norm(p["ln1"], x, cfg.norm_eps), cfg)
         return x + h, aux, (st if collect else None)
     raise _unported(kind)
 
 
 def apply_block_decode(kind: str, p, x, state, cfg, ctx):
-    """x: (B,1,d) -> (x', state); ``state`` (a KV cache or an SSM state)
-    is updated in place and returned."""
+    """x: (B,1,d) -> (x', state); ``state`` (a KV cache or a recurrent
+    state) is updated in place and returned: each new leaf is copied into
+    the old one, unless the block updated that leaf in place itself (the
+    mLSTM's matrix memory)."""
     if kind in _ATTN_KINDS:
         h, state = attn.decode_attention(
             p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), state, cfg,
@@ -121,11 +139,12 @@ def apply_block_decode(kind: str, p, x, state, cfg, ctx):
             h = mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), cfg.act,
                     cfg)
         return x + h, state
-    if kind == cb.MAMBA:
-        h, new = ssm_mod.mamba_decode(
-            p["mamba"], rms_norm(p["ln1"], x, cfg.norm_eps), state, cfg)
-        for key, t in new.items():
-            state[key].copy_(t)
+    if kind in _RECURRENT:
+        key, _, dec = _RECURRENT[kind]
+        h, new = dec(p[key], rms_norm(p["ln1"], x, cfg.norm_eps), state, cfg)
+        for name, t in new.items():
+            if t is not state[name]:
+                state[name].copy_(t)
         return x + h, state
     raise _unported(kind)
 

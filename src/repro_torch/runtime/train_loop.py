@@ -45,8 +45,8 @@ from repro_torch.optim import adamw
 from repro_torch.weights import tree_leaves
 
 _SLICE_C = "slice (c): the fabric (Fabric, GangHandle, CollectiveTuner)"
-_TRAIN_FAMILIES = ("training of the MoE and hybrid families: gradients "
-                   "through moe_gmm and mamba_scan")
+_TRAIN_FAMILIES = ("training of the MoE and hybrid families and of xLSTM: "
+                   "gradients through moe_gmm, mamba_scan and mlstm")
 
 
 @dataclasses.dataclass
@@ -73,7 +73,7 @@ class RuntimeConfig:
 
 def _refuse_unported(cfg: ArchConfig, rt: RuntimeConfig) -> None:
     """Raise for every field that asks for a feature not ported yet."""
-    if cfg.family in ("moe", "hybrid"):
+    if cfg.family in ("moe", "hybrid", "ssm"):
         raise NotImplementedError(
             f"training the {cfg.family} family ({cfg.name}) is not ported to "
             f"repro_torch yet (ROADMAP, 'The port: slices', "

@@ -76,9 +76,11 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.kernels.moe_gmm.ref",
                 "repro_torch.kernels.mamba_scan.ops",
                 "repro_torch.kernels.mamba_scan.ref",
-                "repro_torch.models.moe", "repro_torch.models.ssm"}
+                "repro_torch.models.moe", "repro_torch.models.ssm",
+                "repro_torch.kernels.mlstm", "repro_torch.kernels.mlstm.ops",
+                "repro_torch.kernels.mlstm.ref", "repro_torch.models.xlstm"}
         assert need <= set(names), sorted(need - set(names))
-        assert len(names) >= 56, names
+        assert len(names) >= 60, names
         print("imported", len(names))
     """)
     env = {**os.environ, "PYTHONPATH": SRC}

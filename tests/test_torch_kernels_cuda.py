@@ -423,3 +423,77 @@ def test_cuda_mamba_scan_refusals(cuda_device):
         SO.ssd(x, dtt, a, bb.bfloat16(), cc, chunk=32)
     with pytest.raises(NotImplementedError, match="backward"):
         SO.ssd(x.requires_grad_(), dtt, a, bb, cc, chunk=32)
+
+
+# mlstm: f32 sums over hd_k (up to 1024 terms) in another order than the
+# plain version's; the error follows the size of the terms, so the
+# absolute tolerance scales with the output's largest magnitude.  bf16
+# adds one rounding of h.  m is a log-domain stabiliser (the JAX tests'
+# atol 1e-3).
+MLSTM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _mlstm_inputs(b, length, h, hd, dtype, device, seed, state=False):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn((b, length, h, hd), generator=gen,
+                           device=device).to(dt) for _ in range(3))
+    li = torch.randn((b, length, h), generator=gen, device=device) - 1
+    lf = -torch.nn.functional.softplus(
+        torch.randn((b, length, h), generator=gen, device=device))
+    st = None
+    if state:
+        st = (torch.randn((b, h, hd, hd), generator=gen, device=device) * .3,
+              torch.randn((b, h, hd), generator=gen, device=device) * .3,
+              torch.randn((b, h), generator=gen, device=device))
+    return (q, k, v, li, lf), st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,length,h,hd,chunk,state", [
+    (1, 1024, 4, 1024, 128, False), (1, 1000, 4, 1024, 128, False),
+    (4, 512, 4, 1024, 128, False), (1, 300, 4, 1024, 128, True),
+    (2, 128, 2, 32, 32, False), (1, 256, 4, 64, 64, False),
+    (2, 64, 1, 16, 16, False), (2, 100, 2, 48, 32, True),
+    (1, 37, 2, 8, 16, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mlstm_matches_plain(cuda_device, b, length, h, hd, chunk,
+                                  state, dtype):
+    from repro_torch.kernels.mlstm import ops as MO
+    from repro_torch.kernels.mlstm import ref as MR
+    (q, k, v, li, lf), st = _mlstm_inputs(b, length, h, hd, dtype,
+                                          cuda_device, length + hd, state)
+    before = MO.launches
+    out, (c, n, m) = MO.mlstm(q, k, v, li, lf, st, chunk=chunk)
+    assert MO.launches == before + 1
+    ref, (cr, nr, mr) = MR.mlstm_chunked(q, k, v, li, lf, st, chunk)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and c.dtype == torch.float32
+    tol = MLSTM_TOL[dtype]
+    torch.testing.assert_close(
+        out.float(), ref.float(), rtol=tol,
+        atol=tol * max(1.0, ref.float().abs().max().item()))
+    for got, want in ((c, cr), (n, nr)):
+        torch.testing.assert_close(
+            got, want, rtol=1e-3,
+            atol=1e-4 * max(1.0, want.abs().max().item()))
+    torch.testing.assert_close(m, mr, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_mlstm_refusals(cuda_device):
+    from repro_torch.kernels.mlstm import ops as MO
+    (q, k, v, li, lf), st = _mlstm_inputs(1, 64, 2, 16, "float32",
+                                          cuda_device, 0, state=True)
+    (ql, kl, vl, lil, lfl), _ = _mlstm_inputs(1, 300, 2, 16, "float32",
+                                              cuda_device, 1)
+    with pytest.raises(ValueError, match="chunk"):
+        MO.mlstm(ql, kl, vl, lil, lfl, chunk=256)
+    with pytest.raises(ValueError, match="head dim"):
+        MO.mlstm(*(t[..., :6].contiguous() for t in (q, k, v)), li, lf)
+    with pytest.raises(TypeError, match="dtypes"):
+        MO.mlstm(q, k.bfloat16(), v, li, lf)
+    with pytest.raises(TypeError, match="one CUDA device"):
+        MO.mlstm(q, k, v, li, lf, tuple(t.cpu() for t in st))
+    with pytest.raises(NotImplementedError, match="backward"):
+        MO.mlstm(q.requires_grad_(), k, v, li, lf)

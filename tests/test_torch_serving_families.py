@@ -1,10 +1,10 @@
-"""The port's serving loops on the MoE (granite-moe-1b-a400m) and hybrid
-(zamba2-2.7b) families against the JAX package's, on the same weights
-(reduced configs, 2 layers, vocab 64, f32): greedy tokens of the
-continuous and fixed-batch loops equal the JAX loops', continuous equals
-fixed-batch (the mirror of tests/test_serving.py:301), a mixed-slot
-snapshot resumes exactly (the mirror of :336), and the serve CLI runs
-both families."""
+"""The port's serving loops on the MoE (granite-moe-1b-a400m), hybrid
+(zamba2-2.7b) and xLSTM (xlstm-1.3b) families against the JAX package's,
+on the same weights (reduced configs, 2 layers, vocab 64, f32): greedy
+tokens of the continuous and fixed-batch loops equal the JAX loops',
+continuous equals fixed-batch (the mirror of tests/test_serving.py:301),
+a mixed-slot snapshot resumes exactly (the mirror of :336), a splice
+keeps the recurrent leaves whole, and the serve CLI runs every family."""
 import dataclasses
 import json
 import os
@@ -28,7 +28,7 @@ from repro_torch.weights import params_from_numpy
 torch.set_num_threads(2)   # several test workers share the cores
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
-FAMILIES = ["zamba2-2.7b", "granite-moe-1b-a400m"]
+FAMILIES = ["zamba2-2.7b", "granite-moe-1b-a400m", "xlstm-1.3b"]
 
 
 def _models(arch, **kw):
@@ -48,8 +48,9 @@ def _copies(reqs, mod):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_continuous_open_loop_tokens_identical_to_jax(arch):
-    """Ragged prompts (exact-length prefill for zamba2, buckets for
-    granite), admission mid-generation, default capacity."""
+    """Ragged prompts (exact-length prefill for the recurrent zamba2 and
+    xlstm, buckets for granite), admission mid-generation, default
+    capacity."""
     jcfg, tcfg, jp, tp = _models(arch)
     base = JA.request_stream(6, 0.8, 5, vocab=64, prompt_lens=(3, 14),
                              max_new=(2, 8))
@@ -57,7 +58,7 @@ def test_continuous_open_loop_tokens_identical_to_jax(arch):
     jloop = JS.ContinuousServeLoop(jcfg, jp, slots=3, max_len=32)
     tloop = TS.ContinuousServeLoop(tcfg, tp, slots=3, max_len=32)
     assert tloop._exact_prefill == jloop._exact_prefill == \
-        (arch == "zamba2-2.7b")
+        (arch != "granite-moe-1b-a400m")
     jrep = JA.run_open_loop(jloop, jreqs)
     trep = TA.run_open_loop(tloop, treqs)
     assert dataclasses.asdict(trep) == dataclasses.asdict(jrep)
@@ -97,8 +98,12 @@ def test_continuous_matches_fixed_batch_tokens(arch):
     assert cont.stats.finished == len(reqs)
 
 
-def test_zamba2_mixed_slot_snapshot_resumes_exactly():
-    _, tcfg, _, tp = _models("zamba2-2.7b")
+def _snapshot_resumes_exactly(arch, leaf):
+    """Snapshot a loop with mixed slots (one lane done, one mid-way, one
+    just admitted), resume it in a fresh loop: the tokens and every state
+    buffer equal an uninterrupted run's.  ``leaf`` of the first period
+    position's state must be frozen in the snapshot."""
+    _, tcfg, _, tp = _models(arch)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, 64, n, dtype=np.int32) for n in (5, 3, 9)]
 
@@ -128,9 +133,10 @@ def test_zamba2_mixed_slot_snapshot_resumes_exactly():
     loop1 = TS.ContinuousServeLoop(tcfg, tp, slots=2, max_len=32)
     snap = drive(loop1, mine, snapshot_at=3)
     assert loop1.done_rids == [1] and set(loop1.occupied_rids()) == {0, 2}
-    frozen = snap["states"][0]["ssm"].clone()
+    pos = 1 if arch == "xlstm-1.3b" else 0     # (sLSTM, mLSTM) period
+    frozen = snap["states"][pos][leaf].clone()
     loop1.decode_step()              # the live loop moves on...
-    assert torch.equal(snap["states"][0]["ssm"], frozen)    # ...not the snap
+    assert torch.equal(snap["states"][pos][leaf], frozen)   # ...not the snap
     loop2 = TS.ContinuousServeLoop(tcfg, tp, slots=2, max_len=32)
     loop2.load_serve_state(snap)
     loop2.adopt_requests(mine)
@@ -142,6 +148,16 @@ def test_zamba2_mixed_slot_snapshot_resumes_exactly():
     for big, want in zip(loop2._states, ref_loop._states):
         for key in big:
             assert torch.equal(big[key], want[key]), key
+
+
+def test_zamba2_mixed_slot_snapshot_resumes_exactly():
+    _snapshot_resumes_exactly("zamba2-2.7b", "ssm")
+
+
+def test_xlstm_mixed_slot_snapshot_resumes_exactly():
+    """The mLSTM's matrix memory, updated in place by every decode step,
+    is copied into the snapshot, not shared with the live loop."""
+    _snapshot_resumes_exactly("xlstm-1.3b", "c")
 
 
 def test_splice_keeps_the_mamba_state_whole():
@@ -159,6 +175,26 @@ def test_splice_keeps_the_mamba_state_whole():
     assert torch.equal(mamba["conv_x"][:, slot], pre[0]["conv_x"][:, 0])
     assert torch.equal(attn["k"][:, slot, :7], pre[1]["k"][:, 0])
     assert bool((attn["k"][:, slot, 7:] == 0).all())
+
+
+def test_splice_keeps_the_mlstm_matrix_memory_whole():
+    """The mLSTM's c leaf (n_per, slots, H, hd, hd) is 5-D like a KV
+    leaf, and row.shape[1] == big.shape[2] == H, so a splice copies it
+    whole; the sLSTM leaves (n_per, slots, d) are copied whole too."""
+    _, tcfg, _, tp = _models("xlstm-1.3b")
+    loop = TS.ContinuousServeLoop(tcfg, tp, slots=3, max_len=32)
+    prompt = np.arange(7, dtype=np.int32)
+    slot = loop.admit(TS.Request(rid=0, prompt=prompt, max_new_tokens=2))
+    _, pre = TS.make_ragged_prefill(tcfg)(
+        tp, {"tokens": torch.from_numpy(prompt[None])}, 7)
+    slstm, mlstm = loop._states
+    assert mlstm["c"].dim() == 5
+    assert mlstm["c"].shape[2] == tcfg.n_heads
+    for state, want in ((slstm, pre[0]), (mlstm, pre[1])):
+        for key in state:
+            assert torch.equal(state[key][:, slot], want[key][:, 0]), key
+    assert bool((mlstm["c"][:, slot] != 0).any())
+    assert bool((mlstm["c"][:, slot + 1] == 0).all())
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
