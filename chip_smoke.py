@@ -74,8 +74,9 @@ bit up to the main path's launch over four full-width shards
 dtype at the JAX tests' shapes, then timed at the embedding's size
 (``kernel-check diff_merge``), moe_gmm at granite's
 shapes, mamba_scan at zamba2's and mlstm at xlstm-1.3b's (``kernel-check
-mlstm``: a 1024-token prefill, a ragged 1000, the 4 x 512 batch, an
-initial state, and the JAX tests' small shapes).
+mlstm``: a 1024-token prefill, a ragged 1000, the 4 x 512 batch and an
+initial state, with the model's forget gates and with slow ones that
+carry C over several chunks, and the JAX tests' small shapes).
 
 Checkpoints go to ``build/chip_smoke_ckpt`` in the checkout and are
 removed at the end; the phase raises if the disk cannot hold three full
@@ -206,16 +207,24 @@ def check_kernel(torch, fa_ops, fa_ref, F):
     return rows
 
 
-def warm_up(torch, cfg, params, max_len, profiled=None):
+# The first calls that run under the profiler for a family whose prefill
+# is a loop over tokens (see warm_up).
+SHORT_FIRST_CALLS = {"prefill_1x256", "decode_step_8_lanes",
+                     "fixed_decode_step_4_lanes"}
+
+
+def warm_up(torch, cfg, params, max_len, token_loop=False):
     """Run every shape of the timed drives once before them, so that the
     serve numbers measure serving and not first use: the B=1 ragged
     prefill at the 256, 512 and 1024 buckets and an 8-lane decode step,
     then the 4 x 512 fixed-batch prefill and a 4-lane decode step.  Each
-    first call named in ``profiled`` (all when None) runs under
-    ``torch.profiler`` (its own start-up is paid on an empty region
-    before) and is then repeated without it; a ``first-call`` line gives
-    both wall times, the first call's device time, and its host
-    operations by self time, which is where a one-time cost shows."""
+    first call runs under ``torch.profiler`` (its own start-up is paid
+    on an empty region before) and is then repeated without it; a
+    ``first-call`` line gives both wall times, the first call's device
+    time, and its host operations by self time, which is where a
+    one-time cost shows.  With ``token_loop`` (a prefill that launches
+    kernels per token, whose long profiles take the profiler tens of
+    seconds to process) only SHORT_FIRST_CALLS run under the profiler."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -242,7 +251,7 @@ def warm_up(torch, cfg, params, max_len, profiled=None):
         return time.perf_counter() - t0
 
     def first_and_warm(name, fn):
-        if profiled is not None and name not in profiled:
+        if token_loop and name not in SHORT_FIRST_CALLS:
             first, warm = timed(fn), timed(fn)
             row = {"call": name, "first_ms": first * 1e3,
                    "warm_ms": warm * 1e3, "first_device_ms": None,
@@ -623,11 +632,11 @@ def profile_phase(torch, name, fn):
     return out
 
 
-def profile(torch, cfg, params, tag="", fixed=True):
+def profile(torch, cfg, params, tag="", token_loop=False):
     """Where the time goes: device time by kernel and the device's idle
-    share over one 1024-token prefill, over 8-lane decode steps and, with
-    ``fixed``, over the 4 x 512 fixed-batch prefill (phase names prefixed
-    with ``tag``)."""
+    share over one 1024-token prefill, over 8-lane decode steps and,
+    unless ``token_loop`` (see warm_up), over the 4 x 512 fixed-batch
+    prefill (phase names prefixed with ``tag``)."""
     import numpy as np
 
     from repro_torch.runtime.serve_loop import (ContinuousServeLoop, Request,
@@ -648,7 +657,7 @@ def profile(torch, cfg, params, tag="", fixed=True):
     profile_phase(torch, tag + "decode_step_8_lanes",
                   lambda: sum(1 for _ in range(10) if loop.decode_step()))
     del loop
-    if not fixed:
+    if token_loop:
         return
     floop = ServeLoop(cfg, params, max_len=MAX_LEN)
     batch = [Request(rid=i, prompt=r.prompt[:512], max_new_tokens=4)
@@ -1643,9 +1652,45 @@ def check_mamba_scan(torch, cfg):
 # mlstm: f32 sums over hd_k = 1024 terms in another order than the plain
 # version's; their error follows the size of the terms, so the absolute
 # tolerance of h and of the state scales with its largest magnitude (as
-# moe_gmm's); bf16 adds one rounding of h; m is a log-domain stabiliser
-# (the JAX kernel test's atol 1e-3).
-MLSTM_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# moe_gmm's).  bf16 h is rounded once from f32 in both, so the two differ
+# by at most one bf16 ulp (2^-8 to 2^-7 of the value) where their f32
+# values straddle a rounding boundary: atol and rtol of two ulps, 8e-3
+# (of max|h| and of the value).  m is a log-domain stabiliser (the JAX
+# kernel test's atol 1e-3).
+MLSTM_TOL = {"bfloat16": 8e-3, "float32": 1e-4}
+# The forget gates of the check: "jax" draws logf = -softplus(N(0, 1)) as
+# the JAX kernel test does (about -0.8 a token: C and n forget the last
+# chunk within ~20 tokens, so the carry between chunks is exp(-100), 0 in
+# f32); "model" is log sigmoid(N(3, 1)), the model's forget bias of 3
+# (about -0.08 a token); "slow" is log sigmoid(N(4.6, 0.1)), about -0.01,
+# so that C and n carry over several chunks and a fault in the carry
+# shows in C, n and h.
+MLSTM_GATES = {"jax": (-1.0, 0.0, 1.0), "model": (1.0, 3.0, 1.0),
+               "slow": (1.0, 4.6, 0.1)}
+
+
+def _mlstm_logf(torch, shape, gates, gen):
+    """logf for the gate kind ``gates`` (see MLSTM_GATES)."""
+    sign, mean, std = MLSTM_GATES[gates]
+    x = torch.randn(shape, generator=gen, device="cuda") * std + mean
+    if sign < 0:
+        return -torch.nn.functional.softplus(x)
+    return torch.nn.functional.logsigmoid(x)
+
+
+def _mlstm_carry_share(mr, q, k, v, li, lf, st, ck, c, m):
+    """How much of the final C the chunks before the last carry into it:
+    max |C - C'| / max |C|, where C' is the plain version's final C from
+    the last chunk alone (zero state), both unstabilised.  About 0 with
+    the JAX test's gates, well above the tolerance with slow ones."""
+    lo = (q.shape[1] - 1) // ck * ck
+    if lo == 0 and st is None:
+        return 0.0
+    _, (c1, _, m1) = mr.mlstm_chunked(
+        *(t[:, lo:] for t in (q, k, v, li, lf)), None, ck)
+    full = c * (m - m.amax())[..., None, None].exp()
+    last = c1 * (m1 - m.amax())[..., None, None].exp()
+    return ((full - last).abs().max() / full.abs().max()).item()
 
 
 def _mlstm_bound(b, length, h, hd, q, state, esize, dtype_name):
@@ -1676,13 +1721,15 @@ def _mlstm_bound(b, length, h, hd, q, state, esize, dtype_name):
 
 def check_mlstm(torch, cfg):
     """mlstm against its plain version at xlstm-1.3b's shapes (H 4, hd
-    1024, chunk 128; q, k, v ~ N(0, 1), logi ~ N(-1, 1), logf =
-    -softplus(N(0, 1)) as the JAX kernel test draws them): a 1024-token
-    prefill, a ragged 1000, the 4 x 512 batch, 300 tokens from a nonzero
-    initial state, each in bf16 and f32, then the JAX tests' small
-    shapes (hd 16-64).  Times: the kernel, the plain version, and one
-    ``torch.bmm`` of Q C^T over the whole sequence (partial: no PyTorch
-    call computes the function)."""
+    1024, chunk 128; q, k, v ~ N(0, 1), logi ~ N(-1, 1)): a 1024-token
+    prefill, a ragged 1000, the 4 x 512 batch and 300 tokens from a
+    nonzero initial state, each with the model's forget gates in bf16
+    and f32 and with slow ones (MLSTM_GATES) in f32, the 1024-token one
+    with slow gates in bf16 too; then the JAX tests' small shapes (hd
+    16-64) with their gates.  Each row gives ``carry_share``, how much
+    of the final C the earlier chunks carry.  Times: the kernel, the
+    plain version, and one ``torch.bmm`` of Q C^T over the whole
+    sequence (partial: no PyTorch call computes the function)."""
     from repro_torch.kernels.mlstm import ops as mo
     from repro_torch.kernels.mlstm import ref as mr
     from repro_torch.models import xlstm as xlstm_mod
@@ -1693,17 +1740,19 @@ def check_mlstm(torch, cfg):
            (4, 512, h, hd, chunk, False), (1, 300, h, hd, chunk, True)]
     small = [(2, 128, 2, 32, 32, False), (1, 256, 4, 64, 64, False),
              (2, 64, 1, 16, 16, False), (2, 100, 2, 48, 32, True)]
-    cases = [c + (d,) for d in ("bfloat16", "float32") for c in big] \
-        + [c + ("float32",) for c in small] + [small[0] + ("bfloat16",)]
+    cases = [c + ("model", d) for d in ("bfloat16", "float32") for c in big] \
+        + [c + ("slow", "float32") for c in big] \
+        + [big[0] + ("slow", "bfloat16")] \
+        + [c + ("jax", "float32") for c in small] \
+        + [small[0] + ("jax", "bfloat16")]
     gen = torch.Generator(device="cuda").manual_seed(23)
     rows = []
-    for b, length, nh, d, ck, with_state, dname in cases:
+    for b, length, nh, d, ck, with_state, gates, dname in cases:
         dt_ = getattr(torch, dname)
         q, k, v = (torch.randn((b, length, nh, d), generator=gen,
                                device="cuda").to(dt_) for _ in range(3))
         li = torch.randn((b, length, nh), generator=gen, device="cuda") - 1
-        lf = -torch.nn.functional.softplus(
-            torch.randn((b, length, nh), generator=gen, device="cuda"))
+        lf = _mlstm_logf(torch, (b, length, nh), gates, gen)
         st = None
         if with_state:
             st = (torch.randn((b, nh, d, d), generator=gen,
@@ -1734,9 +1783,13 @@ def check_mlstm(torch, cfg):
             b, length, nh, d, min(ck, length), with_state,
             q.element_size(), dname)
         row = {"B": b, "L": length, "H": nh, "hd": d, "chunk": ck,
-               "state": with_state, "dtype": dname,
+               "state": with_state, "gates": gates, "dtype": dname,
+               "logf_mean": lf.mean().item(),
+               "carry_share": _mlstm_carry_share(mr, q, k, v, li, lf, st,
+                                                 ck, cr, m_r),
                "max_abs_err": (out.float() - ref.float()).abs().max()
                .item(), "c_max_abs_err": (c - cr).abs().max().item(),
+               "n_max_abs_err": (n - nr).abs().max().item(),
                "m_max_abs_err": (m - m_r).abs().max().item(),
                "h_absmax": h_scale, "c_absmax": c_scale,
                "atol": tol * h_scale, "rtol": tol, "ok": ok, "ms": ms,
@@ -1808,28 +1861,24 @@ def families(torch, counters, phase_time):
     serve shape, the serving drive, the prefill check and a profile, for
     each.  An xLSTM prefill launches about 140 kernels a token (the sLSTM
     token loop), and the profiler's own processing of a 1024-token one
-    takes tens of seconds, so for xLSTM only the shortest prefill's and
-    the decode steps' first calls run under the profiler, and the fixed
-    batch's prefill is not profiled.  ``phase_time`` marks each family's
-    end."""
+    takes tens of seconds, so that family is marked ``token_loop`` (see
+    warm_up and profile).  ``phase_time`` marks each family's end."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer as tf
 
     total = dict.fromkeys(counters, 0)
-    few = {"prefill_1x256", "decode_step_8_lanes",
-           "fixed_decode_step_4_lanes"}
-    for arch, tag in (("granite-moe-1b-a400m", "moe"),
-                      ("zamba2-2.7b", "hybrid"), ("xlstm-1.3b", "ssm")):
+    for arch, tag, token_loop in (("granite-moe-1b-a400m", "moe", False),
+                                  ("zamba2-2.7b", "hybrid", False),
+                                  ("xlstm-1.3b", "ssm", True)):
         cfg = get_config(arch)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        heavy = tag == "ssm"
         with torch.no_grad():
             params = tf.init_params(gen, cfg, device="cuda")
-            warm_up(torch, cfg, params, MAX_LEN,
-                    profiled=few if heavy else None)
+            warm_up(torch, cfg, params, MAX_LEN, token_loop=token_loop)
             reqs, launches = serve_family(torch, cfg, params, tag, counters)
             check_prefill(torch, cfg, params, reqs, MAX_LEN)
-            profile(torch, cfg, params, tag=f"{tag}_", fixed=not heavy)
+            profile(torch, cfg, params, tag=f"{tag}_",
+                    token_loop=token_loop)
         for name in total:
             total[name] += launches[name]
         del params

@@ -427,20 +427,39 @@ def test_cuda_mamba_scan_refusals(cuda_device):
 
 # mlstm: f32 sums over hd_k (up to 1024 terms) in another order than the
 # plain version's; the error follows the size of the terms, so the
-# absolute tolerance scales with the output's largest magnitude.  bf16
-# adds one rounding of h.  m is a log-domain stabiliser (the JAX tests'
-# atol 1e-3).
-MLSTM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# absolute tolerance scales with the output's largest magnitude.  bf16 h
+# is rounded once from f32 in both, so the two differ by at most one bf16
+# ulp (2^-8 to 2^-7 of the value) where their f32 values straddle a
+# rounding boundary: atol and rtol of two ulps, 8e-3.  m is a log-domain
+# stabiliser (the JAX tests' atol 1e-3).
+MLSTM_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
+# Forget gates: "jax" is the JAX kernel test's -softplus(N(0, 1)), about
+# -0.8 a token, under which nothing of C outlives a chunk; "model" is
+# log sigmoid(N(3, 1)), the model's forget bias of 3; "slow" is
+# log sigmoid(N(4.6, 0.1)), about -0.01, so that C and n carry over
+# several chunks.
+MLSTM_GATES = {"jax": (-1.0, 0.0, 1.0), "model": (1.0, 3.0, 1.0),
+               "slow": (1.0, 4.6, 0.1)}
+MLSTM_BIG = [(1, 1024, 4, 1024, 128, False), (1, 1000, 4, 1024, 128, False),
+             (4, 512, 4, 1024, 128, False), (1, 300, 4, 1024, 128, True)]
+MLSTM_CASES = [c + (g,) for g in ("model", "slow") for c in MLSTM_BIG] + [
+    (2, 128, 2, 32, 32, False, "jax"), (1, 256, 4, 64, 64, False, "jax"),
+    (2, 64, 1, 16, 16, False, "jax"), (2, 100, 2, 48, 32, True, "jax"),
+    (1, 37, 2, 8, 16, True, "jax"), (2, 100, 2, 48, 32, True, "slow"),
+    (1, 37, 2, 8, 16, True, "slow")]
 
 
-def _mlstm_inputs(b, length, h, hd, dtype, device, seed, state=False):
+def _mlstm_inputs(b, length, h, hd, dtype, device, seed, state=False,
+                  gates="jax"):
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn((b, length, h, hd), generator=gen,
                            device=device).to(dt) for _ in range(3))
     li = torch.randn((b, length, h), generator=gen, device=device) - 1
-    lf = -torch.nn.functional.softplus(
-        torch.randn((b, length, h), generator=gen, device=device))
+    sign, mean, std = MLSTM_GATES[gates]
+    x = torch.randn((b, length, h), generator=gen, device=device) * std + mean
+    lf = -torch.nn.functional.softplus(x) if sign < 0 \
+        else torch.nn.functional.logsigmoid(x)
     st = None
     if state:
         st = (torch.randn((b, h, hd, hd), generator=gen, device=device) * .3,
@@ -449,35 +468,111 @@ def _mlstm_inputs(b, length, h, hd, dtype, device, seed, state=False):
     return (q, k, v, li, lf), st
 
 
+def _mlstm_carry_share(MR, ins, st, chunk, c, m):
+    """max |C - C'| / max |C|, unstabilised, where C' is the plain
+    version's final C from the last chunk alone and a zero state: how
+    much the earlier chunks (and the initial state) carry into C."""
+    lo = (ins[0].shape[1] - 1) // chunk * chunk
+    _, (c1, _, m1) = MR.mlstm_chunked(*(t[:, lo:] for t in ins), None,
+                                      chunk)
+    top = m.amax()
+    full = c * (m - top)[..., None, None].exp()
+    last = c1 * (m1 - top)[..., None, None].exp()
+    return ((full - last).abs().max() / full.abs().max()).item()
+
+
+def _mlstm_tols(dtype, ref, cr, nr):
+    """(atol, rtol) for h, C, n and m, the kernel checks' criteria."""
+    tol = MLSTM_TOL[dtype]
+    scale = lambda t: max(1.0, t.float().abs().max().item())
+    return {"h": (tol * scale(ref), tol), "c": (1e-4 * scale(cr), 1e-3),
+            "n": (1e-4 * scale(nr), 1e-3), "m": (1e-3, 0.0)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,length,h,hd,chunk,state", [
-    (1, 1024, 4, 1024, 128, False), (1, 1000, 4, 1024, 128, False),
-    (4, 512, 4, 1024, 128, False), (1, 300, 4, 1024, 128, True),
-    (2, 128, 2, 32, 32, False), (1, 256, 4, 64, 64, False),
-    (2, 64, 1, 16, 16, False), (2, 100, 2, 48, 32, True),
-    (1, 37, 2, 8, 16, True)])
+@pytest.mark.parametrize("b,length,h,hd,chunk,state,gates", MLSTM_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_mlstm_matches_plain(cuda_device, b, length, h, hd, chunk,
-                                  state, dtype):
+                                  state, gates, dtype):
     from repro_torch.kernels.mlstm import ops as MO
     from repro_torch.kernels.mlstm import ref as MR
-    (q, k, v, li, lf), st = _mlstm_inputs(b, length, h, hd, dtype,
-                                          cuda_device, length + hd, state)
+    ins, st = _mlstm_inputs(b, length, h, hd, dtype, cuda_device,
+                            length + hd, state, gates)
     before = MO.launches
-    out, (c, n, m) = MO.mlstm(q, k, v, li, lf, st, chunk=chunk)
+    out, (c, n, m) = MO.mlstm(*ins, st, chunk=chunk)
     assert MO.launches == before + 1
-    ref, (cr, nr, mr) = MR.mlstm_chunked(q, k, v, li, lf, st, chunk)
+    ref, (cr, nr, mr) = MR.mlstm_chunked(*ins, st, chunk)
     torch.cuda.synchronize()
-    assert out.dtype == q.dtype and c.dtype == torch.float32
-    tol = MLSTM_TOL[dtype]
-    torch.testing.assert_close(
-        out.float(), ref.float(), rtol=tol,
-        atol=tol * max(1.0, ref.float().abs().max().item()))
-    for got, want in ((c, cr), (n, nr)):
-        torch.testing.assert_close(
-            got, want, rtol=1e-3,
-            atol=1e-4 * max(1.0, want.abs().max().item()))
-    torch.testing.assert_close(m, mr, atol=1e-3, rtol=0)
+    assert out.dtype == ins[0].dtype and c.dtype == torch.float32
+    tols = _mlstm_tols(dtype, ref, cr, nr)
+    for name, got, want in (("h", out.float(), ref.float()), ("c", c, cr),
+                            ("n", n, nr), ("m", m, mr)):
+        atol, rtol = tols[name]
+        torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+    if gates == "slow":       # the data makes the carry between chunks count
+        assert _mlstm_carry_share(MR, ins, st, chunk, cr, mr) > 0.1
+
+
+# Faults planted in a copy of csrc/mlstm.cu (built into a temporary
+# directory, never into the repository): the factor that carries C from
+# one chunk into the next in the state pass, set to 0 or 1, and the
+# carry of n in the gate pass dropped.  The checks above must fail on
+# every case with slow gates; the readings show the cases with the
+# model's gates too.
+MLSTM_FAULTS = {
+    "c_carry_0": ("const float carry = gcarry[cb];",
+                  "const float carry = 0.f;"),
+    "c_carry_1": ("const float carry = gcarry[cb];",
+                  "const float carry = 1.f;"),
+    "n_carry_0": ("n_reg[r] = carry * n_reg[r] + acc;", "n_reg[r] = acc;"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", sorted(MLSTM_FAULTS))
+def test_cuda_mlstm_checks_catch_carry_faults(cuda_device, tmp_path,
+                                              monkeypatch, fault):
+    import ctypes
+    import json
+    import subprocess
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mlstm import ops as MO
+    from repro_torch.kernels.mlstm import ref as MR
+    old, new = MLSTM_FAULTS[fault]
+    source = MO._SOURCE.read_text()
+    assert source.count(old) == 1
+    mutant = tmp_path / "mlstm.cu"
+    mutant.write_text(source.replace(old, new))
+    so = tmp_path / "libmlstm_fault.so"
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(mutant)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    for fn_name, argtypes in MO._SIG.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    monkeypatch.setattr(MO, "lib", lambda: lib)
+    caught = {}
+    for case in [c + (g,) for g in ("slow", "model") for c in MLSTM_BIG]:
+        b, length, h, hd, chunk, state, gates = case
+        ins, st = _mlstm_inputs(b, length, h, hd, "float32", cuda_device,
+                                length + hd, state, gates)
+        out, (c, n, m) = MO.mlstm(*ins, st, chunk=chunk)
+        ref, (cr, nr, mr) = MR.mlstm_chunked(*ins, st, chunk)
+        tols = _mlstm_tols("float32", ref, cr, nr)
+        row = {"fault": fault, "B": b, "L": length, "state": state,
+               "gates": gates}
+        for name, got, want in (("h", out, ref), ("c", c, cr), ("n", n, nr),
+                                ("m", m, mr)):
+            atol, rtol = tols[name]
+            row[f"{name}_max_abs_err"] = (got - want).abs().max().item()
+            row[f"{name}_ok"] = torch.allclose(got, want, atol=atol,
+                                               rtol=rtol)
+        caught[case] = not all(row[f"{x}_ok"] for x in "hcnm")
+        print(f"mlstm-fault {json.dumps(row)}", flush=True)
+    assert all(hit for case, hit in caught.items() if case[-1] == "slow"), \
+        caught
 
 
 @pytest.mark.cuda

@@ -24,15 +24,27 @@ TOL = dict(atol=1e-4, rtol=1e-3)
 M_TOL = dict(atol=1e-3, rtol=0)
 
 
-def _inputs(b, length, h, hd, seed, state=False):
-    """Model layout: q, k, v (B,L,H,hd); logi, logf (B,L,H), as the JAX
-    kernel test draws them; optionally a nonzero initial state."""
+# Forget gates (sign, mean, std of x): "jax" is the JAX kernel test's
+# logf = -softplus(x), about -0.8 a token, under which nothing of C
+# outlives a chunk; "model" is log sigmoid(x) with the model's forget
+# bias of 3; "slow" is log sigmoid(x) at about -0.01, so that C and n
+# carry over several chunks.
+GATES = {"jax": (-1.0, 0.0, 1.0), "model": (1.0, 3.0, 1.0),
+         "slow": (1.0, 4.6, 0.1)}
+
+
+def _inputs(b, length, h, hd, seed, state=False, gates="jax"):
+    """Model layout: q, k, v (B,L,H,hd); logi, logf (B,L,H), by default
+    as the JAX kernel test draws them; optionally a nonzero initial
+    state."""
     rng = np.random.default_rng(seed)
     q, k, v = (rng.standard_normal((b, length, h, hd)).astype(np.float32)
                for _ in range(3))
     li = (rng.standard_normal((b, length, h)) - 1).astype(np.float32)
-    lf = -np.log1p(np.exp(rng.standard_normal((b, length, h)))).astype(
-        np.float32)
+    sign, mean, std = GATES[gates]
+    x = rng.standard_normal((b, length, h)) * std + mean
+    lf = (-np.log1p(np.exp(x)) if sign < 0
+          else -np.log1p(np.exp(-x))).astype(np.float32)
     st = None
     if state:
         st = ((rng.standard_normal((b, h, hd, hd)) * 0.3).astype(np.float32),
@@ -109,6 +121,38 @@ def test_ragged_tail_and_initial_state_match_jax_mlstm_chunked(
     _close(c, jc)
     _close(n, jn)
     _close(m, jm, M_TOL)
+
+
+@pytest.mark.parametrize("gates", ["model", "slow"])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_forget_gates_that_carry_c_match_jax(gates, with_state):
+    """Forget gates as the model draws them and slower ones, under which
+    C and n carry over several chunks (the JAX test's gates forget a
+    chunk within ~20 tokens): the wrapper agrees with the JAX model path
+    and, from the zero state, with the exact per-token oracle."""
+    (q, k, v, li, lf), st = _inputs(2, 300, 2, 32, 11, with_state, gates)
+    tst = None if st is None else _t(st)
+    ht, (c, n, m) = TO.mlstm(*_t((q, k, v, li, lf)), tst, chunk=64)
+    jst = None if st is None else tuple(jnp.asarray(a) for a in st)
+    jh, (jc, jn, jm) = JX.mlstm_chunked(
+        *(jnp.asarray(a) for a in (q, k, v, li, lf)), jst, chunk=64)
+    _close(ht, jh)
+    _close(c, jc)
+    _close(n, jn)
+    _close(m, jm, M_TOL)
+    if st is None:
+        kl = lambda x: np.moveaxis(x, 2, 1)
+        eh, (ec, _, _) = JR.mlstm_ref(kl(q), kl(k), kl(v), kl(li)[..., None],
+                                      kl(lf)[..., None])
+        _close(ht, np.moveaxis(np.asarray(eh), 1, 2))
+        _close(c, ec)
+    if gates == "slow":     # the earlier chunks weigh in the final C
+        _, (c1, _, m1) = TO.mlstm(*_t((q[:, 256:], k[:, 256:], v[:, 256:],
+                                       li[:, 256:], lf[:, 256:])), chunk=64)
+        top = m.amax()
+        full = c * (m - top)[..., None, None].exp()
+        last = c1 * (m1 - top)[..., None, None].exp()
+        assert (full - last).abs().max() > 0.1 * full.abs().max()
 
 
 def test_chunk_invariance_and_jax_default_chunk():
