@@ -16,7 +16,8 @@ non-zero before printing any result):
    llama3.2-1b's prefill shapes (H=32, KV=8, hd=64; B=1 at S 128, 256,
    512, 1024 and a ragged 1000, and B=4 at S=512 as the fixed-batch
    serve runs it; a 256-token window; hd=80 through the padding wrapper;
-   non-causal; bf16 and f32) and time the kernel, the plain
+   non-causal; bf16 and f32) and at phi3.5-moe's hd=128 (B=1, S=1024),
+   and time the kernel, the plain
    version and ``torch.nn.functional.scaled_dot_product_attention`` (the
    library yardstick, which the port itself never calls).
 4. Serve full-width llama3.2-1b in bf16 (random weights from a seed):
@@ -50,18 +51,21 @@ non-zero before printing any result):
    more goes through the diff_merge kernel, bit for bit equal to its
    plain version; the norms and the step take the host path; the
    overwrite merge has the child's fingerprint.  ``ckpt``: the gang
-   runtime (4 ranks, 2 pods, compressed sync at frac 1.0, checkpoints
-   every 2 of 4 steps) run once uninterrupted and once with a failure at
-   step 3 (recovery to the step-2 checkpoint), losses equal within 1e-6;
+   runtime (4 ranks, 2 pods, compressed sync at frac 1.0, 4 steps) run
+   once uninterrupted (saving only the state before step 0) and once
+   with checkpoints every 2 steps and a failure at step 3 (recovery to
+   the step-2 checkpoint), losses equal within 1e-6;
    then a delta-chain manager over 3 saves restored bit for bit, and a
    delta migration checked with ``verify_migration``.
-7. Serves the MoE, hybrid and xLSTM families at full width and depth
-   (granite-moe-1b-a400m, zamba2-2.7b, xlstm-1.3b; bf16, random weights
-   from a seed): first use of every serve shape, 8 Poisson requests
-   through ``ContinuousServeLoop`` and a ``ServeLoop`` batch of 4 x 512
-   (``serve-moe``, ``serve-hybrid``, ``serve-ssm``: every kernel count
-   against the path's formula), the prefill check against an f32
-   witness, and a profile of each.
+7. Serves the MoE, hybrid and xLSTM families at full width
+   (granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b cut to 8 of its 32
+   layers, zamba2-2.7b, xlstm-1.3b; the others at full depth; bf16,
+   random weights from a seed): first use of every serve shape, 8
+   Poisson requests through ``ContinuousServeLoop`` and a ``ServeLoop``
+   batch of 4 x 512 (``serve-moe``, ``serve-moe_phi``, ``serve-hybrid``,
+   ``serve-ssm``: every kernel count against the path's formula), the
+   prefill check against an f32 witness (for the MoE configs each MoE
+   layer also held alone), and a profile of each.
 8. Prints the ``kernels`` JSON line and, last, the device JSON line.
 
 Besides the forward kernel, phase 2 builds the flash-attention backward
@@ -72,7 +76,7 @@ autograd of the plain attention (``kernel-check bwd``), the codec bit for
 bit up to the main path's launch over four full-width shards
 (``kernel-check codec``), diff_merge bit for bit over every merge op and
 dtype at the JAX tests' shapes, then timed at the embedding's size
-(``kernel-check diff_merge``), moe_gmm at granite's
+(``kernel-check diff_merge``), moe_gmm at granite's and phi3.5-moe's
 shapes, mamba_scan at zamba2's and mlstm at xlstm-1.3b's (``kernel-check
 mlstm``: a 1024-token prefill, a ragged 1000, the 4 x 512 batch and an
 initial state, with the model's forget gates and with slow ones that
@@ -158,6 +162,9 @@ def check_kernel(torch, fa_ops, fa_ref, F):
         (4, 512, 64, True, 0, "bfloat16"), (4, 512, 64, True, 0, "float32"),
         # the training micro-batch: 2 sequences of 1024 tokens
         (2, 1024, 64, True, 0, "bfloat16"), (2, 1024, 64, True, 0, "float32"),
+        # phi3.5-moe's native head dim (its prefill of 1024 tokens)
+        (1, 1024, 128, True, 0, "bfloat16"),
+        (1, 1024, 128, True, 0, "float32"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -582,7 +589,7 @@ def check_prefill(torch, cfg, params, reqs, max_len):
 
 # Device kernels by kind, matched on the kernel's name (first match wins).
 KERNEL_KINDS = [
-    ("flash_attention", ("fa_fwd_kernel",)),
+    ("flash_attention", ("fa_fwd_",)),
     ("moe_gmm", ("mg_ffn_kernel",)),
     ("mamba_scan", ("ms_ssd_kernel",)),
     ("mlstm", ("ml_gates_kernel", "ml_scores_kernel", "ml_state_kernel")),
@@ -975,9 +982,9 @@ def check_backward(torch, fa_ops, fa_ref, F):
                 qt, kt, vt = (x.detach().transpose(1, 2).contiguous()
                               for x in (q, k, v))
                 dot = dout.transpose(1, 2).contiguous()
-                o, lse = fa_ops._launch(qt, kt, vt, causal=True,
-                                        window=window, scale=scale,
-                                        with_lse=True)
+                _, lse, o = fa_ops._launch(qt, kt, vt, causal=True,
+                                           window=window, scale=scale,
+                                           with_lse=True)
                 ms = _time_ms(lambda: fa_ops._launch_bwd(
                     qt, kt, vt, o, lse, dot, causal=True, window=window,
                     scale=scale), iters=10)
@@ -1397,10 +1404,10 @@ def ckpt_check(torch, cfg, state_bytes):
                       global_batch=GANG["global_batch"])
     ocfg = AdamWConfig(lr=GANG["lr"], warmup_steps=1, total_steps=steps)
     _disk_check(3 * state_bytes)       # run b keeps three full checkpoints
-    def gang(name, failures):
+    def gang(name, failures, every):
         rt = RuntimeConfig(total_steps=steps, sync_mode="compressed",
                            compress_frac=1.0, pods=GANG["pods"],
-                           checkpoint_every=2,
+                           checkpoint_every=every,
                            ckpt_dir=os.path.join(CKPT_ROOT, name),
                            inject_failures=failures)
         runtime = FaabricTrainRuntime(cfg, ocfg, dcfg, rt,
@@ -1418,13 +1425,16 @@ def ckpt_check(torch, cfg, state_bytes):
                  for sp in tel.spans if sp["name"].startswith("ckpt.")]
         return state, out, runtime.ckpt.stats, spans, wall
 
-    state, base, stats_a, spans_a, wall_a = gang("a", {})
+    # the uninterrupted run saves only the state before step 0 (as every
+    # run does): its losses and final state are what the recovered run
+    # must repeat, and its periodic saves would add nothing to check
+    state, base, stats_a, spans_a, wall_a = gang("a", {}, 0)
     full_bytes = stats_a[0]["full_bytes"]
     fp_a = snap_mod._fingerprint(tree_leaves(state))
     del state
     torch.cuda.empty_cache()
     shutil.rmtree(os.path.join(CKPT_ROOT, "a"))
-    state, failed, stats_b, spans_b, wall_b = gang("b", {3: "chip_smoke"})
+    state, failed, stats_b, spans_b, wall_b = gang("b", {3: "chip_smoke"}, 2)
     fp_b = snap_mod._fingerprint(tree_leaves(state))
     shutil.rmtree(os.path.join(CKPT_ROOT, "b"))
     diff = max(abs(x - y) for x, y in zip(base["losses"], failed["losses"]))
@@ -1518,24 +1528,35 @@ def _gmm_bound(e, m, d, ff, act, dtype_name, esize):
             max(flops / PEAK_FLOPS["float32"], t_bytes) * 1e3)
 
 
+# moe_gmm's checked cases (M, act, dtype) per config.  granite: M 320 (a
+# 1024-token prefill), 640 (the 4 x 512 fixed batch), 8 (decode with 8
+# slots), a ragged 100, gelu, and f32.  phi3.5-moe (d 4096: four slabs
+# of y's columns): M 160 (a 1024-token prefill, 2 groups x capacity 80)
+# and M 2 (8-lane decode: capacity max(1, top_k)), and f32.
+GMM_CASES = {
+    "granite-moe-1b-a400m": [
+        (320, "silu", "bfloat16"), (640, "silu", "bfloat16"),
+        (8, "silu", "bfloat16"), (100, "silu", "bfloat16"),
+        (320, "gelu", "bfloat16"), (320, "silu", "float32"),
+        (8, "silu", "float32")],
+    "phi3.5-moe-42b-a6.6b": [
+        (160, "silu", "bfloat16"), (2, "silu", "bfloat16"),
+        (160, "silu", "float32")]}
+
+
 def check_moe_gmm(torch, cfg):
-    """moe_gmm against its plain version at granite's shapes (E 32, d 1024,
-    ff 512, the model's init for the weights, x ~ N(0, 1)): M 320 (a
-    1024-token prefill), 640 (the 4 x 512 fixed batch), 8 (decode with 8
-    slots), a ragged 100, gelu, and f32.  Times: the kernel, the plain
-    version, and one ``torch.bmm`` of x w1 (partial: a third of the
-    products, no activation, no fusion)."""
+    """moe_gmm against its plain version at a config's shapes (GMM_CASES;
+    the model's init for the weights, x ~ N(0, 1)).  Times: the kernel,
+    the plain version, and one ``torch.bmm`` of x w1 (partial: a third of
+    the products, no activation, no fusion)."""
     from repro_torch.kernels.moe_gmm import ops as go
     from repro_torch.kernels.moe_gmm import ref as gr
     from repro_torch.models import moe as moe_mod
 
-    cases = [(320, "silu", "bfloat16"), (640, "silu", "bfloat16"),
-             (8, "silu", "bfloat16"), (100, "silu", "bfloat16"),
-             (320, "gelu", "bfloat16"), (320, "silu", "float32"),
-             (8, "silu", "float32")]
+    cases = GMM_CASES[cfg.name]
     gen = torch.Generator(device="cuda").manual_seed(21)
     w = {}
-    for dname in ("bfloat16", "float32"):
+    for dname in sorted({c[2] for c in cases}):
         w[dname] = moe_mod.init_moe(gen, cfg.with_(dtype=dname),
                                     device="cuda")
     e, d, ff = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
@@ -1558,7 +1579,8 @@ def check_moe_gmm(torch, cfg):
         part_ms = _time_ms(lambda: torch.bmm(x, p["w1"]))
         bound_ms, bound_by, flops, nbytes, f32_ms = _gmm_bound(
             e, m, d, ff, act, dname, x.element_size())
-        row = {"E": e, "M": m, "d": d, "ff": ff, "act": act,
+        row = {"arch": cfg.name, "E": e, "M": m, "d": d, "ff": ff,
+               "slabs": go.launch_grid(e, m, d, ff)[2], "act": act,
                "dtype": dname, "max_abs_err": (out.float() - ref.float())
                .abs().max().item(), "ref_absmax": scale,
                "atol": tol * scale, "rtol": tol, "ok": ok, "ms": ms,
@@ -1806,7 +1828,7 @@ def check_mlstm(torch, cfg):
     return rows
 
 
-def serve_family(torch, cfg, params, tag, counters):
+def serve_family(torch, cfg, params, tag, counters, reduced=None):
     """The serving path of one family at full width and depth: 8 Poisson
     requests (prompts 256-1024 tokens, cut to whole 64-token chunks for
     a hybrid config, whose prefill runs at the exact length; an xLSTM
@@ -1816,7 +1838,8 @@ def serve_family(torch, cfg, params, tag, counters):
     just before and read just after; each must equal what the path
     implies: per prefill one launch per attention block (flash), per
     Mamba block (mamba_scan) and per mLSTM block (mlstm), per prefill and
-    decode step one per MoE block (moe_gmm)."""
+    decode step one per MoE block (moe_gmm).  ``reduced`` names a cut of
+    the config, printed on the line."""
     from repro_torch.configs.base import ATTN, MAMBA, MLSTM, MOE, \
         SHARED_ATTN
     from repro_torch.runtime.admission import request_stream
@@ -1847,7 +1870,8 @@ def serve_family(torch, cfg, params, tag, counters):
     expect["moe_gmm"] = n_moe * (prefills + steps)
     expect["mamba_scan"] = kinds.count(MAMBA) * prefills
     expect["mlstm"] = kinds.count(MLSTM) * prefills
-    res = {"arch": cfg.name, "continuous": cont, "fixed": fixed,
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "reduced": reduced,
+           "continuous": cont, "fixed": fixed,
            "prefills": prefills, "decode_steps": steps,
            "launches": launches, "expected_launches": expect}
     print(f"serve-{tag} {json.dumps(res)}", flush=True)
@@ -1855,27 +1879,41 @@ def serve_family(torch, cfg, params, tag, counters):
     return reqs, launches
 
 
+# phi3.5-moe-42b-a6.6b at full width, cut in depth: 8 of its 32 layers
+# are 10,665,136,128 params (21.3 GB in bf16); all 32 are 41,872,527,360
+# (83.7 GB), more than the card's 80 GB.
+PHI_LAYERS = 8
+
+
 def families(torch, counters, phase_time):
-    """Phase 7: serve full-width granite-moe-1b-a400m, zamba2-2.7b and
-    xlstm-1.3b in bf16 (random weights from a seed): first use of every
-    serve shape, the serving drive, the prefill check and a profile, for
-    each.  An xLSTM prefill launches about 140 kernels a token (the sLSTM
-    token loop), and the profiler's own processing of a 1024-token one
-    takes tens of seconds, so that family is marked ``token_loop`` (see
-    warm_up and profile).  ``phase_time`` marks each family's end."""
+    """Phase 7: serve full-width granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b
+    (PHI_LAYERS of its 32 layers), zamba2-2.7b and xlstm-1.3b in bf16
+    (random weights from a seed): first use of every serve shape, the
+    serving drive, the prefill check and a profile, for each.  An xLSTM
+    prefill launches about 140 kernels a token (the sLSTM token loop),
+    and the profiler's own processing of a 1024-token one takes tens of
+    seconds, so that family is marked ``token_loop`` (see warm_up and
+    profile).  ``phase_time`` marks each family's end."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer as tf
 
     total = dict.fromkeys(counters, 0)
-    for arch, tag, token_loop in (("granite-moe-1b-a400m", "moe", False),
-                                  ("zamba2-2.7b", "hybrid", False),
-                                  ("xlstm-1.3b", "ssm", True)):
+    phi_cut = (f"depth {PHI_LAYERS} of 32 layers: 10,665,136,128 params "
+               "(21.3 GB bf16); all 32 are 83.7 GB, over the card's 80 GB")
+    for arch, tag, token_loop, layers, reduced in (
+            ("granite-moe-1b-a400m", "moe", False, None, None),
+            ("phi3.5-moe-42b-a6.6b", "moe_phi", False, PHI_LAYERS, phi_cut),
+            ("zamba2-2.7b", "hybrid", False, None, None),
+            ("xlstm-1.3b", "ssm", True, None, None)):
         cfg = get_config(arch)
+        if layers:
+            cfg = cfg.with_(n_layers=layers)
         gen = torch.Generator(device="cuda").manual_seed(0)
         with torch.no_grad():
             params = tf.init_params(gen, cfg, device="cuda")
             warm_up(torch, cfg, params, MAX_LEN, token_loop=token_loop)
-            reqs, launches = serve_family(torch, cfg, params, tag, counters)
+            reqs, launches = serve_family(torch, cfg, params, tag, counters,
+                                          reduced=reduced)
             check_prefill(torch, cfg, params, reqs, MAX_LEN)
             profile(torch, cfg, params, tag=f"{tag}_",
                     token_loop=token_loop)
@@ -1951,6 +1989,7 @@ def main() -> int:
     codec_rows = check_codec(torch, co, cr)
     dm_rows = check_diff_merge(torch, dm, dr)
     gmm_rows = check_moe_gmm(torch, get_config("granite-moe-1b-a400m"))
+    gmm_rows += check_moe_gmm(torch, get_config("phi3.5-moe-42b-a6.6b"))
     scan_rows = check_mamba_scan(torch, get_config("zamba2-2.7b"))
     ml_rows = check_mlstm(torch, get_config("xlstm-1.3b"))
     bad = [r for r in rows + bwd_rows + gmm_rows + scan_rows + ml_rows

@@ -3,9 +3,10 @@
 ``nvcc`` compiles a kernel's ``csrc/<name>.cu`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, which ``ctypes`` loads.
 The library lands in ``build/<name>/`` at the repository root, named by a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing here runs at import time: a kernel's
-wrapper calls ``load`` inside the function that launches it.
+hash of the source, the headers (``*.cuh``) beside it and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
+Nothing here runs at import time: a kernel's wrapper calls ``load``
+inside the function that launches it.
 
     lib = load("collective_codec", SOURCE, {"cc_select": [c_void_p, ...]})
 """
@@ -40,8 +41,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str, source: Path) -> Path:
-    digest = hashlib.sha256(Path(source).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    source = Path(source)
+    data = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:12]
     return BUILD_ROOT / name / f"lib{name}_{digest}.so"
 
 

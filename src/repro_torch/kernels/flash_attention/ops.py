@@ -11,7 +11,8 @@ A CUDA tensor goes to the hand-written kernels, or the call raises; a CPU
 tensor goes to the plain version (``ref.attention_ref``), whose autograd
 is the gradient.  There is no fallback from one to the other.  When a
 gradient is wanted, the forward kernel also writes the per-row log-sum-exp
-and a ``torch.autograd.Function`` runs the backward kernel
+(and, for bf16, its output in f32 before the rounding) and a
+``torch.autograd.Function`` runs the backward kernel
 (``csrc/flash_attention_bwd.cu``); serving (no gradient) skips both.
 ``launches`` counts forward launches, ``bwd_launches`` backward ones.
 """
@@ -30,8 +31,9 @@ bwd_launches = 0        # backward kernel launches since the last reset
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# q, k, v, o, lse; B, H, KV, S, hd; scale, causal, window, dtype, stream
-_FWD_SIG = {"fa_forward": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _I, _P]}
+# q, k, v, o, o32, lse; B, H, KV, S, hd; scale, causal, window, dtype,
+# stream
+_FWD_SIG = {"fa_forward": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _I, _P]}
 # q, k, v, o, dO, lse, D, dq, dk, dv; B, H, KV, S, hd; scale, causal,
 # window, dtype, stream
 _BWD_SIG = {"fa_backward": [_P] * 10 + [_I] * 5 + [_F, _I, _I, _I, _P]}
@@ -86,7 +88,9 @@ def _check_shapes(qt, kt, vt, window):
 def _launch(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, *,
             causal: bool, window: int, scale: float, with_lse: bool = False):
     """Run the forward kernel on (B,H,S,hd) tensors.  Returns the output
-    (B,H,S,hd), and with ``with_lse`` also the (B,H,S) f32 log-sum-exp."""
+    (B,H,S,hd), and with ``with_lse`` (out, lse, o32): also the (B,H,S) f32
+    log-sum-exp and the output in f32 before its rounding (``out`` itself
+    for f32), which the backward kernel takes."""
     global launches
     for name, t in (("q", qt), ("k", kt), ("v", vt)):
         _check(name, t, qt)
@@ -95,30 +99,40 @@ def _launch(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, *,
     out = torch.empty_like(qt)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=qt.device)
            if with_lse else None)
+    o32 = (torch.empty(out.shape, dtype=torch.float32, device=qt.device)
+           if with_lse and qt.dtype != torch.float32 else None)
     lib = fwd_lib()
     stream = torch.cuda.current_stream(qt.device).cuda_stream
     with torch.cuda.device(qt.device):
         err = lib.fa_forward(
             qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), out.data_ptr(),
+            o32.data_ptr() if o32 is not None else None,
             lse.data_ptr() if with_lse else None, b, h, kt.shape[1], s, hd,
             float(scale), int(bool(causal)), int(window), _DTYPES[qt.dtype],
             stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: CUDA error {err} at launch")
     launches += 1
-    return (out, lse) if with_lse else out
+    if not with_lse:
+        return out
+    return out, lse, out if o32 is None else o32
 
 
-def _launch_bwd(qt, kt, vt, out, lse, dout, *, causal: bool, window: int,
+def _launch_bwd(qt, kt, vt, o32, lse, dout, *, causal: bool, window: int,
                 scale: float):
-    """Run the backward kernel; returns (dq, dk, dv) in the kernel layout."""
+    """Run the backward kernel on the forward's f32 output ``o32`` and
+    log-sum-exp (``_launch(..., with_lse=True)``); returns (dq, dk, dv) in
+    the kernel layout."""
     global bwd_launches
-    for name, t in (("q", qt), ("k", kt), ("v", vt), ("o", out),
-                    ("do", dout)):
+    for name, t in (("q", qt), ("k", kt), ("v", vt), ("do", dout)):
         _check(name, t, qt)
     _check_shapes(qt, kt, vt, window)
-    if out.shape != qt.shape or dout.shape != qt.shape:
+    if o32.shape != qt.shape or dout.shape != qt.shape:
         raise ValueError("flash_attention: o and do must have q's shape")
+    if (o32.dtype != torch.float32 or not o32.is_contiguous()
+            or o32.device != qt.device):
+        raise ValueError("flash_attention: o must be the forward's "
+                         "contiguous f32 output on q's device")
     b, h, s, hd = qt.shape
     if (lse.dtype != torch.float32 or lse.shape != (b, h, s)
             or not lse.is_contiguous() or lse.device != qt.device):
@@ -132,7 +146,7 @@ def _launch_bwd(qt, kt, vt, out, lse, dout, *, causal: bool, window: int,
     stream = torch.cuda.current_stream(qt.device).cuda_stream
     with torch.cuda.device(qt.device):
         err = lib.fa_backward(
-            qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), out.data_ptr(),
+            qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), o32.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kt.shape[1],
             s, hd, float(scale), int(bool(causal)), int(window),
@@ -149,17 +163,17 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qt, kt, vt, causal, window, scale):
-        out, lse = _launch(qt, kt, vt, causal=causal, window=window,
-                           scale=scale, with_lse=True)
-        ctx.save_for_backward(qt, kt, vt, out, lse)
+        out, lse, o32 = _launch(qt, kt, vt, causal=causal, window=window,
+                                scale=scale, with_lse=True)
+        ctx.save_for_backward(qt, kt, vt, o32, lse)
         ctx.opts = (causal, window, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qt, kt, vt, out, lse = ctx.saved_tensors
+        qt, kt, vt, o32, lse = ctx.saved_tensors
         causal, window, scale = ctx.opts
-        dq, dk, dv = _launch_bwd(qt, kt, vt, out, lse, dout.contiguous(),
+        dq, dk, dv = _launch_bwd(qt, kt, vt, o32, lse, dout.contiguous(),
                                  causal=causal, window=window, scale=scale)
         return dq, dk, dv, None, None, None
 

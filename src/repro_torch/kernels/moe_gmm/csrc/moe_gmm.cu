@@ -20,16 +20,27 @@
 // Where it cannot copy the TPU layout.  The TPU block keeps a (128, d) f32
 // accumulator of y in VMEM: 512 KB at d = 1024, more than the 227 KB of
 // shared memory a Hopper block can use.  This kernel takes the smaller
-// M-tile: one block owns BM = 32 token rows of one expert, keeps their
-// (32, d) f32 accumulator in shared memory (128 KB at d = 1024; d <= 1024),
-// and walks ff in BF = 64-column steps.  Each step computes the (32, 64) h
-// tile (x and w1/w3 tiles staged through shared memory, d in DK = 32-deep
-// slices) and at once adds h w2 for that slice of ff into the accumulator
-// (w2 staged in DN = 128-column tiles), so every weight byte is read once
-// per M-tile and h lives only in shared memory.  Blocks run in parallel
-// over (M-tile, expert); nothing carries between them.  A ragged M and a
-// ragged ff (or d) are masked on load: rows and columns past the edge read
+// M-tile and cuts y's columns into slabs: one block owns BM = 32 token
+// rows of one expert and one slab of at most SLAB = 1024 columns of y,
+// keeps their (32, slab) f32 accumulator in shared memory (128 KB at a
+// full slab), and walks ff in BF = 64-column steps.  Each step computes
+// the (32, 64) h tile over the whole of d (x and w1/w3 tiles staged
+// through shared memory, d in DK = 32-deep slices) and at once adds h w2
+// for that slice of ff and its own slab of columns into the accumulator
+// (w2 staged in DN = 128-column tiles), so h lives only in shared memory
+// and every w2 byte is read once per M-tile.  Blocks run in parallel over
+// (M-tile, expert, slab); nothing carries between them.  A ragged M, ff,
+// d or last slab is masked on load: rows and columns past the edge read
 // as 0, so they add nothing (silu(0) * 0 = gelu(0) = 0) and are not stored.
+//
+// What the slabs cost.  d <= 1024 is one slab: the grid's third dimension
+// is 1 and the code path is that of a single-slab kernel.  Above it, each
+// slab's blocks recompute the first two products (x w1, x w3) over the
+// whole of d: at phi3.5-moe's d = 4096 that is 4 slabs, so about 3x the
+// operations of the function at prefill and 4x the w1/w3 bytes at decode.
+// That is a repair, not a design: keeping h once per M-tile (in device
+// memory, or across a cluster's shared memory) instead of recomputing it
+// is the redesign's work.
 //
 // Precision.  Every product runs as an f32 FMA on the CUDA cores, both for
 // x w1 / x w3 (bf16 operands, exact in f32) and for h w2, whose h is f32:
@@ -37,8 +48,9 @@
 // function.  So the kernel matches the f32 plain version up to summation
 // order, and leaves the tensor cores idle: mma / wgmma products for the two
 // bf16 ones (and a split hi/lo bf16 product for h w2) are later work.  At
-// decode only E blocks run (32 for granite), too few to pull the weights at
-// the card's memory rate; splitting ff across blocks is later work too.
+// decode only E x slabs blocks run (32 for granite, 64 for phi3.5-moe),
+// too few to pull the weights at the card's memory rate; splitting ff
+// across blocks is later work too.
 //
 // Interface: plain C, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing, does not synchronise, returns cudaGetLastError().
@@ -54,7 +66,8 @@ constexpr int BF = 64;             // ff columns per step
 constexpr int DK = 32;             // depth of one x / w1 / w3 tile (d)
 constexpr int DN = 128;            // output columns of one w2 tile (d)
 constexpr int THREADS = 256;
-constexpr int MAX_D = 1024;
+constexpr int SLAB = 1024;         // widest slab of y's columns per block
+constexpr int MAX_GRID_YZ = 65535; // gridDim.y and gridDim.z limit
 constexpr int LDX = DK + 1;        // x tile row stride (no bank conflicts)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -75,10 +88,15 @@ __device__ __forceinline__ float gelu_tanh(float v) {
   return 0.5f * v * (1.f + tanhf(k * (v + 0.044715f * v * v * v)));
 }
 
-// The y accumulator's row stride: d rounded up to whole DN tiles, so the
-// float4 updates of the last tile stay inside the row.
+// The y accumulator's row stride: the widest slab (d, at most SLAB)
+// rounded up to whole DN tiles, so the float4 updates of the last tile
+// stay inside the row.
 __host__ __device__ __forceinline__ int acc_stride(int d) {
-  return (d + DN - 1) / DN * DN;
+  return ((d < SLAB ? d : SLAB) + DN - 1) / DN * DN;
+}
+
+__host__ __device__ __forceinline__ int n_slabs(int d) {
+  return (d + SLAB - 1) / SLAB;
 }
 
 __host__ __device__ __forceinline__ int smem_floats(int d) {
@@ -102,6 +120,8 @@ mg_ffn_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM;
   const int e = blockIdx.y;
+  const int s0 = blockIdx.z * SLAB;          // this block's slab of y
+  const int s1 = min(d, s0 + SLAB);
   const T* xb = x + (size_t)e * M * d;
   const T* w1b = w1 + (size_t)e * d * ff;
   const T* w3b = w3 + (size_t)e * d * ff;
@@ -172,12 +192,12 @@ mg_ffn_kernel(const T* __restrict__ x, const T* __restrict__ w1,
     }
     // (the next __syncthreads, after the first w2 tile's load, publishes hs)
 
-    for (int n0 = 0; n0 < d; n0 += DN) {
+    for (int n0 = s0; n0 < s1; n0 += DN) {
 #pragma unroll
       for (int it = 0; it < BF * DN / THREADS; ++it) {
         const int i = tid + it * THREADS;
         const int k = i / DN, n = i % DN;
-        const bool ok = f0 + k < ff && n0 + n < d;
+        const bool ok = f0 + k < ff && n0 + n < s1;
         w2s[i] = ok ? to_f32(w2b[(size_t)(f0 + k) * d + n0 + n]) : 0.f;
       }
       __syncthreads();
@@ -200,7 +220,8 @@ mg_ffn_kernel(const T* __restrict__ x, const T* __restrict__ w1,
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        float4* yp = reinterpret_cast<float4*>(ys + (4 * r2 + r) * ldy + n0 + 4 * c2);
+        float4* yp = reinterpret_cast<float4*>(ys + (4 * r2 + r) * ldy +
+                                               n0 - s0 + 4 * c2);
         float4 v = *yp;
         v.x += acc[r][0]; v.y += acc[r][1]; v.z += acc[r][2]; v.w += acc[r][3];
         *yp = v;
@@ -210,9 +231,11 @@ mg_ffn_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   }
 
   T* yb = y + (size_t)e * M * d;
-  for (int i = tid; i < BM * d; i += THREADS) {
-    const int r = i / d, n = i % d;
-    if (m0 + r < M) store1(yb + (size_t)(m0 + r) * d + n, ys[r * ldy + n]);
+  const int width = s1 - s0;
+  for (int i = tid; i < BM * width; i += THREADS) {
+    const int r = i / width, n = i % width;
+    if (m0 + r < M)
+      store1(yb + (size_t)(m0 + r) * d + s0 + n, ys[r * ldy + n]);
   }
 }
 
@@ -224,7 +247,7 @@ int launch(const void* x, const void* w1, const void* w3, const void* w2,
       mg_ffn_kernel<T, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((M + BM - 1) / BM, E);
+  const dim3 grid((M + BM - 1) / BM, E, n_slabs(d));
   mg_ffn_kernel<T, ACT><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1),
       static_cast<const T*>(w3), static_cast<const T*>(w2),
@@ -236,12 +259,14 @@ int launch(const void* x, const void* w1, const void* w3, const void* w2,
 
 // x, y: (E, M, d); w1, w3: (E, d, ff); w2: (E, ff, d); all contiguous, one
 // dtype (0 = float32, 1 = bfloat16).  act 0 = silu (SwiGLU, reads w3),
-// 1 = tanh-approximated gelu (w3 unread).  d <= 1024.
+// 1 = tanh-approximated gelu (w3 unread).  E and d's slab count
+// ceil(d / 1024) each at most 65535 (the grid's y and z).
 extern "C" int mg_ffn(const void* x, const void* w1, const void* w3,
                       const void* w2, void* y, int E, int M, int d, int ff,
                       int act, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (E <= 0 || M <= 0 || d <= 0 || d > MAX_D || ff <= 0 || E > 65535)
+  if (E <= 0 || M <= 0 || d <= 0 || ff <= 0 || E > MAX_GRID_YZ ||
+      n_slabs(d) > MAX_GRID_YZ)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0 && act == 0)
     return launch<float, 0>(x, w1, w3, w2, y, E, M, d, ff, st);

@@ -22,7 +22,9 @@ from repro_torch.kernels.moe_gmm.ref import expert_ffn_ref
 launches = 0            # kernel launches since the last reset
 
 ACTS = ("silu", "gelu")
-MAX_D = 1024            # widest d_model the kernel's f32 accumulator holds
+BM = 32                 # token rows per block
+SLAB = 1024             # widest slab of y's columns one block accumulates
+MAX_GRID_YZ = 65535     # the kernel's grid: experts on y, slabs on z
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -55,6 +57,20 @@ def _check(x, w1, w2, w3, act):
                          f"{tuple(w2.shape)}")
 
 
+def launch_grid(e: int, m: int, d: int, ff: int) -> tuple:
+    """The kernel's grid (M-tiles, experts, slabs of y's columns) for x
+    (E, M, d) and an expert ff; raises ValueError on what it does not
+    take.  Pure: the shape rules need no card."""
+    if not (e > 0 and m > 0 and ff > 0 and d > 0):
+        raise ValueError(f"moe_gmm: E {e}, M {m}, ff {ff}, d {d}; need "
+                         "all > 0")
+    slabs = -(-d // SLAB)
+    if e > MAX_GRID_YZ or slabs > MAX_GRID_YZ:
+        raise ValueError(f"moe_gmm: E {e} and {slabs} slabs of d {d} must "
+                         f"each be at most {MAX_GRID_YZ}")
+    return -(-m // BM), e, slabs
+
+
 def _launch(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
             w3: torch.Tensor, act: str) -> torch.Tensor:
     """The kernel on contiguous CUDA tensors x (E, M, d), w1/w3 (E, d, ff),
@@ -76,9 +92,7 @@ def _launch(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
             "slices': training of the MoE and hybrid families)")
     e, m, d = x.shape
     ff = w1.shape[-1]
-    if not (e > 0 and m > 0 and ff > 0 and 0 < d <= MAX_D):
-        raise ValueError(f"moe_gmm: E {e}, M {m}, ff {ff}, d {d}; need "
-                         f"all > 0 and d <= {MAX_D}")
+    launch_grid(e, m, d, ff)
     y = torch.empty_like(x)
     handle = lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream

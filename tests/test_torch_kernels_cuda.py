@@ -24,7 +24,7 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,window,hd", [(1, 128, 0, 64), (1, 1000, 0, 64),
                                            (1, 1024, 256, 64), (1, 300, 0, 80),
-                                           (4, 512, 0, 64)])
+                                           (4, 512, 0, 64), (1, 1024, 0, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain(cuda_device, b, s, window, hd, dtype):
     tol = {"float32": 2e-5, "bfloat16": 2e-2}[dtype]
@@ -65,7 +65,7 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,window,hd", [(2, 1024, 0, 64), (1, 1000, 0, 64),
                                            (1, 1024, 256, 64), (1, 300, 0, 80),
-                                           (4, 512, 0, 64)])
+                                           (4, 512, 0, 64), (1, 1024, 0, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_backward_matches_autograd_of_plain(cuda_device, b, s, window,
                                                  hd, dtype):
@@ -88,6 +88,111 @@ def test_cuda_backward_matches_autograd_of_plain(cuda_device, b, s, window,
         assert g.dtype == dt and g.shape == r.shape
         assert bool(torch.isfinite(g.float()).all())
         torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
+
+
+def _rising_inputs(b, s, hd, dtype, device, seed):
+    """q, k, v (B, S, H, hd) with H 32, KV 8 whose keys grow with their
+    position, so that each row's running maximum rises from one key tile
+    to the next: a kernel that drops the online softmax's rescale of its
+    accumulator and sum gives wrong rows."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, s, 32, hd), generator=gen, device=device).abs()
+    k = torch.randn((b, s, 8, hd), generator=gen, device=device).abs()
+    k = k * (1 + torch.arange(s, device=device)[None, :, None, None] / 128)
+    v = torch.randn((b, s, 8, hd), generator=gen, device=device)
+    return tuple(x.to(dt) for x in (q, k, v))
+
+
+def _tile_max_rises(q, k, tile=64):
+    """Share of query rows whose largest logit over the keys of their last
+    visible tile exceeds that over their first tile (causal)."""
+    qt, kt = q.float().transpose(1, 2), k.float().transpose(1, 2)
+    g = qt.shape[1] // kt.shape[1]
+    logits = qt @ kt.repeat_interleave(g, 1).transpose(-1, -2)
+    s = q.shape[1]
+    rows = torch.arange(tile, s, device=q.device)
+    first = logits[..., rows, :tile].amax(-1)
+    last = torch.stack([logits[..., r, (r // tile) * tile:r + 1].amax(-1)
+                        for r in rows.tolist()], -1)
+    return float((last > first).float().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_rising_row_max(cuda_device, hd, dtype):
+    """Forward and backward where every row's maximum rises across key
+    tiles, against the plain version and autograd of it."""
+    q, k, v = _rising_inputs(1, 1024, hd, dtype, cuda_device, hd)
+    assert _tile_max_rises(q, k) > 0.9
+    tol = {"float32": 2e-5, "bfloat16": 2e-2}[dtype]
+    out = TO.flash_attention(q, k, v, causal=True)
+    ref = TR.attention_ref(*(x.transpose(1, 2) for x in (q, k, v)),
+                           causal=True).transpose(1, 2)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    dout = torch.randn(out.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(5), device=cuda_device).to(q.dtype)
+    grads = torch.autograd.grad(TO.flash_attention(*leaves), leaves, dout)
+    rref = TR.attention_ref(*(x.transpose(1, 2) for x in leaves),
+                            causal=True).transpose(1, 2)
+    rgrads = torch.autograd.grad(rref, leaves, dout)
+    torch.cuda.synchronize()
+    for g, r in zip(grads, rgrads):
+        torch.testing.assert_close(g.float(), r.float(), atol=BWD_TOL[dtype],
+                                   rtol=BWD_TOL[dtype])
+
+
+# A fault planted in a copy of csrc/flash_attention.cu (built into a
+# temporary directory, never into the repository): the bf16 kernel's
+# rescale of its running sum and accumulator when a row's maximum rises.
+FLASH_FAULT = ("corr[i] = exp2f(m_r[i] - mx[i]);", "corr[i] = 1.f;")
+
+
+@pytest.mark.cuda
+def test_cuda_flash_checks_catch_a_missing_rescale(cuda_device, tmp_path,
+                                                   monkeypatch):
+    import ctypes
+    import json
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels import _build
+    old, new = FLASH_FAULT
+    source = (TO._CSRC / "flash_attention.cu").read_text()
+    assert source.count(old) == 1
+    mutant = tmp_path / "flash_attention.cu"
+    mutant.write_text(source.replace(old, new))
+    shutil.copy(TO._CSRC / "mma_bf16.cuh", tmp_path)
+    so = tmp_path / "libflash_fault.so"
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(mutant)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    for fn_name, argtypes in TO._FWD_SIG.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    monkeypatch.setattr(TO, "fwd_lib", lambda: lib)
+    caught = {}
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for name, hd in (("randn", 64), ("randn", 128), ("rising", 64),
+                     ("rising", 128)):
+        if name == "rising":
+            q, k, v = _rising_inputs(1, 1024, hd, "bfloat16", cuda_device, hd)
+        else:
+            q, k, v = (torch.randn((1, 1024, n, hd), generator=gen,
+                                   device=cuda_device).bfloat16()
+                       for n in (32, 8, 8))
+        out = TO.flash_attention(q, k, v, causal=True)
+        ref = TR.attention_ref(*(x.transpose(1, 2) for x in (q, k, v)),
+                               causal=True).transpose(1, 2)
+        err = (out.float() - ref.float()).abs().max().item()
+        caught[(name, hd)] = not torch.allclose(out.float(), ref.float(),
+                                                atol=2e-2, rtol=2e-2)
+        row = {"inputs": name, "hd": hd, "max_abs_err": err}
+        print(f"flash-fault {json.dumps(row)}", flush=True)
+    assert all(caught.values()), caught
 
 
 @pytest.mark.cuda
@@ -331,7 +436,11 @@ def _gmm_inputs(e, m, d, ff, dtype, device, seed):
     (32, 100, 1024, 512, "silu"), (32, 8, 1024, 512, "gelu"),
     (4, 256, 64, 256, "silu"), (2, 128, 128, 512, "gelu"),
     (8, 64, 32, 128, "silu"), (2, 40, 130, 96, "gelu"),
-    (3, 33, 1000, 200, "silu")])
+    (3, 33, 1000, 200, "silu"),
+    # phi3.5-moe: a 1024-token prefill (2 groups x capacity 80), 8-lane
+    # decode (capacity top_k), and a ragged last slab of y's columns
+    (16, 160, 4096, 6400, "silu"), (16, 2, 4096, 6400, "silu"),
+    (2, 40, 1100, 96, "silu"), (2, 33, 1100, 70, "gelu")])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_moe_gmm_matches_plain(cuda_device, e, m, d, ff, act, dtype):
     from repro_torch.kernels.moe_gmm import ops as GO
@@ -362,12 +471,12 @@ def test_cuda_moe_gmm_model_layout_and_refusals(cuda_device):
         GO.expert_ffn_kernel_layout(x, w1.bfloat16(), w2, w3)
     with pytest.raises(NotImplementedError, match="backward"):
         GO.expert_ffn_kernel_layout(x, w1.requires_grad_(), w2, w3)
-    wide = torch.zeros((1, 8, 2048), device=cuda_device)
-    with pytest.raises(ValueError, match="1024"):
-        GO.expert_ffn_kernel_layout(
-            wide, torch.zeros((1, 2048, 8), device=cuda_device),
-            torch.zeros((1, 8, 2048), device=cuda_device),
-            torch.zeros((1, 2048, 8), device=cuda_device))
+    # d above one slab of 1024 columns runs (two slabs here)
+    x, w1, w2, w3 = _gmm_inputs(1, 8, 2048, 8, "float32", cuda_device, 4)
+    out = GO.expert_ffn_kernel_layout(x, w1, w2, w3)
+    ref = GR.expert_ffn_ref(x, w1, w2, w3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
 
 
 def _scan_inputs(b, length, h, p, n, dtype, device, seed):

@@ -1,0 +1,243 @@
+"""The hand-written CUDA kernels, run on the CPU through an emulation of
+the CUDA subset they use (``tests/cuda_emu/emu.h``), against their plain
+PyTorch versions at small shapes.
+
+There is no GPU and no nvcc here, so this is where a kernel's indexing,
+its warp-level fragment layouts (ldmatrix, mma.sync), its masks and its
+cp.async pipeline are checked before a card sees it.  Each source is
+translated (the inline-PTX primitives of ``mma_bf16.cuh`` replaced by
+emulated ones, launches rewritten into calls), compiled with g++ and
+loaded with ctypes; the C interface is the one the wrappers call.  The
+emulation sums products in another order than the card, so the
+tolerances are the card tests' (``tests/test_torch_kernels_cuda.py``).
+Needs g++ with C++20; the tests skip without it.
+"""
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import ops as FO
+from repro_torch.kernels.flash_attention import ref as FR
+from repro_torch.kernels.moe_gmm import ops as GO
+from repro_torch.kernels.moe_gmm import ref as GR
+
+torch.set_num_threads(2)   # several test workers share the cores
+
+EMU = Path(__file__).resolve().parent / "cuda_emu"
+# the primitives mma_bf16.cuh writes in inline PTX; emu.h defines them
+PTX_FNS = {"smem_u32", "cp_async16", "cp_async4", "cp_async_commit",
+           "cp_async_wait", "ldmatrix_x4", "ldmatrix_x4_trans", "mma_bf16"}
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _drop_ptx(text: str) -> str:
+    """``text`` without the definitions of the PTX_FNS functions."""
+    pat = re.compile(r"(template <int N>\n)?__device__ __forceinline__ "
+                     r"[\w ]+? (\w+)\(")
+    out, i = [], 0
+    for m in pat.finditer(text):
+        if m.group(2) not in PTX_FNS or m.start() < i:
+            continue
+        depth, k = 0, text.index("{", m.end())
+        while True:
+            depth += {"{": 1, "}": -1}.get(text[k], 0)
+            if depth == 0:
+                break
+            k += 1
+        out.append(text[i:m.start()])
+        i = k + 1
+    return "".join(out) + text[i:]
+
+
+def translate(source: str, include_dir: Path) -> str:
+    """A kernel source as C++ over emu.h."""
+    def inline(m):
+        return _drop_ptx((include_dir / m.group(1)).read_text())
+    text = re.sub(r'#include "([\w.]+)"', inline, source)
+    text = re.sub(r"#include <cuda_(bf16|runtime)\.h>|#pragma once", "", text)
+    text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) "
+                  r"(\w+)\[\];", r"\1* \2 = (\1*)emu::smem();", text)
+    text = re.sub(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\((.*?)\);",
+                  lambda m: f"emu::launch({m.group(2)}, [=]() "
+                            f"{{ {m.group(1)}({m.group(3)}); }});",
+                  text, flags=re.S)
+    return '#include "emu.h"\n' + text
+
+
+def build(source: str, include_dir: Path, out_dir: Path, name: str,
+          signatures) -> ctypes.CDLL:
+    cpp = out_dir / f"{name}.cpp"
+    cpp.write_text(translate(source, include_dir))
+    so = out_dir / f"lib{name}.so"
+    proc = subprocess.run(
+        [shutil.which("g++"), "-std=c++20", "-O1", "-shared", "-fPIC",
+         "-pthread", f"-I{EMU}", "-o", str(so), str(cpp)],
+        capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lib = ctypes.CDLL(str(so))
+    for fn_name, argtypes in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ (C++20) to build the emulated kernels")
+    out = tmp_path_factory.mktemp("emu")
+    csrc = FO._CSRC
+    return {
+        "fwd": build((csrc / "flash_attention.cu").read_text(), csrc, out,
+                     "fwd", FO._FWD_SIG),
+        "bwd": build((csrc / "flash_attention_bwd.cu").read_text(), csrc,
+                     out, "bwd", FO._BWD_SIG),
+        "gmm": build(GO._SOURCE.read_text(), GO._SOURCE.parent, out, "gmm",
+                     GO._SIG),
+        "out": out}
+
+
+def _qkv(b, h, kv, s, hd, dtype, seed, rising=False):
+    """(B, H, S, hd) q and (B, KV, S, hd) k, v; with ``rising`` the keys
+    grow with position, so each row's maximum rises across key tiles."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, h, s, hd), generator=gen)
+    k = torch.randn((b, kv, s, hd), generator=gen)
+    if rising:
+        q, k = q.abs(), k.abs() * (1 + torch.arange(s)[:, None] / 32)
+    v = torch.randn((b, kv, s, hd), generator=gen)
+    return tuple(x.to(dtype) for x in (q, k, v))
+
+
+def _forward(lib, q, k, v, causal, window):
+    """(out, lse, o32): the output, its log-sum-exp and the output in f32
+    before its rounding (``out`` itself for f32)."""
+    b, h, s, hd = q.shape
+    out = torch.empty_like(q)
+    o32 = torch.empty(q.shape) if q.dtype != torch.float32 else out
+    lse = torch.empty((b, h, s))
+    err = lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), o32.data_ptr() if o32 is not out
+                         else None, lse.data_ptr(), b, h, k.shape[1], s, hd,
+                         hd ** -0.5, int(causal), window,
+                         FO._DTYPES[q.dtype], None)
+    assert err == 0
+    return out, lse, o32
+
+
+def _lse_ref(q, k, causal, window):
+    s, g = q.shape[2], q.shape[1] // k.shape[1]
+    logits = q.float() @ k.float().repeat_interleave(g, 1).transpose(-1, -2)
+    i = torch.arange(s)
+    ok = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        ok &= i[:, None] >= i[None, :]
+    if window:
+        ok &= (i[:, None] - i[None, :]) < window
+    return torch.logsumexp((logits * q.shape[-1] ** -0.5)
+                           .masked_fill(~ok, -1e30), -1)
+
+
+FWD_CASES = [  # (B, H, KV, S, hd, causal, window, dtype, rising)
+    (1, 2, 1, 136, 64, True, 0, torch.bfloat16, False),
+    (1, 2, 1, 136, 128, True, 0, torch.bfloat16, False),
+    (1, 2, 1, 200, 64, True, 48, torch.bfloat16, False),
+    (1, 2, 1, 150, 64, False, 0, torch.bfloat16, False),
+    (2, 2, 1, 256, 64, True, 0, torch.bfloat16, True),
+    (1, 2, 1, 100, 64, True, 0, torch.float32, False),
+    (1, 2, 1, 130, 128, True, 40, torch.float32, False),
+]
+
+
+@pytest.mark.parametrize("b,h,kv,s,hd,causal,window,dtype,rising", FWD_CASES)
+def test_emulated_forward_matches_plain(libs, b, h, kv, s, hd, causal,
+                                        window, dtype, rising):
+    q, k, v = _qkv(b, h, kv, s, hd, dtype, s + hd, rising)
+    out, lse, o32 = _forward(libs["fwd"], q, k, v, causal, window)
+    ref = FR.attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert torch.equal(o32.to(dtype), out)
+    torch.testing.assert_close(lse, _lse_ref(q, k, causal, window),
+                               atol=1e-4, rtol=1e-5)
+
+
+BWD_CASES = [  # (B, H, KV, S, hd, window, dtype, rising)
+    (1, 2, 1, 136, 64, 0, torch.bfloat16, False),
+    (1, 2, 1, 136, 128, 0, torch.bfloat16, False),
+    (1, 2, 1, 200, 64, 48, torch.bfloat16, False),
+    (1, 2, 2, 130, 128, 40, torch.bfloat16, False),
+    (1, 2, 1, 256, 64, 0, torch.bfloat16, True),
+    (1, 2, 1, 256, 128, 0, torch.bfloat16, True),
+    (1, 2, 1, 100, 64, 0, torch.float32, False),
+]
+
+
+@pytest.mark.parametrize("b,h,kv,s,hd,window,dtype,rising", BWD_CASES)
+def test_emulated_backward_matches_autograd_of_plain(libs, b, h, kv, s, hd,
+                                                     window, dtype, rising):
+    """With ``rising`` the all-positive q and k make every dS row sum to
+    zero over keys of a large common size, which a bf16 rounding of dS
+    as an operand would not survive."""
+    q, k, v = _qkv(b, h, kv, s, hd, dtype, s + window, rising)
+    out, lse, o32 = _forward(libs["fwd"], q, k, v, True, window)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+        7)).to(dtype)
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    scratch = torch.empty((b, h, s))
+    err = libs["bwd"].fa_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o32.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+        *(g.data_ptr() for g in grads), b, h, kv, s, hd, hd ** -0.5, 1,
+        window, FO._DTYPES[dtype], None)
+    assert err == 0
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = FR.attention_ref(*leaves, causal=True, window=window)
+    for g, r in zip(grads, torch.autograd.grad(ref, leaves, dout)):
+        torch.testing.assert_close(g.float(), r.float(), atol=BWD_TOL[dtype],
+                                   rtol=BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("e,m,d,ff,act,dtype", [
+    (2, 40, 1100, 96, "silu", torch.float32),     # a ragged second slab
+    (2, 40, 1100, 96, "silu", torch.bfloat16),
+    (2, 33, 2100, 70, "gelu", torch.float32),     # three slabs
+    (3, 10, 64, 128, "silu", torch.float32)])     # one slab
+def test_emulated_moe_gmm_matches_plain(libs, e, m, d, ff, act, dtype):
+    gen = torch.Generator().manual_seed(d)
+    x = (torch.randn((e, m, d), generator=gen) * 0.5).to(dtype)
+    w1, w3 = ((torch.randn((e, d, ff), generator=gen) * 0.05).to(dtype)
+              for _ in range(2))
+    w2 = (torch.randn((e, ff, d), generator=gen) * 0.05).to(dtype)
+    y = torch.empty_like(x)
+    err = libs["gmm"].mg_ffn(x.data_ptr(), w1.data_ptr(), w3.data_ptr(),
+                             w2.data_ptr(), y.data_ptr(), e, m, d, ff,
+                             GO.ACTS.index(act), GO._DTYPES[dtype], None)
+    assert err == 0
+    ref = GR.expert_ffn_ref(x, w1, w2, w3, act=act)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
+    torch.testing.assert_close(y.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_emulated_checks_catch_a_missing_rescale(libs):
+    """The bf16 forward without the online softmax's rescale (the fault
+    the card test plants too) fails the checks above."""
+    csrc = FO._CSRC
+    source = (csrc / "flash_attention.cu").read_text()
+    old, new = ("corr[i] = exp2f(m_r[i] - mx[i]);", "corr[i] = 1.f;")
+    assert source.count(old) == 1
+    lib = build(source.replace(old, new), csrc, libs["out"], "fwd_fault",
+                FO._FWD_SIG)
+    for rising in (False, True):
+        q, k, v = _qkv(1, 2, 1, 256, 64, torch.bfloat16, 3, rising)
+        out, _, _ = _forward(lib, q, k, v, True, 0)
+        ref = FR.attention_ref(q, k, v, causal=True)
+        assert not torch.allclose(out.float(), ref.float(), atol=2e-2,
+                                  rtol=2e-2)

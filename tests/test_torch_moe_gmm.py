@@ -97,5 +97,27 @@ def test_wrapper_rejects_bad_shapes_and_act():
         TO.expert_ffn_kernel_layout(x, w1, w2.transpose(1, 2), w3)
 
 
+@pytest.mark.parametrize("e,m,d,ff,grid", [
+    (32, 320, 1024, 512, (10, 32, 1)),      # granite: one slab
+    (16, 160, 4096, 6400, (5, 16, 4)),      # phi3.5-moe prefill
+    (16, 2, 4096, 6400, (1, 16, 4)),        # phi3.5-moe decode
+    (2, 40, 1100, 96, (2, 2, 2)),           # a ragged last slab
+    (65535, 1, 8, 8, (1, 65535, 1))])
+def test_launch_grid_takes_any_d(e, m, d, ff, grid):
+    """The kernel's grid, computed without a card: d above 1024 is cut
+    into slabs of y's columns instead of refused."""
+    assert TO.launch_grid(e, m, d, ff) == grid
+
+
+@pytest.mark.parametrize("e,m,d,ff,match", [
+    (0, 8, 64, 64, "all > 0"), (4, 0, 64, 64, "all > 0"),
+    (4, 8, 0, 64, "all > 0"), (4, 8, 64, 0, "all > 0"),
+    (65536, 1, 8, 8, "at most 65535"),
+    (1, 1, 65536 * 1024, 8, "at most 65535")])
+def test_launch_grid_refuses_what_the_grid_cannot_hold(e, m, d, ff, match):
+    with pytest.raises(ValueError, match=match):
+        TO.launch_grid(e, m, d, ff)
+
+
 def test_jax_is_on_the_cpu():
     assert jax.default_backend() == "cpu"

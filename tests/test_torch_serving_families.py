@@ -1,5 +1,6 @@
-"""The port's serving loops on the MoE (granite-moe-1b-a400m), hybrid
-(zamba2-2.7b) and xLSTM (xlstm-1.3b) families against the JAX package's,
+"""The port's serving loops on the MoE (granite-moe-1b-a400m,
+phi3.5-moe-42b-a6.6b), hybrid (zamba2-2.7b) and xLSTM (xlstm-1.3b)
+families against the JAX package's,
 on the same weights (reduced configs, 2 layers, vocab 64, f32): greedy
 tokens of the continuous and fixed-batch loops equal the JAX loops',
 continuous equals fixed-batch (the mirror of tests/test_serving.py:301),
@@ -28,7 +29,10 @@ from repro_torch.weights import params_from_numpy
 torch.set_num_threads(2)   # several test workers share the cores
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
-FAMILIES = ["zamba2-2.7b", "granite-moe-1b-a400m", "xlstm-1.3b"]
+# phi3.5-moe's reduced config has 4 experts, so the JAX layer's sharding
+# pin (n_experts % 16 == 0) does not fire outside a mesh
+MOE_ARCHS = ("granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b")
+FAMILIES = ["zamba2-2.7b", *MOE_ARCHS, "xlstm-1.3b"]
 
 
 def _models(arch, **kw):
@@ -58,7 +62,7 @@ def test_continuous_open_loop_tokens_identical_to_jax(arch):
     jloop = JS.ContinuousServeLoop(jcfg, jp, slots=3, max_len=32)
     tloop = TS.ContinuousServeLoop(tcfg, tp, slots=3, max_len=32)
     assert tloop._exact_prefill == jloop._exact_prefill == \
-        (arch != "granite-moe-1b-a400m")
+        (arch not in MOE_ARCHS)
     jrep = JA.run_open_loop(jloop, jreqs)
     trep = TA.run_open_loop(tloop, treqs)
     assert dataclasses.asdict(trep) == dataclasses.asdict(jrep)
@@ -82,8 +86,8 @@ def test_fixed_batch_tokens_identical_to_jax(arch):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_continuous_matches_fixed_batch_tokens(arch):
-    # no-drop capacity for granite: lanes are then independent
-    kw = {"capacity_factor": 8.0} if arch.startswith("granite") else {}
+    # no-drop capacity for the MoE configs: lanes are then independent
+    kw = {"capacity_factor": 8.0} if arch in MOE_ARCHS else {}
     _, tcfg, _, tp = _models(arch, **kw)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, 64, 8, dtype=np.int32) for _ in range(2)]
