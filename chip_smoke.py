@@ -77,10 +77,15 @@ bit up to the main path's launch over four full-width shards
 (``kernel-check codec``), diff_merge bit for bit over every merge op and
 dtype at the JAX tests' shapes, then timed at the embedding's size
 (``kernel-check diff_merge``), moe_gmm at granite's and phi3.5-moe's
-shapes, mamba_scan at zamba2's and mlstm at xlstm-1.3b's (``kernel-check
-mlstm``: a 1024-token prefill, a ragged 1000, the 4 x 512 batch and an
-initial state, with the model's forget gates and with slow ones that
-carry C over several chunks, and the JAX tests' small shapes).
+shapes (its bf16 route is two launches: gate-up, then down), each with
+one more case whose h has a large common part (one bf16 rounding of h
+fails it) and, beside each bf16 row, the time of the cuBLAS composition
+of the same FFN (three ``torch.bmm`` and the elementwise ops, h rounded
+to bf16: another function, not one call), mamba_scan at zamba2's and
+mlstm at xlstm-1.3b's (``kernel-check mlstm``: a 1024-token prefill, a
+ragged 1000, the 4 x 512 batch and an initial state, with the model's
+forget gates and with slow ones that carry C over several chunks, and
+the JAX tests' small shapes).
 
 Checkpoints go to ``build/chip_smoke_ckpt`` in the checkout and are
 removed at the end; the phase raises if the disk cannot hold three full
@@ -590,7 +595,7 @@ def check_prefill(torch, cfg, params, reqs, max_len):
 # Device kernels by kind, matched on the kernel's name (first match wins).
 KERNEL_KINDS = [
     ("flash_attention", ("fa_fwd_",)),
-    ("moe_gmm", ("mg_ffn_kernel",)),
+    ("moe_gmm", ("mg_ffn_",)),
     ("mamba_scan", ("ms_ssd_kernel",)),
     ("mlstm", ("ml_gates_kernel", "ml_scores_kernel", "ml_state_kernel")),
     ("flash_attention_bwd", ("fa_bwd_",)),
@@ -1528,27 +1533,41 @@ def _gmm_bound(e, m, d, ff, act, dtype_name, esize):
             max(flops / PEAK_FLOPS["float32"], t_bytes) * 1e3)
 
 
-# moe_gmm's checked cases (M, act, dtype) per config.  granite: M 320 (a
-# 1024-token prefill), 640 (the 4 x 512 fixed batch), 8 (decode with 8
-# slots), a ragged 100, gelu, and f32.  phi3.5-moe (d 4096: four slabs
-# of y's columns): M 160 (a 1024-token prefill, 2 groups x capacity 80)
-# and M 2 (8-lane decode: capacity max(1, top_k)), and f32.
+# moe_gmm's checked cases (M, act, dtype, inputs) per config.  granite: M
+# 320 (a 1024-token prefill), 640 (the 4 x 512 fixed batch), 8 (decode
+# with 8 slots), a ragged 100, gelu, and f32.  phi3.5-moe (d 4096): M 160
+# (a 1024-token prefill, 2 groups x capacity 80) and M 2 (8-lane decode:
+# capacity max(1, top_k)), and f32.  "model": the model's init for the
+# weights, x ~ N(0, 1); "common": ref.common_part_inputs, whose h has a
+# large part common to each row (one bf16 rounding of h fails it).
 GMM_CASES = {
     "granite-moe-1b-a400m": [
-        (320, "silu", "bfloat16"), (640, "silu", "bfloat16"),
-        (8, "silu", "bfloat16"), (100, "silu", "bfloat16"),
-        (320, "gelu", "bfloat16"), (320, "silu", "float32"),
-        (8, "silu", "float32")],
+        (320, "silu", "bfloat16", "model"), (640, "silu", "bfloat16", "model"),
+        (8, "silu", "bfloat16", "model"), (100, "silu", "bfloat16", "model"),
+        (320, "gelu", "bfloat16", "model"), (320, "silu", "float32", "model"),
+        (8, "silu", "float32", "model"), (320, "silu", "bfloat16", "common")],
     "phi3.5-moe-42b-a6.6b": [
-        (160, "silu", "bfloat16"), (2, "silu", "bfloat16"),
-        (160, "silu", "float32")]}
+        (160, "silu", "bfloat16", "model"), (2, "silu", "bfloat16", "model"),
+        (160, "silu", "float32", "model"), (160, "silu", "bfloat16", "common"),
+        (2, "silu", "bfloat16", "common")]}
+
+
+def _gmm_cublas(torch, x, w1, w2, w3, act):
+    """The same FFN composed of cuBLAS products and elementwise ops, as a
+    framework would run it: three ``torch.bmm`` (two for gelu) in the
+    inputs' dtype, h rounded to it (another function than the kernel's,
+    whose h stays f32; several launches, not one call)."""
+    import torch.nn.functional as F
+    g = torch.bmm(x, w1)
+    h = F.silu(g) * torch.bmm(x, w3) if act == "silu" else F.gelu(
+        g, approximate="tanh")
+    return torch.bmm(h, w2)
 
 
 def check_moe_gmm(torch, cfg):
-    """moe_gmm against its plain version at a config's shapes (GMM_CASES;
-    the model's init for the weights, x ~ N(0, 1)).  Times: the kernel,
-    the plain version, and one ``torch.bmm`` of x w1 (partial: a third of
-    the products, no activation, no fusion)."""
+    """moe_gmm against its plain version at a config's shapes (GMM_CASES).
+    Times: the kernel route (for bf16 its two launches), the plain
+    version, and for bf16 the cuBLAS composition (``_gmm_cublas``)."""
     from repro_torch.kernels.moe_gmm import ops as go
     from repro_torch.kernels.moe_gmm import ref as gr
     from repro_torch.models import moe as moe_mod
@@ -1556,15 +1575,21 @@ def check_moe_gmm(torch, cfg):
     cases = GMM_CASES[cfg.name]
     gen = torch.Generator(device="cuda").manual_seed(21)
     w = {}
-    for dname in sorted({c[2] for c in cases}):
+    for dname in sorted({c[2] for c in cases if c[3] == "model"}):
         w[dname] = moe_mod.init_moe(gen, cfg.with_(dtype=dname),
                                     device="cuda")
     e, d, ff = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
     rows = []
-    for m, act, dname in cases:
-        p = w[dname]
-        x = torch.randn((e, m, d), generator=gen, device="cuda").to(
-            getattr(torch, dname))
+    for m, act, dname, inputs in cases:
+        if inputs == "common":
+            x, w1, w2, w3 = gr.common_part_inputs(
+                e, m, d, ff, dtype=getattr(torch, dname), device="cuda",
+                seed=m)
+            p = {"w1": w1, "w2": w2, "w3": w3}
+        else:
+            p = w[dname]
+            x = torch.randn((e, m, d), generator=gen, device="cuda").to(
+                getattr(torch, dname))
         out = go.expert_ffn_kernel_layout(x, p["w1"], p["w2"], p["w3"],
                                           act=act)
         ref = gr.expert_ffn_ref(x, p["w1"], p["w2"], p["w3"], act=act)
@@ -1576,17 +1601,22 @@ def check_moe_gmm(torch, cfg):
         ms = _time_ms(lambda: go._launch(x, p["w1"], p["w2"], p["w3"], act))
         plain_ms = _time_ms(lambda: gr.expert_ffn_ref(
             x, p["w1"], p["w2"], p["w3"], act=act), iters=5)
-        part_ms = _time_ms(lambda: torch.bmm(x, p["w1"]))
+        cublas_ms = None if dname == "float32" else _time_ms(
+            lambda: _gmm_cublas(torch, x, p["w1"], p["w2"], p["w3"], act))
         bound_ms, bound_by, flops, nbytes, f32_ms = _gmm_bound(
             e, m, d, ff, act, dname, x.element_size())
         row = {"arch": cfg.name, "E": e, "M": m, "d": d, "ff": ff,
-               "slabs": go.launch_grid(e, m, d, ff)[2], "act": act,
+               "inputs": inputs,
+               "grids": go.launch_grid(e, m, d, ff, x.dtype), "act": act,
                "dtype": dname, "max_abs_err": (out.float() - ref.float())
                .abs().max().item(), "ref_absmax": scale,
                "atol": tol * scale, "rtol": tol, "ok": ok, "ms": ms,
                "plain_ms": plain_ms, "library_ms": None,
-               "nearest_call_ms_partial": part_ms,
-               "nearest_call": "torch.bmm(x, w1)", "bound_ms": bound_ms,
+               "cublas_composition_ms": cublas_ms,
+               "cublas_composition": "torch.bmm per product + the "
+                                     "activation, h in bf16 (another "
+                                     "function; several calls)",
+               "bound_ms": bound_ms,
                "bound_by": bound_by, "bound_f32_cores_ms": f32_ms,
                "tflops": flops / (ms * 1e-3) / 1e12,
                "gbytes_per_s": nbytes / ms * 1e-6}

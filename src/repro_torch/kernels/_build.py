@@ -3,8 +3,10 @@
 ``nvcc`` compiles a kernel's ``csrc/<name>.cu`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, which ``ctypes`` loads.
 The library lands in ``build/<name>/`` at the repository root, named by a
-hash of the source, the headers (``*.cuh``) beside it and the flags, so an
-edited source or header is rebuilt and an unchanged one is reused.
+hash of the source, the headers (``*.cuh``) beside it and in the shared
+``kernels/include/`` (on nvcc's include path; ``mma_bf16.cuh`` lives
+there) and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused.
 Nothing here runs at import time: a kernel's wrapper calls ``load``
 inside the function that launches it.
 
@@ -21,6 +23,7 @@ from pathlib import Path
 from typing import Dict, List
 
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
+INCLUDE_DIR = Path(__file__).resolve().parent / "include"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,11 +45,22 @@ def nvcc() -> str:
 
 def library_path(name: str, source: Path) -> Path:
     source = Path(source)
-    data = source.read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    headers = (sorted(source.parent.glob("*.cuh"))
+               + sorted(INCLUDE_DIR.glob("*.cuh")))
+    data = source.read_bytes() + b"".join(h.read_bytes() for h in headers)
     digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:12]
     return BUILD_ROOT / name / f"lib{name}_{digest}.so"
+
+
+def compile_to(name: str, source: Path, out: Path) -> None:
+    """nvcc ``source`` into the library ``out``; raises on failure."""
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR),
+                           "-o", str(out), str(source)],
+                          capture_output=True, text=True)
+    build_logs[name] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"{name}: nvcc failed\n{build_logs[name]}")
 
 
 def build(name: str, source: Path) -> Path:
@@ -56,13 +70,19 @@ def build(name: str, source: Path) -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                          capture_output=True, text=True)
-    build_logs[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"{name}: nvcc failed\n{build_logs[name]}")
+    compile_to(name, source, tmp)
     os.replace(tmp, out)
     return out
+
+
+def bind(lib: ctypes.CDLL, signatures: Dict[str, List]) -> ctypes.CDLL:
+    """Set each exported C function's ctypes argument types; every
+    function returns an int (``cudaGetLastError()`` after the launch)."""
+    for fn_name, argtypes in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def load(name: str, source: Path,
@@ -72,10 +92,6 @@ def load(name: str, source: Path,
     function returns an int (``cudaGetLastError()`` after the launch)."""
     lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name, source)))
-        for fn_name, argtypes in signatures.items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        lib = bind(ctypes.CDLL(str(build(name, source))), signatures)
         _libs[name] = lib
     return lib

@@ -1,7 +1,9 @@
 // Warp-level tensor-core building blocks shared by the bf16 paths of
-// flash_attention.cu and flash_attention_bwd.cu (sm_80 and later, so
-// sm_90a): cp.async copies into shared memory, ldmatrix loads of 8 x 8
-// bf16 tiles, and mma.sync m16n8k16 with bf16 operands and f32 sums.
+// flash_attention.cu, flash_attention_bwd.cu and moe_gmm.cu (sm_80 and
+// later, so sm_90a): cp.async copies into shared memory, ldmatrix loads of
+// 8 x 8 bf16 tiles, and mma.sync m16n8k16 with bf16 operands and f32 sums.
+// It lives in kernels/include/, which the build puts on nvcc's include
+// path and hashes with every source (kernels/_build.py).
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:

@@ -8,7 +8,9 @@ tensor goes to the hand-written kernel (``csrc/moe_gmm.cu``) or the call
 raises; a CPU tensor goes to the plain version (``ref.expert_ffn_ref``).
 There is no fallback from one to the other.  The kernel has no backward
 yet, so on CUDA the wrapper refuses inputs that want a gradient.
-``launches`` counts kernel launches.
+``launches`` counts calls of the kernel route: for bf16 one call is two
+CUDA launches (the gate-up kernel, which writes h as a bf16 pair into a
+workspace this wrapper allocates, then the down kernel), for f32 one.
 """
 from __future__ import annotations
 
@@ -19,17 +21,24 @@ import torch
 
 from repro_torch.kernels.moe_gmm.ref import expert_ffn_ref
 
-launches = 0            # kernel launches since the last reset
+launches = 0            # kernel-route calls since the last reset
 
 ACTS = ("silu", "gelu")
-BM = 32                 # token rows per block
+MAX_GRID_YZ = 65535     # CUDA's limit on a grid's y and z
+# bf16 (two kernels on the tensor cores): each kernel's block tile (BM,
+# BN), for M <= SMALL_M rows per expert (decode) and above (prefill)
+SMALL_M = 16
+TILES = {"decode": {"gate_up": (16, 64), "down": (16, 64)},
+         "prefill": {"gate_up": (128, 64), "down": (64, 256)}}
+HCOLS = 64              # the workspace's rows: ff rounded up to this
+# f32 (the CUDA-core kernel)
+BM_F32 = 32             # token rows per block
 SLAB = 1024             # widest slab of y's columns one block accumulates
-MAX_GRID_YZ = 65535     # the kernel's grid: experts on y, slabs on z
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x, w1, w3, w2, y; E, M, d, ff; act, dtype, stream
-_SIG = {"mg_ffn": [_P] * 5 + [_I] * 4 + [_I, _I, _P]}
+# x, w1, w3, w2, h (workspace), y; E, M, d, ff; act, dtype, stream
+_SIG = {"mg_ffn": [_P] * 6 + [_I] * 4 + [_I, _I, _P]}
 
 
 def reset_launches() -> None:
@@ -57,18 +66,41 @@ def _check(x, w1, w2, w3, act):
                          f"{tuple(w2.shape)}")
 
 
-def launch_grid(e: int, m: int, d: int, ff: int) -> tuple:
-    """The kernel's grid (M-tiles, experts, slabs of y's columns) for x
-    (E, M, d) and an expert ff; raises ValueError on what it does not
-    take.  Pure: the shape rules need no card."""
+def tiles(m: int) -> dict:
+    """The bf16 kernels' block tiles for M rows per expert."""
+    return TILES["decode" if m <= SMALL_M else "prefill"]
+
+
+def workspace_shape(e: int, m: int, ff: int) -> tuple:
+    """The bf16 workspace: h as a bf16 pair (hi, lo) of (E, M, ldh)
+    planes, ldh = ff rounded up to whole HCOLS."""
+    return 2, e, m, -(-ff // HCOLS) * HCOLS
+
+
+def launch_grid(e: int, m: int, d: int, ff: int,
+                dtype: torch.dtype = torch.bfloat16) -> tuple:
+    """The kernel route's grids, one per launch, for x (E, M, d) and an
+    expert ff: bf16 ((M-tiles, ff-tiles, E) of the gate-up kernel,
+    (M-tiles, d-tiles, E) of the down kernel); f32 ((M-tiles, E, slabs of
+    y's columns),).  Raises ValueError on what they do not take.  Pure:
+    the shape rules need no card."""
     if not (e > 0 and m > 0 and ff > 0 and d > 0):
         raise ValueError(f"moe_gmm: E {e}, M {m}, ff {ff}, d {d}; need "
                          "all > 0")
-    slabs = -(-d // SLAB)
-    if e > MAX_GRID_YZ or slabs > MAX_GRID_YZ:
-        raise ValueError(f"moe_gmm: E {e} and {slabs} slabs of d {d} must "
-                         f"each be at most {MAX_GRID_YZ}")
-    return -(-m // BM), e, slabs
+    if dtype == torch.float32:
+        slabs = -(-d // SLAB)
+        if e > MAX_GRID_YZ or slabs > MAX_GRID_YZ:
+            raise ValueError(f"moe_gmm: E {e} and {slabs} slabs of d {d} "
+                             f"must each be at most {MAX_GRID_YZ}")
+        return ((-(-m // BM_F32), e, slabs),)
+    t = tiles(m)
+    (gbm, gbn), (dbm, dbn) = t["gate_up"], t["down"]
+    f_tiles, n_tiles = -(-ff // gbn), -(-d // dbn)
+    if max(e, f_tiles, n_tiles) > MAX_GRID_YZ:
+        raise ValueError(f"moe_gmm: E {e}, {f_tiles} tiles of ff {ff} and "
+                         f"{n_tiles} of d {d} must each be at most "
+                         f"{MAX_GRID_YZ}")
+    return (-(-m // gbm), f_tiles, e), (-(-m // dbm), n_tiles, e)
 
 
 def _launch(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -92,14 +124,17 @@ def _launch(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
             "slices': training of the MoE and hybrid families)")
     e, m, d = x.shape
     ff = w1.shape[-1]
-    launch_grid(e, m, d, ff)
+    launch_grid(e, m, d, ff, x.dtype)
     y = torch.empty_like(x)
+    h = (torch.empty(workspace_shape(e, m, ff), dtype=x.dtype,
+                     device=x.device) if x.dtype == torch.bfloat16 else None)
     handle = lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = handle.mg_ffn(x.data_ptr(), w1.data_ptr(), w3.data_ptr(),
-                            w2.data_ptr(), y.data_ptr(), e, m, d, ff,
-                            ACTS.index(act), _DTYPES[x.dtype], stream)
+                            w2.data_ptr(), None if h is None else h.data_ptr(),
+                            y.data_ptr(), e, m, d, ff, ACTS.index(act),
+                            _DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"moe_gmm: CUDA error {err} at launch")
     launches += 1

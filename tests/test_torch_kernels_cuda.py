@@ -155,8 +155,6 @@ def test_cuda_flash_checks_catch_a_missing_rescale(cuda_device, tmp_path,
                                                    monkeypatch):
     import ctypes
     import json
-    import shutil
-    import subprocess
 
     from repro_torch.kernels import _build
     old, new = FLASH_FAULT
@@ -164,15 +162,9 @@ def test_cuda_flash_checks_catch_a_missing_rescale(cuda_device, tmp_path,
     assert source.count(old) == 1
     mutant = tmp_path / "flash_attention.cu"
     mutant.write_text(source.replace(old, new))
-    shutil.copy(TO._CSRC / "mma_bf16.cuh", tmp_path)
     so = tmp_path / "libflash_fault.so"
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                    str(mutant)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
-    for fn_name, argtypes in TO._FWD_SIG.items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    _build.compile_to("flash_fault", mutant, so)
+    lib = _build.bind(ctypes.CDLL(str(so)), TO._FWD_SIG)
     monkeypatch.setattr(TO, "fwd_lib", lambda: lib)
     caught = {}
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -440,7 +432,11 @@ def _gmm_inputs(e, m, d, ff, dtype, device, seed):
     # phi3.5-moe: a 1024-token prefill (2 groups x capacity 80), 8-lane
     # decode (capacity top_k), and a ragged last slab of y's columns
     (16, 160, 4096, 6400, "silu"), (16, 2, 4096, 6400, "silu"),
-    (2, 40, 1100, 96, "silu"), (2, 33, 1100, 70, "gelu")])
+    (2, 40, 1100, 96, "silu"), (2, 33, 1100, 70, "gelu"),
+    # the bf16 route's tile edges: M 16 / 17 (decode / prefill tiles),
+    # a ragged ff-tile and d-tile, one row
+    (3, 16, 136, 200, "silu"), (2, 17, 1024, 512, "silu"),
+    (4, 1, 72, 64, "gelu")])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_moe_gmm_matches_plain(cuda_device, e, m, d, ff, act, dtype):
     from repro_torch.kernels.moe_gmm import ops as GO
@@ -454,6 +450,72 @@ def test_cuda_moe_gmm_matches_plain(cuda_device, e, m, d, ff, act, dtype):
     tol = GMM_TOL[dtype]
     assert out.dtype == x.dtype and out.shape == (e, m, d)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+# Inputs whose h has a large part common to each row (ref.
+# common_part_inputs): granite's and phi3.5-moe's prefill and decode
+# shapes and a small one.  h rounded once to bf16 fails them.
+GMM_COMMON = [(32, 320, 1024, 512), (32, 8, 1024, 512),
+              (16, 160, 4096, 6400), (16, 2, 4096, 6400), (2, 24, 64, 128)]
+# moe_gmm.cu's down kernel without the product of h's low bf16 part
+GMM_FAULT = ("tc::mma_bf16(acc[mt][2 * np + j], alo[mt], b[2 * j], "
+             "b[2 * j + 1]);", "")
+
+
+def _gmm_common_errors(GO, GR, e, m, d, ff, device):
+    """(max abs error, passes GMM_TOL, passes chip_smoke's tolerance
+    scaled by the output's largest magnitude) on a common-part case."""
+    ins = GR.common_part_inputs(e, m, d, ff, dtype=torch.bfloat16,
+                                device=device, seed=m)
+    out = GO.expert_ffn_kernel_layout(*ins).float()
+    ref = GR.expert_ffn_ref(*ins).float()
+    tol = GMM_TOL["bfloat16"]
+    scale = max(1.0, ref.abs().max().item())
+    return ((out - ref).abs().max().item(),
+            torch.allclose(out, ref, atol=tol, rtol=tol),
+            torch.allclose(out, ref, atol=tol * scale, rtol=tol))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,d,ff", GMM_COMMON)
+def test_cuda_moe_gmm_keeps_h_precision(cuda_device, e, m, d, ff):
+    from repro_torch.kernels.moe_gmm import ops as GO
+    from repro_torch.kernels.moe_gmm import ref as GR
+    err, ok, ok_scaled = _gmm_common_errors(GO, GR, e, m, d, ff,
+                                            cuda_device)
+    assert ok and ok_scaled, err
+
+
+@pytest.mark.cuda
+def test_cuda_moe_gmm_checks_catch_h_rounded_once(cuda_device, tmp_path,
+                                                  monkeypatch):
+    """A copy of moe_gmm.cu without the h_lo product (h rounded once to
+    bf16 before h w2) fails every common-part case, at GMM_TOL and at
+    chip_smoke's scaled tolerance."""
+    import ctypes
+    import json
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.moe_gmm import ops as GO
+    from repro_torch.kernels.moe_gmm import ref as GR
+    old, new = GMM_FAULT
+    source = GO._SOURCE.read_text()
+    assert source.count(old) == 1
+    mutant = tmp_path / "moe_gmm.cu"
+    mutant.write_text(source.replace(old, new))
+    so = tmp_path / "libmoe_gmm_fault.so"
+    _build.compile_to("moe_gmm_fault", mutant, so)
+    lib = _build.bind(ctypes.CDLL(str(so)), GO._SIG)
+    monkeypatch.setattr(GO, "lib", lambda: lib)
+    caught = {}
+    for e, m, d, ff in GMM_COMMON:
+        err, ok, ok_scaled = _gmm_common_errors(GO, GR, e, m, d, ff,
+                                                cuda_device)
+        caught[(e, m, d, ff)] = not ok and not ok_scaled
+        row = {"E": e, "M": m, "d": d, "ff": ff, "max_abs_err": err,
+               "ok": ok, "ok_scaled": ok_scaled}
+        print(f"gmm-fault {json.dumps(row)}", flush=True)
+    assert all(caught.values()), caught
 
 
 @pytest.mark.cuda
@@ -643,7 +705,6 @@ def test_cuda_mlstm_checks_catch_carry_faults(cuda_device, tmp_path,
                                               monkeypatch, fault):
     import ctypes
     import json
-    import subprocess
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.mlstm import ops as MO
@@ -654,13 +715,8 @@ def test_cuda_mlstm_checks_catch_carry_faults(cuda_device, tmp_path,
     mutant = tmp_path / "mlstm.cu"
     mutant.write_text(source.replace(old, new))
     so = tmp_path / "libmlstm_fault.so"
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                    str(mutant)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
-    for fn_name, argtypes in MO._SIG.items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    _build.compile_to("mlstm_fault", mutant, so)
+    lib = _build.bind(ctypes.CDLL(str(so)), MO._SIG)
     monkeypatch.setattr(MO, "lib", lambda: lib)
     caught = {}
     for case in [c + (g,) for g in ("slow", "model") for c in MLSTM_BIG]:

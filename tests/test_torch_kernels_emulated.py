@@ -5,8 +5,8 @@ PyTorch versions at small shapes.
 There is no GPU and no nvcc here, so this is where a kernel's indexing,
 its warp-level fragment layouts (ldmatrix, mma.sync), its masks and its
 cp.async pipeline are checked before a card sees it.  Each source is
-translated (the inline-PTX primitives of ``mma_bf16.cuh`` replaced by
-emulated ones, launches rewritten into calls), compiled with g++ and
+translated (the inline-PTX primitives of the shared ``mma_bf16.cuh``
+replaced by emulated ones, launches rewritten into calls), compiled with g++ and
 loaded with ctypes; the C interface is the one the wrappers call.  The
 emulation sums products in another order than the card, so the
 tolerances are the card tests' (``tests/test_torch_kernels_cuda.py``).
@@ -21,6 +21,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as FO
 from repro_torch.kernels.flash_attention import ref as FR
 from repro_torch.kernels.moe_gmm import ops as GO
@@ -34,6 +35,11 @@ PTX_FNS = {"smem_u32", "cp_async16", "cp_async4", "cp_async_commit",
            "cp_async_wait", "ldmatrix_x4", "ldmatrix_x4_trans", "mma_bf16"}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# moe_gmm's down kernel without the product of h's low bf16 part: h
+# rounded once to bf16 (the fault the card test plants too)
+GMM_FAULT = ("tc::mma_bf16(acc[mt][2 * np + j], alo[mt], b[2 * j], "
+             "b[2 * j + 1]);", "")
 
 
 def _drop_ptx(text: str) -> str:
@@ -56,9 +62,13 @@ def _drop_ptx(text: str) -> str:
 
 
 def translate(source: str, include_dir: Path) -> str:
-    """A kernel source as C++ over emu.h."""
+    """A kernel source as C++ over emu.h; its ``#include "..."`` found
+    beside it (``include_dir``) or in the build's shared include dir."""
     def inline(m):
-        return _drop_ptx((include_dir / m.group(1)).read_text())
+        for where in (include_dir, _build.INCLUDE_DIR):
+            if (where / m.group(1)).exists():
+                return _drop_ptx((where / m.group(1)).read_text())
+        raise FileNotFoundError(m.group(1))
     text = re.sub(r'#include "([\w.]+)"', inline, source)
     text = re.sub(r"#include <cuda_(bf16|runtime)\.h>|#pragma once", "", text)
     text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) "
@@ -205,25 +215,74 @@ def test_emulated_backward_matches_autograd_of_plain(libs, b, h, kv, s, hd,
                                    rtol=BWD_TOL[dtype])
 
 
+def _gmm(lib, x, w1, w2, w3, act):
+    """y from the emulated mg_ffn (with the bf16 route's workspace)."""
+    e, m, d = x.shape
+    ff = w1.shape[-1]
+    y = torch.empty_like(x)
+    h = torch.empty(GO.workspace_shape(e, m, ff), dtype=torch.bfloat16)
+    err = lib.mg_ffn(x.data_ptr(), w1.data_ptr(), w3.data_ptr(),
+                     w2.data_ptr(), h.data_ptr(), y.data_ptr(), e, m, d, ff,
+                     GO.ACTS.index(act), GO._DTYPES[x.dtype], None)
+    assert err == 0
+    return y
+
+
 @pytest.mark.parametrize("e,m,d,ff,act,dtype", [
     (2, 40, 1100, 96, "silu", torch.float32),     # a ragged second slab
-    (2, 40, 1100, 96, "silu", torch.bfloat16),
+    (2, 40, 1100, 96, "silu", torch.bfloat16),    # d unaligned: element loads
     (2, 33, 2100, 70, "gelu", torch.float32),     # three slabs
-    (3, 10, 64, 128, "silu", torch.float32)])     # one slab
+    (3, 10, 64, 128, "silu", torch.float32),      # one slab
+    # bf16, the tensor-core route: decode tiles (M <= 16), aligned
+    (3, 10, 64, 128, "silu", torch.bfloat16),
+    # ragged ff (200 -> h rows of 256) and d-tile (136), M 2 and 1 row
+    (2, 2, 136, 200, "silu", torch.bfloat16),
+    (1, 1, 72, 64, "gelu", torch.bfloat16),
+    # prefill tiles: ragged M (100 = 64 + 36), gelu, ff and d unaligned
+    (2, 100, 128, 192, "silu", torch.bfloat16),
+    (2, 33, 130, 70, "gelu", torch.bfloat16),
+    (1, 17, 64, 96, "silu", torch.bfloat16)])
 def test_emulated_moe_gmm_matches_plain(libs, e, m, d, ff, act, dtype):
     gen = torch.Generator().manual_seed(d)
     x = (torch.randn((e, m, d), generator=gen) * 0.5).to(dtype)
     w1, w3 = ((torch.randn((e, d, ff), generator=gen) * 0.05).to(dtype)
               for _ in range(2))
     w2 = (torch.randn((e, ff, d), generator=gen) * 0.05).to(dtype)
-    y = torch.empty_like(x)
-    err = libs["gmm"].mg_ffn(x.data_ptr(), w1.data_ptr(), w3.data_ptr(),
-                             w2.data_ptr(), y.data_ptr(), e, m, d, ff,
-                             GO.ACTS.index(act), GO._DTYPES[dtype], None)
-    assert err == 0
+    y = _gmm(libs["gmm"], x, w1, w2, w3, act)
     ref = GR.expert_ffn_ref(x, w1, w2, w3, act=act)
-    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
+    tol = GMM_TOL[dtype]
     torch.testing.assert_close(y.float(), ref.float(), atol=tol, rtol=tol)
+
+
+GMM_COMMON = [(2, 24, 64, 128), (2, 8, 64, 128)]    # prefill and decode
+
+
+@pytest.mark.parametrize("e,m,d,ff", GMM_COMMON)
+def test_emulated_moe_gmm_keeps_h_precision(libs, e, m, d, ff):
+    """bf16 inputs whose h has a large common part (ref.common_part_inputs):
+    the kernel's h w2 from h's hi + lo bf16 pair passes the tolerance."""
+    ins = GR.common_part_inputs(e, m, d, ff, dtype=torch.bfloat16, seed=m)
+    y = _gmm(libs["gmm"], *ins, "silu")
+    ref = GR.expert_ffn_ref(*ins)
+    tol = GMM_TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_emulated_moe_gmm_checks_catch_h_rounded_once(libs):
+    """moe_gmm.cu without the h_lo product (h rounded once to bf16 before
+    h w2) fails the common-part cases."""
+    old, new = GMM_FAULT
+    source = GO._SOURCE.read_text()
+    assert source.count(old) == 1
+    lib = build(source.replace(old, new), GO._SOURCE.parent, libs["out"],
+                "gmm_fault", GO._SIG)
+    tol = GMM_TOL[torch.bfloat16]
+    for e, m, d, ff in GMM_COMMON:
+        ins = GR.common_part_inputs(e, m, d, ff, dtype=torch.bfloat16,
+                                    seed=m)
+        y = _gmm(lib, *ins, "silu")
+        ref = GR.expert_ffn_ref(*ins)
+        assert not torch.allclose(y.float(), ref.float(), atol=tol, rtol=tol)
 
 
 def test_emulated_checks_catch_a_missing_rescale(libs):

@@ -98,15 +98,38 @@ def test_wrapper_rejects_bad_shapes_and_act():
 
 
 @pytest.mark.parametrize("e,m,d,ff,grid", [
+    # granite prefill: gate-up 3 M-tiles of 128 x 8 ff-tiles of 64,
+    # down 5 M-tiles of 64 x 4 d-tiles of 256
+    (32, 320, 1024, 512, ((3, 8, 32), (5, 4, 32))),
+    (16, 160, 4096, 6400, ((2, 100, 16), (3, 16, 16))),  # phi3.5 prefill
+    (16, 2, 4096, 6400, ((1, 100, 16), (1, 64, 16))),    # phi3.5 decode
+    (2, 40, 1100, 96, ((1, 2, 2), (1, 5, 2))),           # ragged tiles
+    (65535, 1, 8, 8, ((1, 1, 65535), (1, 1, 65535)))])
+def test_launch_grid_takes_any_d(e, m, d, ff, grid):
+    """The bf16 route's two grids (gate-up, down), computed without a
+    card: any d, tiled over the grid's y, with the M-tile fastest."""
+    assert TO.launch_grid(e, m, d, ff) == grid
+
+
+@pytest.mark.parametrize("e,m,d,ff,grid", [
     (32, 320, 1024, 512, (10, 32, 1)),      # granite: one slab
     (16, 160, 4096, 6400, (5, 16, 4)),      # phi3.5-moe prefill
-    (16, 2, 4096, 6400, (1, 16, 4)),        # phi3.5-moe decode
-    (2, 40, 1100, 96, (2, 2, 2)),           # a ragged last slab
-    (65535, 1, 8, 8, (1, 65535, 1))])
-def test_launch_grid_takes_any_d(e, m, d, ff, grid):
-    """The kernel's grid, computed without a card: d above 1024 is cut
-    into slabs of y's columns instead of refused."""
-    assert TO.launch_grid(e, m, d, ff) == grid
+    (2, 40, 1100, 96, (2, 2, 2))])          # a ragged last slab
+def test_launch_grid_f32_keeps_column_slabs(e, m, d, ff, grid):
+    """f32 keeps the CUDA-core kernel: one grid over (M-tiles of 32,
+    experts, slabs of at most 1024 of y's columns)."""
+    assert TO.launch_grid(e, m, d, ff, torch.float32) == (grid,)
+
+
+@pytest.mark.parametrize("e,m,ff,shape", [
+    (32, 320, 512, (2, 32, 320, 512)), (2, 33, 70, (2, 2, 33, 128)),
+    (16, 2, 6400, (2, 16, 2, 6400))])
+def test_workspace_holds_h_pair_in_whole_tiles(e, m, ff, shape):
+    """The bf16 workspace: h's hi and lo planes, rows of ff rounded up to
+    whole 64-column tiles (so the down kernel's loads stay aligned)."""
+    assert TO.workspace_shape(e, m, ff) == shape
+    assert TO.tiles(16) == TO.TILES["decode"]
+    assert TO.tiles(17) == TO.TILES["prefill"]
 
 
 @pytest.mark.parametrize("e,m,d,ff,match", [
@@ -117,6 +140,8 @@ def test_launch_grid_takes_any_d(e, m, d, ff, grid):
 def test_launch_grid_refuses_what_the_grid_cannot_hold(e, m, d, ff, match):
     with pytest.raises(ValueError, match=match):
         TO.launch_grid(e, m, d, ff)
+    with pytest.raises(ValueError, match=match):
+        TO.launch_grid(e, m, d, ff, torch.float32)
 
 
 def test_jax_is_on_the_cpu():
