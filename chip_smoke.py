@@ -81,11 +81,14 @@ shapes (its bf16 route is two launches: gate-up, then down), each with
 one more case whose h has a large common part (one bf16 rounding of h
 fails it) and, beside each bf16 row, the time of the cuBLAS composition
 of the same FFN (three ``torch.bmm`` and the elementwise ops, h rounded
-to bf16: another function, not one call), mamba_scan at zamba2's and
-mlstm at xlstm-1.3b's (``kernel-check mlstm``: a 1024-token prefill, a
-ragged 1000, the 4 x 512 batch and an initial state, with the model's
-forget gates and with slow ones that carry C over several chunks, and
-the JAX tests' small shapes).
+to bf16: another function, not one call), mamba_scan at zamba2's
+(``kernel-check mamba_scan``: with the model's gates and with slow ones
+that carry the state over several chunks, and one case whose state has
+a large common part) and mlstm at xlstm-1.3b's (``kernel-check mlstm``: a
+1024-token prefill, a ragged 1000, the 4 x 512 batch and an initial
+state, with the model's forget gates and with slow ones that carry C
+over several chunks, one case whose C has a large common part, and the
+JAX tests' small shapes).
 
 Checkpoints go to ``build/chip_smoke_ckpt`` in the checkout and are
 removed at the end; the phase raises if the disk cannot hold three full
@@ -596,8 +599,8 @@ def check_prefill(torch, cfg, params, reqs, max_len):
 KERNEL_KINDS = [
     ("flash_attention", ("fa_fwd_",)),
     ("moe_gmm", ("mg_ffn_",)),
-    ("mamba_scan", ("ms_ssd_kernel",)),
-    ("mlstm", ("ml_gates_kernel", "ml_scores_kernel", "ml_state_kernel")),
+    ("mamba_scan", ("ms_ssd", "ms_cb_kernel")),
+    ("mlstm", ("ml_gate_", "ml_scores", "ml_state", "ml_hout")),
     ("flash_attention_bwd", ("fa_bwd_",)),
     ("collective_codec", ("cc_select",)),
     ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
@@ -1628,72 +1631,116 @@ def check_moe_gmm(torch, cfg):
     return rows
 
 
-def _scan_bound(b, length, h, p, n, q, esize):
-    """Least time of the chunked scan on this input, in f32 (the
-    function's arithmetic): C B^T once per (batch, chunk) over the causal
-    pairs, the masked (q x q) product per head, and the y_inter and state
-    products per head; bytes: x, dt, a, b, c read once, y and the final
-    state written once."""
+def _scan_bound(b, length, h, p, n, q, esize, dtype_name):
+    """Least time of the chunked scan on this input: the larger of its
+    bytes (x, dt, a, b, c read once, y and the final state written once)
+    over HBM bandwidth and its operations over the peak of the inputs'
+    type: C B^T once per (batch, chunk) over the causal pairs, the masked
+    (q x q) product per head, and the y_inter and state products per
+    head.  Also the operations over the f32 CUDA-core peak."""
     nc = length // q
     pairs = q * (q + 1) // 2
     flops = 2.0 * b * nc * pairs * n \
         + 2.0 * b * h * nc * (pairs * p + 2 * q * n * p)
     nbytes = (2 * b * length * h * p + 2 * b * length * n) * esize \
         + 4 * (b * length * h + h + b * h * p * n)
-    t_ops = flops / PEAK_FLOPS["float32"]
+    t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes,
+            max(flops / PEAK_FLOPS["float32"], t_bytes) * 1e3)
+
+
+# The scan's gates (the tests' SCAN_GATES): "model" is the model's own
+# init, a = -(1..H), with dt = softplus(N(0, 1)); "slow" draws dt =
+# softplus(N(-4.6, 0.1)), about 0.01 (trained Mamba2's dt range is
+# [1e-3, 0.1]), with a = -exp(N(0, 0.3)), so a 64-token chunk decays by
+# about e^-0.64 and the state carries over several chunks; under the
+# model's gates exp(sum dt a) over a chunk is e^-45 or less.
+SCAN_GATES = {"model": (0.0, 1.0), "slow": (-4.6, 0.1)}
+
+
+def _scan_carry_share(sr, x, dt, a, bb, cc, chunk, s):
+    """How much of the final state the chunks before the last carry into
+    it: max |S - S'| / max |S|, where S' is the plain version's final
+    state from the last chunk alone (zero state)."""
+    lo = x.shape[1] - min(chunk, x.shape[1])
+    if lo == 0:
+        return 0.0
+    _, s1 = sr.ssd_chunked(x[:, lo:], dt[:, lo:], a, bb[:, lo:],
+                           cc[:, lo:], chunk)
+    return ((s - s1).abs().max() / s.abs().max()).item()
 
 
 def check_mamba_scan(torch, cfg):
     """mamba_scan against its plain version at zamba2's shapes (H 80, P 64,
-    N 64, chunk 64; a = -(1..H) as the model's init, dt = softplus of
-    N(0, 1)): L 64, 256 and 1024 at B 1, L 40 (shorter than the chunk),
-    B 4 at L 512; bf16 and f32.  No PyTorch call computes the scan."""
+    N 64, chunk 64), with the model's gates (SCAN_GATES): L 64, 256 and
+    1024 at B 1, L 40 (shorter than the chunk), B 4 at L 512; and with
+    slow gates at L 1024, 256 and B 4 x 512, whose rows must read a
+    ``carry_share`` above 0.1; bf16 and f32; and one bf16 row whose state
+    has a large common part that C S^T cancels (``"inputs": "common"``:
+    one rounding of the state as an operand fails it).  No PyTorch call
+    computes the scan."""
     from repro_torch.kernels.mamba_scan import ops as so
     from repro_torch.kernels.mamba_scan import ref as sr
     from repro_torch.models import ssm as ssm_mod
 
     _, h = ssm_mod.dims(cfg)
     p, n, chunk = cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk
-    cases = [(1, 64, "bfloat16"), (1, 256, "bfloat16"),
-             (1, 1024, "bfloat16"), (1, 40, "bfloat16"),
-             (4, 512, "bfloat16"), (1, 1024, "float32"),
-             (1, 40, "float32"), (4, 512, "float32")]
+    cases = [(1, 64, "bfloat16", "model"), (1, 256, "bfloat16", "model"),
+             (1, 1024, "bfloat16", "model"), (1, 40, "bfloat16", "model"),
+             (4, 512, "bfloat16", "model"), (1, 1024, "float32", "model"),
+             (1, 40, "float32", "model"), (4, 512, "float32", "model")] + [
+        (b, length, d, "slow") for d in ("bfloat16", "float32")
+        for b, length in ((1, 1024), (1, 256), (4, 512))]
+    cases = [c + ("random",) for c in cases] + [
+        (1, 1024, "bfloat16", "slow", "common")]
     gen = torch.Generator(device="cuda").manual_seed(22)
-    a = -torch.arange(1, h + 1, dtype=torch.float32, device="cuda")
     rows = []
-    for b, length, dname in cases:
+    for b, length, dname, gates, inputs in cases:
         dt_ = getattr(torch, dname)
         x = (torch.randn((b, length, h, p), generator=gen, device="cuda")
              * 0.5).to(dt_)
+        mean, std = SCAN_GATES[gates]
         dt = torch.nn.functional.softplus(
-            torch.randn((b, length, h), generator=gen, device="cuda"))
-        bb, cc = ((torch.randn((b, length, n), generator=gen, device="cuda")
-                   * 0.5).to(dt_) for _ in range(2))
+            torch.randn((b, length, h), generator=gen, device="cuda") * std
+            + mean)
+        bb, cc = (torch.randn((b, length, n), generator=gen, device="cuda")
+                  * 0.5 for _ in range(2))
+        if inputs == "common":   # S large, C S^T cancelling its common part
+            bb, cc = bb + 32.0, cc - cc.mean(-1, keepdim=True)
+        bb, cc = bb.to(dt_), cc.to(dt_)
+        if gates == "model":
+            a = -torch.arange(1, h + 1, dtype=torch.float32, device="cuda")
+        else:
+            a = -torch.exp(torch.randn((h,), generator=gen, device="cuda")
+                           * 0.3)
         y, s = so.ssd(x, dt, a, bb, cc, chunk=chunk)
         yr, sr_ = sr.ssd_chunked(x, dt, a, bb, cc, chunk)
         torch.cuda.synchronize()
         tol = SCAN_TOL[dname]
+        share = _scan_carry_share(sr, x, dt, a, bb, cc, chunk, sr_)
         ok = (bool(torch.isfinite(y.float()).all())
               and torch.allclose(y.float(), yr.float(), atol=tol["y"][0],
                                  rtol=tol["y"][1])
               and torch.allclose(s, sr_, atol=tol["state"][0],
-                                 rtol=tol["state"][1]))
+                                 rtol=tol["state"][1])
+              and (gates != "slow" or share > 0.1))
         ms = _time_ms(lambda: so.ssd(x, dt, a, bb, cc, chunk=chunk))
         plain_ms = _time_ms(lambda: sr.ssd_chunked(x, dt, a, bb, cc, chunk),
                             iters=5)
         q = min(chunk, length)
-        bound_ms, bound_by, flops, nbytes = _scan_bound(
-            b, length, h, p, n, q, x.element_size())
+        bound_ms, bound_by, flops, nbytes, f32_ms = _scan_bound(
+            b, length, h, p, n, q, x.element_size(), dname)
         row = {"B": b, "L": length, "H": h, "P": p, "N": n, "chunk": q,
-               "dtype": dname,
+               "dtype": dname, "gates": gates, "inputs": inputs,
+               "carry_share": share,
                "max_abs_err": (y.float() - yr.float()).abs().max().item(),
                "state_max_abs_err": (s - sr_).abs().max().item(),
                "tol": tol, "ok": ok, "ms": ms, "plain_ms": plain_ms,
                "library_ms": None, "bound_ms": bound_ms,
-               "bound_by": bound_by, "tflops": flops / (ms * 1e-3) / 1e12,
+               "bound_by": bound_by, "bound_f32_cores_ms": f32_ms,
+               "tflops": flops / (ms * 1e-3) / 1e12,
                "gbytes_per_s": nbytes / ms * 1e-6}
         rows.append(row)
         print(f"kernel-check mamba_scan {json.dumps(row)}", flush=True)
@@ -1778,8 +1825,11 @@ def check_mlstm(torch, cfg):
     nonzero initial state, each with the model's forget gates in bf16
     and f32 and with slow ones (MLSTM_GATES) in f32, the 1024-token one
     with slow gates in bf16 too; then the JAX tests' small shapes (hd
-    16-64) with their gates.  Each row gives ``carry_share``, how much
-    of the final C the earlier chunks carry.  Times: the kernel, the
+    16-64) with their gates; last the 300-token bf16 case with slow
+    gates whose initial C has a large common part that Q C^T cancels
+    (``"inputs": "common"``: one rounding of C as an operand fails it).
+    Each row gives ``carry_share``, how much of the final C the earlier
+    chunks carry.  Times: the kernel, the
     plain version, and one ``torch.bmm`` of Q C^T over the whole
     sequence (partial: no PyTorch call computes the function)."""
     from repro_torch.kernels.mlstm import ops as mo
@@ -1797,18 +1847,24 @@ def check_mlstm(torch, cfg):
         + [big[0] + ("slow", "bfloat16")] \
         + [c + ("jax", "float32") for c in small] \
         + [small[0] + ("jax", "bfloat16")]
+    cases = [c + ("random",) for c in cases] + [
+        big[3] + ("slow", "bfloat16", "common")]
     gen = torch.Generator(device="cuda").manual_seed(23)
     rows = []
-    for b, length, nh, d, ck, with_state, gates, dname in cases:
+    for b, length, nh, d, ck, with_state, gates, dname, inputs in cases:
         dt_ = getattr(torch, dname)
         q, k, v = (torch.randn((b, length, nh, d), generator=gen,
-                               device="cuda").to(dt_) for _ in range(3))
+                               device="cuda") for _ in range(3))
+        if inputs == "common":   # C large, Q C^T cancelling its common part
+            q = q - q.mean(-1, keepdim=True)
+        q, k, v = q.to(dt_), k.to(dt_), v.to(dt_)
         li = torch.randn((b, length, nh), generator=gen, device="cuda") - 1
         lf = _mlstm_logf(torch, (b, length, nh), gates, gen)
         st = None
         if with_state:
             st = (torch.randn((b, nh, d, d), generator=gen,
-                              device="cuda") * 0.3,
+                              device="cuda") * 0.3
+                  + (30.0 if inputs == "common" else 0.0),
                   torch.randn((b, nh, d), generator=gen, device="cuda") * .3,
                   torch.randn((b, nh), generator=gen, device="cuda"))
         out, (c, n, m) = mo.mlstm(q, k, v, li, lf, st, chunk=ck)
@@ -1836,6 +1892,7 @@ def check_mlstm(torch, cfg):
             q.element_size(), dname)
         row = {"B": b, "L": length, "H": nh, "hd": d, "chunk": ck,
                "state": with_state, "gates": gates, "dtype": dname,
+               "inputs": inputs,
                "logf_mean": lf.mean().item(),
                "carry_share": _mlstm_carry_share(mr, q, k, v, li, lf, st,
                                                  ck, cr, m_r),
@@ -2035,7 +2092,8 @@ def main() -> int:
     codec_row = codec_rows[-1]          # the main path's 4-shard launch
     gmm_row = gmm_rows[0]               # a 1024-token prefill, bf16
     scan_row = next(r for r in scan_rows if r["B"] == 1
-                    and r["L"] == 1024 and r["dtype"] == "bfloat16")
+                    and r["L"] == 1024 and r["dtype"] == "bfloat16"
+                    and r["gates"] == "model")
     ml_row = ml_rows[0]                 # a 1024-token prefill, bf16
     phase_time("kernel-check")
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time one kernel of two checkouts on one GPU, in turns.
 
-    python3 compare_flash.py [--kernel flash|moe_gmm] OLD_CHECKOUT [NEW_CHECKOUT]
+    python3 compare_flash.py [--kernel flash|moe_gmm|mlstm|mamba_scan]
+        OLD_CHECKOUT [NEW_CHECKOUT]
 
 NEW_CHECKOUT defaults to this script's own directory.  Both packages are
 named ``repro_torch``, so each checkout runs in a process of its own, in
@@ -22,7 +23,16 @@ the port never calls.
 each, the cuBLAS composition of the same FFN (``chip_smoke._gmm_cublas``:
 h rounded to bf16, several calls), effective GB/s and TFLOP/s.
 
-Prints a ``<kernel>-compare`` JSON line per process and a
+``mlstm``: the chunkwise mLSTM at xlstm-1.3b's shapes (H 4, hd 1024,
+chunk 128, the model's forget gates): B 1 at L 1024 (a prefill), L 1000
+(ragged) and L 300 from an initial state, and B 4 at L 512 (the fixed
+batch).  ``mamba_scan``: the SSD scan at zamba2-2.7b's (H 80, P 64, N 64,
+chunk 64, a = -(1..80)): B 1 at L 1024 and 256, B 4 at L 512.  No PyTorch
+call computes either function.  Each of their rows also gives the device
+time of each pass (``passes_ms``, torch.profiler).
+
+Prints the card's name and power limit (``nvidia-smi``), a
+``<kernel>-compare`` JSON line per process and a
 ``<kernel>-compare-summary`` line: each checkout's best time per shape.
 Exits non-zero without a GPU.
 """
@@ -38,7 +48,11 @@ SHAPES = [("fwd", 1, 1024, 64), ("fwd", 1, 1024, 128), ("bwd", 2, 1024, 64)]
 # (arch, E, M, d, ff)
 GMM_SHAPES = [("granite", 32, 320, 1024, 512), ("granite", 32, 8, 1024, 512),
               ("phi3.5", 16, 160, 4096, 6400), ("phi3.5", 16, 2, 4096, 6400)]
-KERNELS = ("flash", "moe_gmm")
+# (B, L, state) at xlstm-1.3b's H 4, hd 1024; (B, L) at zamba2-2.7b's
+ML_SHAPES = [(1, 1024, False), (1, 1000, False), (4, 512, False),
+             (1, 300, True)]
+SCAN_SHAPES = [(1, 1024), (1, 256), (4, 512)]
+KERNELS = ("flash", "moe_gmm", "mlstm", "mamba_scan")
 
 
 def gmm_rows(torch, cs):
@@ -67,6 +81,86 @@ def gmm_rows(torch, cs):
     return rows
 
 
+def pass_ms(torch, fn, iters=10):
+    """Device time of each CUDA kernel that ``fn`` launches, ms a call
+    (torch.profiler, after a warm-up): a multi-pass kernel's passes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None) or getattr(
+            e, "cuda_time_total", 0)
+        if t:
+            name = e.key.split("(")[0].split("::")[-1].split("<")[0]
+            out[name] = out.get(name, 0.0) + t / iters / 1000
+    return out
+
+
+def mlstm_rows(torch, cs):
+    from repro_torch.kernels.mlstm import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    h, hd, chunk = 4, 1024, 128
+    rows = []
+    for b, length, with_state in ML_SHAPES:
+        q, k, v = (torch.randn((b, length, h, hd), generator=gen,
+                               device="cuda").bfloat16() for _ in range(3))
+        li = torch.randn((b, length, h), generator=gen, device="cuda") - 1
+        lf = torch.nn.functional.logsigmoid(
+            torch.randn((b, length, h), generator=gen, device="cuda") + 3)
+        st = None
+        if with_state:
+            st = (torch.randn((b, h, hd, hd), generator=gen,
+                              device="cuda") * 0.3,
+                  torch.randn((b, h, hd), generator=gen, device="cuda") * .3,
+                  torch.randn((b, h), generator=gen, device="cuda"))
+        def fn():
+            return ops._launch(q, k, v, li, lf, st, chunk)
+        ms = cs._time_ms(fn, iters=10)
+        bound_ms, bound_by, flops, nbytes, _ = cs._mlstm_bound(
+            b, length, h, hd, min(chunk, length), with_state, 2, "bfloat16")
+        rows.append({"key": f"B{b} L{length}" + (" state" if with_state
+                                                  else ""),
+                     "B": b, "L": length, "state": with_state, "ms": ms,
+                     "tflops": flops / (ms * 1e-3) / 1e12,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "passes_ms": pass_ms(torch, fn)})
+    return rows
+
+
+def scan_rows(torch, cs):
+    from repro_torch.kernels.mamba_scan import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    h, p, n, chunk = 80, 64, 64, 64
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device="cuda")
+    rows = []
+    for b, length in SCAN_SHAPES:
+        x = (torch.randn((b, length, h, p), generator=gen, device="cuda")
+             * 0.5).bfloat16()
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, length, h), generator=gen, device="cuda"))
+        bb, cc = ((torch.randn((b, length, n), generator=gen, device="cuda")
+                   * 0.5).bfloat16() for _ in range(2))
+        def fn():
+            return ops._launch(x, dt, a, bb, cc, chunk)
+        ms = cs._time_ms(fn)
+        bound_ms, bound_by, flops, nbytes, _ = cs._scan_bound(
+            b, length, h, p, n, chunk, 2, "bfloat16")
+        rows.append({"key": f"B{b} L{length}", "B": b, "L": length,
+                     "ms": ms, "gbytes_per_s": nbytes / ms * 1e-6,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "passes_ms": pass_ms(torch, fn)})
+    return rows
+
+
 def child(tree: str, kernel: str) -> int:
     import torch
     import torch.nn.functional as F
@@ -77,16 +171,20 @@ def child(tree: str, kernel: str) -> int:
         return 2
     sys.path.insert(0, os.path.join(tree, "src"))
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mlstm import ops as ml_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
 
-    for mod in (ops, gmm_ops):
+    for mod in (ops, gmm_ops, ml_ops, scan_ops):
         assert mod.__file__.startswith(os.path.abspath(tree)), mod.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
-    if kernel == "moe_gmm":
-        print("moe_gmm-compare " + json.dumps({
+    other = {"moe_gmm": gmm_rows, "mlstm": mlstm_rows,
+             "mamba_scan": scan_rows}
+    if kernel in other:
+        print(f"{kernel}-compare " + json.dumps({
             "tree": os.path.abspath(tree),
             "device": torch.cuda.get_device_name(0),
-            "rows": gmm_rows(torch, cs)}), flush=True)
+            "rows": other[kernel](torch, cs)}), flush=True)
         return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     h, kv = 32, 8
@@ -143,6 +241,10 @@ def main(argv) -> int:
         return 2
     old = os.path.abspath(argv[0])
     new = os.path.abspath(argv[1] if len(argv) > 1 else HERE)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"card {card}", flush=True)
     best = {}
     for tag, tree in (("old", old), ("new", new), ("new", new),
                       ("old", old)):

@@ -8,7 +8,8 @@ itself, so no transpose is made.  A CUDA tensor goes to the hand-written
 kernel (``csrc/mamba_scan.cu``) or the call raises; a CPU tensor goes to
 the plain version (``ref.ssd_chunked``).  There is no fallback from one to
 the other.  The kernel has no backward yet, so on CUDA the wrapper refuses
-inputs that want a gradient.  ``launches`` counts kernel launches.
+inputs that want a gradient.  ``launches`` counts kernel launches (one per
+call: bf16's two passes run in one C call).
 """
 from __future__ import annotations
 
@@ -26,8 +27,8 @@ MAX_STATE = 64          # largest state dimension N
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x, dt, a, b, c, y, s_fin; B, L, H, P, N, chunk; dtype, stream
-_SIG = {"ms_ssd": [_P] * 7 + [_I] * 6 + [_I, _P]}
+# x, dt, a, b, c, y, s_fin, scratch; B, L, H, P, N, chunk; dtype, stream
+_SIG = {"ms_ssd": [_P] * 8 + [_I] * 6 + [_I, _P]}
 
 
 def reset_launches() -> None:
@@ -51,6 +52,32 @@ def _check_shapes(x, dt, a, b, c):
         raise ValueError(f"mamba_scan: shapes x {tuple(x.shape)} dt "
                          f"{tuple(dt.shape)} a {tuple(a.shape)} b "
                          f"{tuple(b.shape)} c {tuple(c.shape)}")
+
+
+def scratch_floats(bs: int, length: int, h: int, q: int) -> int:
+    """f32 scratch of the bf16 route (``csrc/mamba_scan.cu``,
+    ``launch_bf16``): C B^T (B, L/q, 64, 64) and cum (B, L/q, H, 64)."""
+    return bs * (length // q) * 64 * (64 + h)
+
+
+def call(handle, x, dt, a, b, c, q: int, stream):
+    """``handle.ms_ssd`` on checked, contiguous tensors of one device, with
+    the outputs and, for bf16, the scratch allocated there: (its return
+    code, y, the final state)."""
+    bs, length, h, p = x.shape
+    n = b.shape[-1]
+    y = torch.empty_like(x)
+    s_fin = torch.empty((bs, h, p, n), dtype=torch.float32, device=x.device)
+    scratch = None
+    if x.dtype == torch.bfloat16:
+        scratch = torch.empty(scratch_floats(bs, length, h, q),
+                              dtype=torch.float32, device=x.device)
+    err = handle.ms_ssd(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                        b.data_ptr(), c.data_ptr(), y.data_ptr(),
+                        s_fin.data_ptr(), None if scratch is None
+                        else scratch.data_ptr(), bs, length, h, p, n, q,
+                        _DTYPES[x.dtype], stream)
+    return err, y, s_fin
 
 
 def _launch(x, dt, a, b, c, chunk: int):
@@ -80,15 +107,10 @@ def _launch(x, dt, a, b, c, chunk: int):
         raise ValueError(f"mamba_scan: B {bs}, H {h}, P {p}, N {n}, chunk "
                          f"{q}; need N <= {MAX_STATE} and chunk <= "
                          f"{MAX_CHUNK}")
-    y = torch.empty_like(x)
-    s_fin = torch.empty((bs, h, p, n), dtype=torch.float32, device=x.device)
     handle = lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = handle.ms_ssd(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
-                            b.data_ptr(), c.data_ptr(), y.data_ptr(),
-                            s_fin.data_ptr(), bs, length, h, p, n, q,
-                            _DTYPES[x.dtype], stream)
+        err, y, s_fin = call(handle, x, dt, a, b, c, q, stream)
     if err != 0:
         raise RuntimeError(f"mamba_scan: CUDA error {err} at launch")
     launches += 1

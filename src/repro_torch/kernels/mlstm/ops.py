@@ -12,7 +12,8 @@ call raises; a CPU tensor goes to the plain version
 (``ref.mlstm_chunked``).  There is no fallback from one to the other.
 The kernel has no backward, so on CUDA the wrapper refuses inputs that
 want a gradient.  ``launches`` counts kernel launches (one per call: the
-kernel's three passes run in one C call).
+kernel's passes, four for float32 and five for bfloat16, run in one C
+call).
 """
 from __future__ import annotations
 
@@ -30,9 +31,9 @@ MAX_HEAD_DIM = 1024     # widest head a block's C tile holds
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "mlstm.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# q, k, v, logi, logf, c0, n0, m0, h, c, n, m, gvec, carry, nin, st, den;
-# B, L, H, D, chunk, dtype; stream
-_SIG = {"ml_mlstm": [_P] * 17 + [_I] * 6 + [_P]}
+# q, k, v, logi, logf, c0, n0, m0, h, c, n, m, gvec, gscal, carry, nin,
+# st, cin, den; B, L, H, D, chunk, dtype; stream
+_SIG = {"ml_mlstm": [_P] * 19 + [_I] * 6 + [_P]}
 
 
 def reset_launches() -> None:
@@ -62,6 +63,45 @@ def _check_shapes(q, k, v, logi, logf, state):
             raise ValueError(f"mlstm: state shapes {got}, want {want}")
 
 
+def call(handle, q, k, v, logi, logf, state, qc: int, stream):
+    """``handle.ml_mlstm`` on checked, contiguous tensors of one device,
+    with the outputs and the scratch allocated there (csrc/mlstm.cu lists
+    the layouts): (its return code, h, (c, n, m))."""
+    bs, length, h, hd = q.shape
+    dev = q.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    nc = -(-length // qc)
+    out = torch.empty_like(q)
+    c = torch.empty((bs, h, hd, hd), **f32)
+    n = torch.empty((bs, h, hd), **f32)
+    m = torch.empty((bs, h), **f32)
+    # per (b, h, chunk): the gates' vectors and scalars, carry, the n
+    # entering the chunk, S and den; for bf16 S as a bf16 pair and the C
+    # entering the chunk as one
+    gvec = torch.empty((bs, h, nc, 4, qc), **f32)
+    gscal = torch.empty((bs, h, nc, 2), **f32)
+    carry = torch.empty((bs, h, nc), **f32)
+    nin = torch.empty((bs, h, nc, hd), **f32)
+    den = torch.empty((bs, h, nc, qc), **f32)
+    cin = None
+    if q.dtype == torch.bfloat16:
+        sq, dp = -(-qc // 16) * 16, -(-hd // 8) * 8
+        st = torch.empty((bs, h, nc, 2, sq, sq), dtype=q.dtype, device=dev)
+        cin = torch.empty((bs, h, nc, 2, hd, dp), dtype=q.dtype, device=dev)
+    else:
+        st = torch.empty((bs, h, nc, qc, qc), **f32)
+    c0, n0, m0 = (t.data_ptr() for t in state) if state is not None \
+        else (None, None, None)
+    err = handle.ml_mlstm(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
+        logf.data_ptr(), c0, n0, m0, out.data_ptr(), c.data_ptr(),
+        n.data_ptr(), m.data_ptr(), gvec.data_ptr(), gscal.data_ptr(),
+        carry.data_ptr(), nin.data_ptr(), st.data_ptr(),
+        None if cin is None else cin.data_ptr(), den.data_ptr(), bs, length,
+        h, hd, qc, _DTYPES[q.dtype], stream)
+    return err, out, (c, n, m)
+
+
 def _launch(q, k, v, logi, logf, state, chunk: int):
     """The kernel on contiguous CUDA tensors in the model layout."""
     global launches
@@ -89,34 +129,15 @@ def _launch(q, k, v, logi, logf, state, chunk: int):
                          f"chunk {qc}; need head dim <= {MAX_HEAD_DIM} and "
                          f"a multiple of 4, 0 < chunk <= {MAX_CHUNK}")
     dev = q.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    nc = -(-length // qc)
-    out = torch.empty_like(q)
-    c = torch.empty((bs, h, hd, hd), **f32)
-    n = torch.empty((bs, h, hd), **f32)
-    m = torch.empty((bs, h), **f32)
-    # per (b, h, chunk): the gates' vectors, carry, the n entering the
-    # chunk, S (transposed) and den
-    gvec = torch.empty((bs, h, nc, 4, qc), **f32)
-    carry = torch.empty((bs, h, nc), **f32)
-    nin = torch.empty((bs, h, nc, hd), **f32)
-    st = torch.empty((bs, h, nc, qc, qc), **f32)
-    den = torch.empty((bs, h, nc, qc), **f32)
-    c0, n0, m0 = (t.data_ptr() for t in state) if state is not None \
-        else (None, None, None)
     handle = lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = handle.ml_mlstm(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
-            logf.data_ptr(), c0, n0, m0, out.data_ptr(), c.data_ptr(),
-            n.data_ptr(), m.data_ptr(), gvec.data_ptr(), carry.data_ptr(),
-            nin.data_ptr(), st.data_ptr(), den.data_ptr(), bs, length, h,
-            hd, qc, _DTYPES[q.dtype], stream)
+        err, out, state = call(handle, q, k, v, logi, logf, state, qc,
+                               stream)
     if err != 0:
         raise RuntimeError(f"mlstm: CUDA error {err} at launch")
     launches += 1
-    return out, (c, n, m)
+    return out, state
 
 
 def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -5,14 +5,15 @@
 //
 // Each block runs as one std::thread per CUDA thread; __syncthreads is a
 // block-wide std::barrier and the warp collectives (__shfl_xor_sync,
-// ldmatrix, mma.sync) exchange through a per-warp scratch area between two
-// warp-wide barriers.  Blocks run one after another.  Shared memory starts
-// as 0xFF bytes (NaN in bf16 and f32), so a read of a byte never written
-// shows.  cp.async copies land only when cp.async.wait_group retires their
-// group, the latest a GPU may land them, so a read before its wait sees
-// stale data.  mma.sync multiplies bf16 operands exactly in f32 and sums
-// in another order than the tensor cores.  Fragment layouts follow the PTX
-// ISA ("Matrix fragments for mma.m16n8k16", "ldmatrix").
+// __shfl_up_sync, ldmatrix, mma.sync) exchange through a per-warp scratch
+// area between two warp-wide barriers.  Blocks run one after another.
+// Shared memory starts as 0xFF bytes (NaN in bf16 and f32), so a read of
+// a byte never written shows.  cp.async copies land only when
+// cp.async.wait_group retires their group, the latest a GPU may land them,
+// so a read before its wait sees stale data.  mma.sync multiplies bf16
+// operands exactly in f32 and sums in another order than the tensor cores.
+// Fragment layouts follow the PTX ISA ("Matrix fragments for
+// mma.m16n8k16", "ldmatrix").
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -32,6 +33,10 @@
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __align__(x)
+// A static __shared__ array is one object for all the threads of the
+// block (blocks run one after another); unlike the dynamic smem() it is
+// not filled with NaN bytes.
+#define __shared__ static
 
 using std::max;
 using std::min;
@@ -41,6 +46,12 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct float4 { float x, y, z, w; };
+struct float2 { float x, y; };
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -66,6 +77,9 @@ inline float __bfloat162float(__nv_bfloat16 b) {
 }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {__float2bfloat16(a), __float2bfloat16(b)};
+}
+inline float2 __bfloat1622float2(__nv_bfloat162 v) {
+  return {__bfloat162float(v.x), __bfloat162float(v.y)};
 }
 
 namespace emu {
@@ -127,6 +141,16 @@ inline float shfl_xor(float v, int off) {
   w.bar.arrive_and_wait();
   return r;
 }
+// Lane l gets lane l - off's value, or its own where l < off.
+inline float shfl_up(float v, int off) {
+  Warp& w = my_warp();
+  const int l = tIdx.x % 32;
+  w.f[l] = v;
+  w.bar.arrive_and_wait();
+  const float r = l >= off ? w.f[l - off] : v;
+  w.bar.arrive_and_wait();
+  return r;
+}
 }  // namespace emu
 
 #define threadIdx emu::tIdx
@@ -135,6 +159,7 @@ inline float shfl_xor(float v, int off) {
 #define blockDim emu::bDim
 #define __syncthreads() emu::syncthreads()
 #define __shfl_xor_sync(mask, v, off) emu::shfl_xor((v), (off))
+#define __shfl_up_sync(mask, v, off) emu::shfl_up((v), (off))
 
 // The tc:: primitives that mma_bf16.cuh writes in inline PTX (the
 // translation drops those definitions).

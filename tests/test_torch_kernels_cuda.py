@@ -541,44 +541,179 @@ def test_cuda_moe_gmm_model_layout_and_refusals(cuda_device):
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
 
 
-def _scan_inputs(b, length, h, p, n, dtype, device, seed):
+# mamba_scan's gates: "jax" draws dt = softplus(N(0, 1)), about 0.8, with
+# a = -exp(N(0, 0.3)), about -1 (the JAX kernel test's kind), under which
+# exp(sum dt a) over a 64-token chunk is e^-45 or less: nothing of the
+# state outlives a chunk.  "slow" draws dt = softplus(N(-4.6, 0.1)),
+# about 0.01 (trained Mamba2's regime: its dt init range is [1e-3, 0.1]),
+# so a chunk decays by about e^-0.64 and the state carries over several
+# chunks.  (mean, std) of dt's pre-activation.
+SCAN_GATES = {"jax": (0.0, 1.0), "slow": (-4.6, 0.1)}
+SCAN_SLOW = [(1, 1024, 80, 64, 64, 64), (1, 256, 80, 64, 64, 64),
+             (4, 512, 80, 64, 64, 64)]
+SCAN_CASES = [c + ("jax",) for c in [
+    (1, 1024, 80, 64, 64, 64), (1, 64, 80, 64, 64, 64),
+    (1, 256, 80, 64, 64, 64), (1, 40, 80, 64, 64, 64),
+    (4, 512, 80, 64, 64, 64), (2, 128, 3, 32, 16, 32),
+    (1, 256, 2, 64, 64, 64), (2, 64, 2, 16, 8, 16), (1, 64, 2, 24, 16, 32)]
+    ] + [c + ("slow",) for c in SCAN_SLOW]
+
+
+def _scan_inputs(b, length, h, p, n, dtype, device, seed, gates="jax",
+                 common=False):
+    """With ``common`` b has a large part common to all its N entries (32
+    + N(0, 0.5)) and c none (each row's mean taken out), so the state S,
+    made of b, is large while C S^T cancels its common part: a rounding of
+    S as an operand of C S^T shows in y."""
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = getattr(torch, dtype)
     x = (torch.randn((b, length, h, p), generator=gen, device=device)
          * 0.5).to(dt)
+    mean, std = SCAN_GATES[gates]
     dtt = torch.nn.functional.softplus(
-        torch.randn((b, length, h), generator=gen, device=device))
+        torch.randn((b, length, h), generator=gen, device=device) * std
+        + mean)
     a = -torch.exp(torch.randn((h,), generator=gen, device=device) * 0.3)
-    bb, cc = ((torch.randn((b, length, n), generator=gen, device=device)
-               * 0.5).to(dt) for _ in range(2))
-    return x, dtt, a, bb, cc
+    bb, cc = (torch.randn((b, length, n), generator=gen, device=device)
+              * 0.5 for _ in range(2))
+    if common:
+        bb, cc = bb + 32.0, cc - cc.mean(-1, keepdim=True)
+    return x, dtt, a, bb.to(dt), cc.to(dt)
+
+
+def _scan_carry_share(SR, x, dtt, a, bb, cc, chunk, s):
+    """max |S - S'| / max |S|, where S' is the plain version's final state
+    from the last chunk alone (zero state): how much the earlier chunks
+    carry into the final state."""
+    lo = x.shape[1] - min(chunk, x.shape[1])
+    if lo == 0:
+        return 0.0
+    _, s1 = SR.ssd_chunked(*(t[:, lo:] for t in (x, dtt)), a,
+                           *(t[:, lo:] for t in (bb, cc)), chunk)
+    return ((s - s1).abs().max() / s.abs().max()).item()
+
+
+def _scan_errors(SO, SR, case, dtype, device, common=False):
+    """One case through the kernel and the plain version: the checks'
+    readings (max errors, whether y and the state pass SCAN_TOL, the
+    carry share)."""
+    b, length, h, p, n, chunk, gates = case
+    ins = _scan_inputs(b, length, h, p, n, dtype, device, length + h, gates,
+                       common)
+    before = SO.launches
+    y, s = SO.ssd(*ins, chunk=chunk)
+    assert SO.launches == before + 1
+    yr, sr = SR.ssd_chunked(*ins, chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == ins[0].dtype and s.dtype == torch.float32
+    assert s.shape == (b, h, p, n)
+    tol = SCAN_TOL[dtype]
+    return {"y_max_abs_err": (y.float() - yr.float()).abs().max().item(),
+            "state_max_abs_err": (s - sr).abs().max().item(),
+            "y_ok": torch.allclose(y.float(), yr.float(), atol=tol["y"][0],
+                                   rtol=tol["y"][1]),
+            "state_ok": torch.allclose(s, sr, atol=tol["state"][0],
+                                       rtol=tol["state"][1]),
+            "carry_share": _scan_carry_share(SR, *ins, chunk, sr)}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,length,h,p,n,chunk", [
-    (1, 1024, 80, 64, 64, 64), (1, 64, 80, 64, 64, 64),
-    (1, 256, 80, 64, 64, 64), (1, 40, 80, 64, 64, 64),
-    (4, 512, 80, 64, 64, 64), (2, 128, 3, 32, 16, 32),
-    (1, 256, 2, 64, 64, 64), (2, 64, 2, 16, 8, 16), (1, 64, 2, 24, 16, 32)])
+@pytest.mark.parametrize("b,length,h,p,n,chunk,gates", SCAN_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_mamba_scan_matches_plain(cuda_device, b, length, h, p, n,
-                                       chunk, dtype):
+                                       chunk, gates, dtype):
     from repro_torch.kernels.mamba_scan import ops as SO
     from repro_torch.kernels.mamba_scan import ref as SR
-    x, dtt, a, bb, cc = _scan_inputs(b, length, h, p, n, dtype, cuda_device,
-                                     length + h)
-    before = SO.launches
-    y, s = SO.ssd(x, dtt, a, bb, cc, chunk=chunk)
-    assert SO.launches == before + 1
-    yr, sr = SR.ssd_chunked(x, dtt, a, bb, cc, chunk)
-    torch.cuda.synchronize()
-    assert y.dtype == x.dtype and s.dtype == torch.float32
-    assert s.shape == (b, h, p, n)
-    tol = SCAN_TOL[dtype]
-    torch.testing.assert_close(y.float(), yr.float(), atol=tol["y"][0],
-                               rtol=tol["y"][1])
-    torch.testing.assert_close(s, sr, atol=tol["state"][0],
-                               rtol=tol["state"][1])
+    row = _scan_errors(SO, SR, (b, length, h, p, n, chunk, gates), dtype,
+                       cuda_device)
+    assert row["y_ok"] and row["state_ok"], row
+    if gates == "slow":       # the data makes the carry between chunks count
+        assert row["carry_share"] > 0.1, row
+
+
+# Faults planted in a copy of csrc/mamba_scan.cu (built into a temporary
+# directory, never into the repository): the factor that carries the
+# state from one chunk into the next (state_carry, read by both routes),
+# set to 0 or 1.  The checks above must fail on every case with slow
+# gates, in both dtypes.
+SCAN_FAULTS = {"carry_0": ("return expf(total);", "return 0.f;"),
+               "carry_1": ("return expf(total);", "return 1.f;")}
+
+
+def _mutant_lib(ops, tmp_path, monkeypatch, name, old, new):
+    """A copy of ``ops``'s source with ``old`` (found once) replaced by
+    ``new``, built into ``tmp_path`` and bound in place of ``ops.lib``."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    source = ops._SOURCE.read_text()
+    assert source.count(old) == 1
+    mutant = tmp_path / ops._SOURCE.name
+    mutant.write_text(source.replace(old, new))
+    so = tmp_path / f"lib{name}.so"
+    _build.compile_to(name, mutant, so)
+    lib = _build.bind(ctypes.CDLL(str(so)), ops._SIG)
+    monkeypatch.setattr(ops, "lib", lambda: lib)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", sorted(SCAN_FAULTS))
+def test_cuda_mamba_scan_checks_catch_carry_faults(cuda_device, tmp_path,
+                                                   monkeypatch, fault):
+    import json
+
+    from repro_torch.kernels.mamba_scan import ops as SO
+    from repro_torch.kernels.mamba_scan import ref as SR
+    _mutant_lib(SO, tmp_path, monkeypatch, "mamba_scan_fault",
+                *SCAN_FAULTS[fault])
+    caught = {}
+    for dtype in ("float32", "bfloat16"):
+        for case in [c + ("slow",) for c in SCAN_SLOW]:
+            row = _scan_errors(SO, SR, case, dtype, cuda_device)
+            caught[case + (dtype,)] = not (row["y_ok"] and row["state_ok"])
+            row.update(fault=fault, B=case[0], L=case[1], dtype=dtype)
+            print(f"scan-fault {json.dumps(row)}", flush=True)
+    assert all(caught.values()), caught
+
+
+# bf16 cases whose state has a large common part (_scan_inputs' common):
+# a kernel that rounds the state S once as an operand of C S^T fails
+# them.  The "rounded once" fault keeps only the product of S's first
+# bf16 part (the kernel takes three).
+SCAN_COMMON = [(1, 1024, 80, 64, 64, 64, "slow"),
+               (1, 256, 80, 64, 64, 64, "slow")]
+SCAN_ROUND_FAULT = (
+    "for (int k = 0; k < NPART; ++k) {   // the state's parts",
+    "for (int k = 0; k < 1; ++k) {   // the state's parts")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCAN_COMMON)
+def test_cuda_mamba_scan_keeps_state_precision(cuda_device, case):
+    from repro_torch.kernels.mamba_scan import ops as SO
+    from repro_torch.kernels.mamba_scan import ref as SR
+    row = _scan_errors(SO, SR, case, "bfloat16", cuda_device, common=True)
+    assert row["y_ok"] and row["state_ok"], row
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_checks_catch_state_rounded_once(
+        cuda_device, tmp_path, monkeypatch):
+    """A copy of mamba_scan.cu whose C S^T keeps only S's first bf16 part
+    fails every common-part case."""
+    import json
+
+    from repro_torch.kernels.mamba_scan import ops as SO
+    from repro_torch.kernels.mamba_scan import ref as SR
+    _mutant_lib(SO, tmp_path, monkeypatch, "mamba_scan_round",
+                *SCAN_ROUND_FAULT)
+    caught = {}
+    for case in SCAN_COMMON:
+        row = _scan_errors(SO, SR, case, "bfloat16", cuda_device,
+                           common=True)
+        caught[case] = not (row["y_ok"] and row["state_ok"])
+        print(f"scan-round-fault {json.dumps(row)}", flush=True)
+    assert all(caught.values()), caught
 
 
 @pytest.mark.cuda
@@ -621,11 +756,18 @@ MLSTM_CASES = [c + (g,) for g in ("model", "slow") for c in MLSTM_BIG] + [
 
 
 def _mlstm_inputs(b, length, h, hd, dtype, device, seed, state=False,
-                  gates="jax"):
+                  gates="jax", common=False):
+    """With ``common`` (and a state) the initial C has a large part common
+    to all its entries (30 + N(0, 0.3)) and q none (each row's mean over
+    hd taken out), so Q C^T cancels C's common part: a rounding of C as an
+    operand of Q C^T shows in h."""
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn((b, length, h, hd), generator=gen,
-                           device=device).to(dt) for _ in range(3))
+                           device=device) for _ in range(3))
+    if common:
+        q = q - q.mean(-1, keepdim=True)
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
     li = torch.randn((b, length, h), generator=gen, device=device) - 1
     sign, mean, std = MLSTM_GATES[gates]
     x = torch.randn((b, length, h), generator=gen, device=device) * std + mean
@@ -633,7 +775,8 @@ def _mlstm_inputs(b, length, h, hd, dtype, device, seed, state=False,
         else torch.nn.functional.logsigmoid(x)
     st = None
     if state:
-        st = (torch.randn((b, h, hd, hd), generator=gen, device=device) * .3,
+        st = (torch.randn((b, h, hd, hd), generator=gen, device=device) * .3
+              + (30.0 if common else 0.0),
               torch.randn((b, h, hd), generator=gen, device=device) * .3,
               torch.randn((b, h), generator=gen, device=device))
     return (q, k, v, li, lf), st
@@ -684,18 +827,35 @@ def test_cuda_mlstm_matches_plain(cuda_device, b, length, h, hd, chunk,
         assert _mlstm_carry_share(MR, ins, st, chunk, cr, mr) > 0.1
 
 
+def _mlstm_errors(MO, MR, case, dtype, device, common=False):
+    """One case through the kernel and the plain version: each output's
+    max error and whether it passes _mlstm_tols."""
+    b, length, h, hd, chunk, state, gates = case
+    ins, st = _mlstm_inputs(b, length, h, hd, dtype, device, length + hd,
+                            state, gates, common)
+    out, (c, n, m) = MO.mlstm(*ins, st, chunk=chunk)
+    ref, (cr, nr, mr) = MR.mlstm_chunked(*ins, st, chunk)
+    tols = _mlstm_tols(dtype, ref, cr, nr)
+    row = {"B": b, "L": length, "hd": hd, "state": state, "gates": gates,
+           "dtype": dtype}
+    for name, got, want in (("h", out.float(), ref.float()), ("c", c, cr),
+                            ("n", n, nr), ("m", m, mr)):
+        atol, rtol = tols[name]
+        row[f"{name}_max_abs_err"] = (got - want).abs().max().item()
+        row[f"{name}_ok"] = torch.allclose(got, want, atol=atol, rtol=rtol)
+    return row
+
+
 # Faults planted in a copy of csrc/mlstm.cu (built into a temporary
 # directory, never into the repository): the factor that carries C from
-# one chunk into the next in the state pass, set to 0 or 1, and the
-# carry of n in the gate pass dropped.  The checks above must fail on
-# every case with slow gates; the readings show the cases with the
-# model's gates too.
+# one chunk into the next (c_carry, read by both routes' state passes),
+# set to 0 or 1, and the carry of n in the gate pass dropped.  The checks
+# above must fail on every case with slow gates, in both dtypes; the
+# readings show the cases with the model's gates (f32) too.
 MLSTM_FAULTS = {
-    "c_carry_0": ("const float carry = gcarry[cb];",
-                  "const float carry = 0.f;"),
-    "c_carry_1": ("const float carry = gcarry[cb];",
-                  "const float carry = 1.f;"),
-    "n_carry_0": ("n_reg[r] = carry * n_reg[r] + acc;", "n_reg[r] = acc;"),
+    "c_carry_0": ("return gcarry[cb];", "return 0.f;"),
+    "c_carry_1": ("return gcarry[cb];", "return 1.f;"),
+    "n_carry_0": ("n_run = carry * n_run + s;", "n_run = s;"),
 }
 
 
@@ -703,41 +863,63 @@ MLSTM_FAULTS = {
 @pytest.mark.parametrize("fault", sorted(MLSTM_FAULTS))
 def test_cuda_mlstm_checks_catch_carry_faults(cuda_device, tmp_path,
                                               monkeypatch, fault):
-    import ctypes
     import json
 
-    from repro_torch.kernels import _build
     from repro_torch.kernels.mlstm import ops as MO
     from repro_torch.kernels.mlstm import ref as MR
-    old, new = MLSTM_FAULTS[fault]
-    source = MO._SOURCE.read_text()
-    assert source.count(old) == 1
-    mutant = tmp_path / "mlstm.cu"
-    mutant.write_text(source.replace(old, new))
-    so = tmp_path / "libmlstm_fault.so"
-    _build.compile_to("mlstm_fault", mutant, so)
-    lib = _build.bind(ctypes.CDLL(str(so)), MO._SIG)
-    monkeypatch.setattr(MO, "lib", lambda: lib)
+    _mutant_lib(MO, tmp_path, monkeypatch, "mlstm_fault",
+                *MLSTM_FAULTS[fault])
     caught = {}
-    for case in [c + (g,) for g in ("slow", "model") for c in MLSTM_BIG]:
-        b, length, h, hd, chunk, state, gates = case
-        ins, st = _mlstm_inputs(b, length, h, hd, "float32", cuda_device,
-                                length + hd, state, gates)
-        out, (c, n, m) = MO.mlstm(*ins, st, chunk=chunk)
-        ref, (cr, nr, mr) = MR.mlstm_chunked(*ins, st, chunk)
-        tols = _mlstm_tols("float32", ref, cr, nr)
-        row = {"fault": fault, "B": b, "L": length, "state": state,
-               "gates": gates}
-        for name, got, want in (("h", out, ref), ("c", c, cr), ("n", n, nr),
-                                ("m", m, mr)):
-            atol, rtol = tols[name]
-            row[f"{name}_max_abs_err"] = (got - want).abs().max().item()
-            row[f"{name}_ok"] = torch.allclose(got, want, atol=atol,
-                                               rtol=rtol)
-        caught[case] = not all(row[f"{x}_ok"] for x in "hcnm")
+    cases = [(c + ("slow",), d) for d in ("float32", "bfloat16")
+             for c in MLSTM_BIG] + [(c + ("model",), "float32")
+                                    for c in MLSTM_BIG]
+    for case, dtype in cases:
+        row = _mlstm_errors(MO, MR, case, dtype, cuda_device)
+        row["fault"] = fault
+        caught[case + (dtype,)] = not all(row[f"{x}_ok"] for x in "hcnm")
         print(f"mlstm-fault {json.dumps(row)}", flush=True)
-    assert all(hit for case, hit in caught.items() if case[-1] == "slow"), \
+    assert all(hit for case, hit in caught.items() if case[-2] == "slow"), \
         caught
+
+
+# bf16 cases whose initial C has a large common part (_mlstm_inputs'
+# common): a kernel that rounds C once as an operand of Q C^T fails them.
+# The "rounded once" fault drops the product of C's low bf16 part.
+MLSTM_COMMON = [(1, 300, 4, 1024, 128, True, "slow"),
+                (1, 130, 1, 64, 128, True, "slow")]
+MLSTM_ROUND_FAULT = (
+    "            tc::mma_bf16(acc[mt][2 * np], a[mt], bl4[0], bl4[1]);\n"
+    "            tc::mma_bf16(acc[mt][2 * np + 1], a[mt], bl4[2], bl4[3]);\n",
+    "")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MLSTM_COMMON)
+def test_cuda_mlstm_keeps_c_precision(cuda_device, case):
+    from repro_torch.kernels.mlstm import ops as MO
+    from repro_torch.kernels.mlstm import ref as MR
+    row = _mlstm_errors(MO, MR, case, "bfloat16", cuda_device, common=True)
+    assert all(row[f"{x}_ok"] for x in "hcnm"), row
+
+
+@pytest.mark.cuda
+def test_cuda_mlstm_checks_catch_c_rounded_once(cuda_device, tmp_path,
+                                                monkeypatch):
+    """A copy of mlstm.cu whose Q C^T drops C's low bf16 part fails every
+    common-part case."""
+    import json
+
+    from repro_torch.kernels.mlstm import ops as MO
+    from repro_torch.kernels.mlstm import ref as MR
+    _mutant_lib(MO, tmp_path, monkeypatch, "mlstm_round",
+                *MLSTM_ROUND_FAULT)
+    caught = {}
+    for case in MLSTM_COMMON:
+        row = _mlstm_errors(MO, MR, case, "bfloat16", cuda_device,
+                            common=True)
+        caught[case] = not all(row[f"{x}_ok"] for x in "hcnm")
+        print(f"mlstm-round-fault {json.dumps(row)}", flush=True)
+    assert all(caught.values()), caught
 
 
 @pytest.mark.cuda

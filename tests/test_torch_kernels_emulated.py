@@ -24,6 +24,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as FO
 from repro_torch.kernels.flash_attention import ref as FR
+from repro_torch.kernels.mamba_scan import ops as SO
+from repro_torch.kernels.mamba_scan import ref as SR
+from repro_torch.kernels.mlstm import ops as MO
+from repro_torch.kernels.mlstm import ref as MR
 from repro_torch.kernels.moe_gmm import ops as GO
 from repro_torch.kernels.moe_gmm import ref as GR
 
@@ -40,6 +44,16 @@ GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # rounded once to bf16 (the fault the card test plants too)
 GMM_FAULT = ("tc::mma_bf16(acc[mt][2 * np + j], alo[mt], b[2 * j], "
              "b[2 * j + 1]);", "")
+# mlstm's h pass without the product of C's low bf16 part, and
+# mamba_scan's y with only that of the state S's first part: each rounded
+# once (the faults the card tests plant too)
+MLSTM_ROUND_FAULT = (
+    "            tc::mma_bf16(acc[mt][2 * np], a[mt], bl4[0], bl4[1]);\n"
+    "            tc::mma_bf16(acc[mt][2 * np + 1], a[mt], bl4[2], bl4[3]);\n",
+    "")
+SCAN_ROUND_FAULT = (
+    "for (int k = 0; k < NPART; ++k) {   // the state's parts",
+    "for (int k = 0; k < 1; ++k) {   // the state's parts")
 
 
 def _drop_ptx(text: str) -> str:
@@ -111,6 +125,10 @@ def libs(tmp_path_factory):
                      out, "bwd", FO._BWD_SIG),
         "gmm": build(GO._SOURCE.read_text(), GO._SOURCE.parent, out, "gmm",
                      GO._SIG),
+        "mlstm": build(MO._SOURCE.read_text(), MO._SOURCE.parent, out,
+                       "mlstm", MO._SIG),
+        "scan": build(SO._SOURCE.read_text(), SO._SOURCE.parent, out,
+                      "scan", SO._SIG),
         "out": out}
 
 
@@ -300,3 +318,151 @@ def test_emulated_checks_catch_a_missing_rescale(libs):
         ref = FR.attention_ref(q, k, v, causal=True)
         assert not torch.allclose(out.float(), ref.float(), atol=2e-2,
                                   rtol=2e-2)
+
+
+# mlstm: the card tests' gate kinds (tests/test_torch_kernels_cuda.py,
+# MLSTM_GATES) and tolerances (_mlstm_tols).
+MLSTM_GATES = {"jax": (-1.0, 0.0, 1.0), "slow": (1.0, 4.6, 0.1)}
+
+
+def _mlstm_inputs(b, length, h, hd, dtype, seed, state, gates, common=False):
+    """As the card tests draw them; with ``common`` the initial C has a
+    large common part (30 + N(0, 0.3)) that Q C^T cancels (q's mean over
+    hd taken out), so a rounding of C as an operand shows in h."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((b, length, h, hd), generator=gen)
+               for _ in range(3))
+    if common:
+        q = q - q.mean(-1, keepdim=True)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    li = torch.randn((b, length, h), generator=gen) - 1
+    sign, mean, std = MLSTM_GATES[gates]
+    x = torch.randn((b, length, h), generator=gen) * std + mean
+    lf = -torch.nn.functional.softplus(x) if sign < 0 \
+        else torch.nn.functional.logsigmoid(x)
+    st = None
+    if state:
+        st = (torch.randn((b, h, hd, hd), generator=gen) * .3
+              + (30.0 if common else 0.0),
+              torch.randn((b, h, hd), generator=gen) * .3,
+              torch.randn((b, h), generator=gen))
+    return (q, k, v, li, lf), st
+
+
+def _mlstm_ok(lib, case, common=False):
+    """Whether each of h, C, n and m passes the card tests' tolerance."""
+    b, length, h, hd, chunk, state, gates, dtype = case
+    ins, st = _mlstm_inputs(b, length, h, hd, dtype, length + hd, state,
+                            gates, common)
+    err, out, (c, n, m) = MO.call(lib, *ins, st, min(chunk, length), None)
+    assert err == 0
+    ref, (cr, nr, mr) = MR.mlstm_chunked(*ins, st, chunk)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 8e-3}[dtype]
+    scale = lambda t: max(1.0, t.float().abs().max().item())
+    tols = {"h": (tol * scale(ref), tol), "c": (1e-4 * scale(cr), 1e-3),
+            "n": (1e-4 * scale(nr), 1e-3), "m": (1e-3, 0.0)}
+    return {name: torch.allclose(got, want, atol=tols[name][0],
+                                 rtol=tols[name][1])
+            for name, got, want in (("h", out.float(), ref.float()),
+                                    ("c", c, cr), ("n", n, nr),
+                                    ("m", m, mr))}
+
+
+MLSTM_CASES = [  # (B, L, H, hd, chunk, state, gates, dtype)
+    (1, 256, 2, 64, 64, False, "jax", torch.bfloat16),
+    (2, 100, 2, 48, 32, True, "slow", torch.bfloat16),    # ragged, state
+    (1, 37, 2, 8, 16, True, "slow", torch.bfloat16),
+    (1, 64, 1, 256, 32, True, "slow", torch.bfloat16),    # 2 x 2 C tiles
+    (2, 40, 1, 20, 16, True, "slow", torch.bfloat16),     # hd % 8 != 0
+    (2, 100, 2, 48, 32, True, "slow", torch.float32)]
+MLSTM_COMMON = (1, 130, 1, 64, 128, True, "slow", torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", MLSTM_CASES)
+def test_emulated_mlstm_matches_plain(libs, case):
+    ok = _mlstm_ok(libs["mlstm"], case)
+    assert all(ok.values()), ok
+
+
+def test_emulated_mlstm_keeps_c_precision(libs):
+    """bf16, an initial C with a large common part: Q C^T from C's hi +
+    lo bf16 pair passes."""
+    ok = _mlstm_ok(libs["mlstm"], MLSTM_COMMON, common=True)
+    assert all(ok.values()), ok
+
+
+def test_emulated_mlstm_checks_catch_c_rounded_once(libs):
+    """mlstm.cu without the product of C's low part fails the case."""
+    old, new = MLSTM_ROUND_FAULT
+    source = MO._SOURCE.read_text()
+    assert source.count(old) == 1
+    lib = build(source.replace(old, new), MO._SOURCE.parent, libs["out"],
+                "mlstm_fault", MO._SIG)
+    assert not all(_mlstm_ok(lib, MLSTM_COMMON, common=True).values())
+
+
+# mamba_scan: the card tests' gate kinds (SCAN_GATES) and tolerances
+# (SCAN_TOL).
+SCAN_GATES = {"jax": (0.0, 1.0), "slow": (-4.6, 0.1)}
+SCAN_TOL = {torch.float32: {"y": (5e-4, 1e-3), "state": (5e-5, 1e-3)},
+            torch.bfloat16: {"y": (2e-2, 2e-2), "state": (5e-5, 1e-3)}}
+
+
+def _scan_ok(lib, case, common=False):
+    """Whether y and the final state pass SCAN_TOL; with ``common`` b has
+    a large common part (32 + N(0, 0.5)) that C S^T cancels (c's mean
+    over N taken out), so a rounding of S as an operand shows in y."""
+    b, length, h, p, n, chunk, gates, dtype = case
+    gen = torch.Generator().manual_seed(length + h)
+    x = (torch.randn((b, length, h, p), generator=gen) * 0.5).to(dtype)
+    mean, std = SCAN_GATES[gates]
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, length, h), generator=gen) * std + mean)
+    a = -torch.exp(torch.randn((h,), generator=gen) * 0.3)
+    bb, cc = (torch.randn((b, length, n), generator=gen) * 0.5
+              for _ in range(2))
+    if common:
+        bb, cc = bb + 32.0, cc - cc.mean(-1, keepdim=True)
+    ins = (x, dt, a, bb.to(dtype), cc.to(dtype))
+    err, y, s = SO.call(lib, *ins, min(chunk, length), None)
+    assert err == 0
+    yr, sr = SR.ssd_chunked(*ins, chunk)
+    tol = SCAN_TOL[dtype]
+    return {"y": torch.allclose(y.float(), yr.float(), atol=tol["y"][0],
+                                rtol=tol["y"][1]),
+            "state": torch.allclose(s, sr, atol=tol["state"][0],
+                                    rtol=tol["state"][1])}
+
+
+SCAN_CASES = [  # (B, L, H, P, N, chunk, gates, dtype)
+    (1, 256, 2, 64, 64, 64, "slow", torch.bfloat16),
+    (2, 128, 3, 32, 16, 32, "jax", torch.bfloat16),
+    (1, 64, 2, 24, 16, 32, "slow", torch.bfloat16),
+    (1, 40, 2, 130, 8, 40, "slow", torch.bfloat16),     # 3 P slabs
+    (1, 96, 1, 20, 12, 32, "slow", torch.bfloat16),     # element loads
+    (1, 128, 2, 24, 16, 64, "slow", torch.float32)]
+SCAN_COMMON = (1, 256, 2, 64, 64, 64, "slow", torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_emulated_mamba_scan_matches_plain(libs, case):
+    ok = _scan_ok(libs["scan"], case)
+    assert all(ok.values()), ok
+
+
+def test_emulated_mamba_scan_keeps_state_precision(libs):
+    """bf16, a state with a large common part: C S^T from S's three bf16
+    parts passes."""
+    ok = _scan_ok(libs["scan"], SCAN_COMMON, common=True)
+    assert all(ok.values()), ok
+
+
+def test_emulated_mamba_scan_checks_catch_state_rounded_once(libs):
+    """mamba_scan.cu with only the product of S's first part fails the
+    case."""
+    old, new = SCAN_ROUND_FAULT
+    source = SO._SOURCE.read_text()
+    assert source.count(old) == 1
+    lib = build(source.replace(old, new), SO._SOURCE.parent, libs["out"],
+                "scan_fault", SO._SIG)
+    assert not all(_scan_ok(lib, SCAN_COMMON, common=True).values())
