@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -97,8 +98,10 @@ def pass_ms(torch, fn, iters=10):
     for e in prof.key_averages():
         t = getattr(e, "device_time_total", None) or getattr(
             e, "cuda_time_total", 0)
-        if t:
-            name = e.key.split("(")[0].split("::")[-1].split("<")[0]
+        if t:       # "void (anonymous namespace)::ml_x<T>(...)" -> "ml_x"
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = re.split(r"[(<]", name.removeprefix("void "))[0]
+            name = name.split("::")[-1]
             out[name] = out.get(name, 0.0) + t / iters / 1000
     return out
 
