@@ -244,10 +244,9 @@ def main(argv) -> int:
         return 2
     old = os.path.abspath(argv[0])
     new = os.path.abspath(argv[1] if len(argv) > 1 else HERE)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
-    print(f"card {card}", flush=True)
+    import chip_smoke as cs
+    print("card " + cs._sh(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"]), flush=True)
     best = {}
     for tag, tree in (("old", old), ("new", new), ("new", new),
                       ("old", old)):
