@@ -55,9 +55,24 @@ non-zero before printing any result):
    once uninterrupted (saving only the state before step 0) and once
    with checkpoints every 2 steps and a failure at step 3 (recovery to
    the step-2 checkpoint), losses equal within 1e-6;
-   then a delta-chain manager over 3 saves restored bit for bit, and a
+   then a delta-chain manager over 2 saves restored bit for bit, and a
    delta migration checked with ``verify_migration``.
-7. Serves the MoE, hybrid and xLSTM families at full width
+7. The shared Fabric (slice 9): ``Fabric.run_trace`` over 8 virtual
+   devices (2 a host) runs two train gangs of full-width llama3.2-1b
+   (4 chips with compressed sync over 2 pods, 2 chips hierarchical; 3
+   steps each) and two serve gangs (2 requests of 3 tokens each) through
+   a high-priority arrival that preempts a train gang (it resumes), a
+   hard host failure that rolls a train gang back to its last snapshot,
+   a lease reclaim that evacuates one (a live migration), and delta
+   checkpoints every 10 virtual seconds.  Prints ``fabric-*`` lines
+   (live and predicted makespans and orders, ``diff_traces``, the stall
+   of each preempt, checkpoint, failure and resume, each move's seconds
+   and bytes, placement decision latencies, peak device memory, the
+   device's idle share, the trace's kernel launches) and checks the live
+   completion order against ``predict_trace``, every resumed state's
+   fingerprint against its snapshot's, and the rolled-back gang's losses
+   against an uninterrupted run of it (atol 1e-6).
+8. Serves the MoE, hybrid and xLSTM families at full width
    (granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b cut to 8 of its 32
    layers, zamba2-2.7b, xlstm-1.3b; the others at full depth; bf16,
    random weights from a seed): first use of every serve shape, 8
@@ -66,7 +81,7 @@ non-zero before printing any result):
    ``serve-ssm``: every kernel count against the path's formula), the
    prefill check against an f32 witness (for the MoE configs each MoE
    layer also held alone), and a profile of each.
-8. Prints the ``kernels`` JSON line and, last, the device JSON line.
+9. Prints the ``kernels`` JSON line and, last, the device JSON line.
 
 Besides the forward kernel, phase 2 builds the flash-attention backward
 kernel and the collective_codec, diff_merge, moe_gmm, mamba_scan and
@@ -1460,22 +1475,23 @@ def ckpt_check(torch, cfg, state_bytes):
     assert res["recoveries"] == 1, res
     assert len(failed["losses"]) == steps and diff <= 1e-6, res
 
-    # a (base, delta*) chain over 3 saves: rows of the embedding and the
-    # step move between saves, as a sparse update would
+    # a (base, delta) chain of 2 saves (short, for the script's time
+    # limit): rows of the embedding and the step move between saves, as a
+    # sparse update would
     mgr = CheckpointManager(os.path.join(CKPT_ROOT, "chain"), job_id="chain",
                             delta_chain=True)
     emb = state["params"]["embed"]
     t0 = time.perf_counter()
-    for s in range(3):
+    for s in range(2):
         if s:
             emb[1000 * s:1000 * s + 16].add_(1.0)
             state["opt"]["step"] += 1
-        mgr.save(s, state, blocking=s == 2)
+        mgr.save(s, state, blocking=s == 1)
     save_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    restored, step = mgr.restore(2, device="cuda")
+    restored, step = mgr.restore(1, device="cuda")
     restore_s = time.perf_counter() - t0
-    exact = step == 2 and all(
+    exact = step == 1 and all(
         a == b if isinstance(a, int) else bool(torch.equal(a, b))
         for a, b in zip(tree_leaves(restored), tree_leaves(state)))
     del restored
@@ -1501,10 +1517,225 @@ def ckpt_check(torch, cfg, state_bytes):
     del state, moved
     torch.cuda.empty_cache()
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
-    assert chain["kinds"] == ["full", "delta", "delta"] and exact, res2
+    assert chain["kinds"] == ["full", "delta"] and exact, res2
     assert max(chain["bytes"][1:]) * 100 < chain["full_bytes"], res2
     assert verified and mst["moved_bytes"] * 100 < mst["full_bytes"], res2
     return res, res2
+
+
+# ---------------------------------------------------------------------------
+# Slice 9: the shared Fabric running train and serve gangs
+# ---------------------------------------------------------------------------
+# The trace (virtual seconds): 8 virtual devices, 2 a host (hosts 0-3),
+# checkpoints every 10.  At t=0 train-c (4 chips, compressed sync over 2
+# pods), train-h (2 chips, hierarchical) and serve-0 start; serve-hi
+# (priority 5) arrives at t=2 and preempts train-c, which resumes at t=7
+# when it finishes; host 0 hard-fails at t=4 and rolls train-h back to
+# its last snapshot (the start baseline), and it resumes on host 3 at
+# t=10; train-c takes a delta checkpoint at t=17; a lease reclaim of host
+# 3 at t=18 evacuates train-h (a live migration) onto the chips train-c
+# freed, and it takes a delta checkpoint at t=20.  Each train gang takes
+# 3 steps of world x 512 tokens; each serve gang serves 2 requests
+# (prompts 128 and 127) of 3 tokens.
+FABRIC = {"pool": 8, "chips_per_host": 2, "ckpt_interval": 10.0,
+          "seq_len": 512, "train_steps": 3, "serve_tokens": 3,
+          "prompt_len": 128, "frac": 0.05, "lr": 1e-3,
+          "jobs": [("train-c", "mpi-compute", 4, 40.0, 0.0, 0, "train"),
+                   ("train-h", "mpi-compute", 2, 30.0, 0.0, 0, "train"),
+                   ("serve-0", "omp", 2, 16.0, 0.0, 1, "serve"),
+                   ("serve-hi", "omp", 2, 8.0, 2.0, 5, "serve")],
+          "fail": (4.0, [0]), "reclaim": (18.0, [3], 3.0)}
+
+
+def _fabric_workload(torch, cfg, job):
+    """The trace's workload of ``job``: train-c compresses across 2 pods,
+    train-h syncs hierarchically; serve gangs seed their weights with
+    their priority + 1 (the JAX factory's seeds)."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.gang_workloads import (ServeWorkload,
+                                                    TrainWorkload)
+    if job.workload == "serve":
+        return ServeWorkload(cfg, prompt_len=FABRIC["prompt_len"],
+                             new_tokens=FABRIC["serve_tokens"], batch=2,
+                             max_len=FABRIC["prompt_len"]
+                             + FABRIC["serve_tokens"] + 1,
+                             seed=job.priority + 1)
+    steps = FABRIC["train_steps"]
+    compressed = job.job_id == "train-c"
+    return TrainWorkload(
+        cfg, AdamWConfig(lr=FABRIC["lr"], warmup_steps=1,
+                         total_steps=steps),
+        DataConfig(vocab=cfg.vocab, seq_len=FABRIC["seq_len"],
+                   global_batch=job.parallelism),
+        total_steps=steps,
+        sync_mode="compressed" if compressed else "hierarchical",
+        compress_frac=FABRIC["frac"], pods=2 if compressed else 1)
+
+
+def _span_rows(spans, prefix):
+    return [{"name": sp["name"], "job": sp["attrs"].get("job"),
+             "s": sp["t1"] - sp["t0"],
+             **{k: sp["attrs"][k] for k in ("kind", "bytes", "step")
+                if k in sp["attrs"]}}
+            for sp in spans if sp["name"].startswith(prefix)]
+
+
+def fabric_phase(torch, cfg, mods):
+    """The port's shared Fabric (slice 9) at the full width and depth of
+    llama3.2-1b: ``Fabric.run_trace`` over FABRIC's trace, against
+    ``predict_trace`` of the same trace.  Kernel counts are set to 0
+    just before the trace and read just after; the trace runs under
+    telemetry (gang, checkpoint and placement spans) and the profiler
+    (device busy time).  Asserts: the live completion order is the
+    predicted one; every resume restored its snapshot's fingerprint; the
+    rolled-back gang's losses are within 1e-6 of an uninterrupted run of
+    the same gang.  Returns the trace's kernel launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from repro_torch.core import telemetry
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.core.fleet import FleetEvent
+    from repro_torch.core.simulator import Job
+
+    jobs = [Job(i, k, n, w, arrival=a, priority=p, workload=wk)
+            for i, k, n, w, a, p, wk in FABRIC["jobs"]]
+    by_id = {j.job_id: j for j in jobs}
+    (t_fail, dead), (t_rec, drained, drain_s) = FABRIC["fail"], \
+        FABRIC["reclaim"]
+    events = [FleetEvent(t_fail, "fail", hosts=dead),
+              FleetEvent(t_rec, "reclaim", hosts=drained, drain_s=drain_s)]
+
+    # the uninterrupted reference of the gang the failure rolls back
+    ref_fab = Fabric(n_virtual=2, chips_per_host=2, device="cuda")
+    ref_h = ref_fab.allocate("train-h", 2)
+    ref = _fabric_workload(torch, cfg, by_id["train-h"])
+    ref.bind(ref_h)
+    ref.init_state(ref_h)
+    for _ in range(FABRIC["train_steps"]):
+        ref.run_step(ref_h)
+    ref_losses = list(ref.losses)
+    ref_h.release()
+    del ref, ref_h, ref_fab
+    torch.cuda.empty_cache()
+
+    fab = Fabric(n_virtual=FABRIC["pool"],
+                 chips_per_host=FABRIC["chips_per_host"], device="cuda")
+    kw = dict(preempt=True, fleet_events=events,
+              checkpoint_interval=FABRIC["ckpt_interval"])
+    pred = fab.predict_trace(jobs, **kw)
+    made, handles = {}, {}
+
+    def factory(job):
+        wl = made[job.job_id] = _fabric_workload(torch, cfg, job)
+        bind = wl.bind
+
+        def tracked(handle):
+            handles[job.job_id] = handle
+            bind(handle)
+        wl.bind = tracked
+        return wl
+
+    for mod, attr in mods.values():
+        setattr(mod, attr, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tel = telemetry.enable()
+    try:
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            ex = fab.run_trace(jobs, factory, **kw)
+            torch.cuda.synchronize()
+    finally:
+        telemetry.disable()
+    launches = {name: getattr(mod, attr)
+                for name, (mod, attr) in mods.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    busy_us, by_kind = 0.0, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy_us += us
+            kind = next((kind for kind, keys in KERNEL_KINDS
+                         if any(key in e.name for key in keys)), "other")
+            by_kind[kind] = by_kind.get(kind, 0.0) + us * 1e-6
+    res = ex.result
+    print("fabric-devices " + json.dumps(
+        {"pool": len(fab.devices), "kind": fab.devices[0].device_kind,
+         "cuda_device_count": torch.cuda.device_count(),
+         "hosts": fab.engine.hosts}), flush=True)
+    live_ms = res.makespans(jobs)
+    pred_ms = pred.makespans(jobs)
+    print("fabric-makespans " + json.dumps(
+        {"jobs": {j.job_id: {"live_s": live_ms.get(j.job_id),
+                             "predicted_s": pred_ms.get(j.job_id)}
+                  for j in jobs},
+         "live_order": res.finish_order,
+         "predicted_order": pred.finish_order,
+         "preemptions": res.preemptions, "recoveries": res.recoveries,
+         "evacuations": res.evacuations, "wall_s": ex.wall_s}),
+        flush=True)
+    diff = telemetry.diff_traces(pred, res)
+    print("fabric-diff " + json.dumps(
+        {k: diff[k] for k in ("n_predicted", "n_live", "aligned",
+                              "divergences", "first_divergence")}),
+        flush=True)
+    stalls = _span_rows(tel.spans, "gang.")
+    stalls = [r for r in stalls if r["name"] in (
+        "gang.preempt", "gang.checkpoint", "gang.resume", "gang.fail")]
+    print("fabric-stalls " + json.dumps(
+        {"spans": stalls, "saves": _span_rows(tel.spans, "ckpt.save")}),
+        flush=True)
+    moves = {j: r.get("moves", []) for j, r in ex.live.items()
+             if r.get("moves")}
+    print("fabric-moves " + json.dumps(moves), flush=True)
+    lat = {}
+    for sp in tel.spans:
+        if sp["name"].startswith("placement."):
+            lat.setdefault(sp["name"], []).append(sp["t1"] - sp["t0"])
+    print("fabric-placement " + json.dumps(
+        {k: {"count": len(v), "p50_s": sorted(v)[len(v) // 2],
+             "max_s": max(v)} for k, v in sorted(lat.items())}),
+        flush=True)
+    print("fabric-device " + json.dumps(
+        {"peak_gb": peak_gb, "device_busy_s": busy_us * 1e-6,
+         "by_kind_s": by_kind, "wall_s": ex.wall_s,
+         "idle_share": 1.0 - busy_us * 1e-6 / ex.wall_s}), flush=True)
+    print("fabric-launches " + json.dumps(launches), flush=True)
+
+    # the rolled-back gang against its uninterrupted reference
+    victim = next(a.payload["job"] for a in res.actions
+                  if a.kind == "recover")
+    replay = [(s, loss, abs(loss - ref_losses[s]))
+              for s, loss in made[victim].loss_log]
+    # each resume's restored state against the snapshot it resumed
+    verified = {}
+    for jid, h in handles.items():
+        snap_fp, pairs = None, []
+        for e in h.epoch_log:
+            if e["kind"] in ("preempt", "fail"):
+                snap_fp = e["fingerprint"]
+            elif e["kind"] == "resume":
+                pairs.append((snap_fp, e["restored_fingerprint"]))
+        verified[jid] = pairs
+    out = {"victim": victim, "reference_losses": ref_losses,
+           "replayed": replay, "atol": 1e-6,
+           "resumes": {j: len(v) for j, v in verified.items()}}
+    print("fabric-check " + json.dumps(out), flush=True)
+    del made, handles, ex, fab
+    torch.cuda.empty_cache()
+    assert res.finish_order == pred.finish_order, (res.finish_order,
+                                                   pred.finish_order)
+    assert res.preemptions >= 1 and res.recoveries >= 1 \
+        and res.evacuations >= 1, out
+    assert all(a == b for v in verified.values() for a, b in v), verified
+    assert sum(len(v) for v in verified.values()) >= 2, verified
+    assert sum(1 for s, _, _ in replay if s == 0) >= 2, replay
+    assert all(d <= 1e-6 for _, _, d in replay), replay
+    for name in ("flash_attention", "flash_attention_bwd",
+                 "collective_codec", "diff_merge"):
+        assert launches[name] > 0, launches
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2141,20 +2372,26 @@ def main() -> int:
     assert plane["diff_merge"] > 0, plane
     phase_time("ckpt")
 
-    # 7. serve the MoE, hybrid (slice 4) and xLSTM (slice 5) families
+    # 7. the shared Fabric: train and serve gangs through run_trace
+    torch.cuda.empty_cache()
+    fabric = fabric_phase(torch, cfg, mods)
+    phase_time("fabric")
+
+    # 8. serve the MoE, hybrid (slice 4) and xLSTM (slice 5) families
     torch.cuda.empty_cache()
     fam = families(torch, mods, phase_time)
     assert fam["moe_gmm"] > 0 and fam["mamba_scan"] > 0 \
         and fam["mlstm"] > 0, fam
 
-    # 8. results
+    # 9. results
     src = "src/repro_torch/kernels/"
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": src + "flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
         "launches": serve_launches + train_launches["flash_attention"]
-        + plane["flash_attention"] + fam["flash_attention"],
+        + plane["flash_attention"] + fabric["flash_attention"]
+        + fam["flash_attention"],
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2163,7 +2400,7 @@ def main() -> int:
         "source": src + "flash_attention/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
         "launches": train_launches["flash_attention_bwd"]
-        + plane["flash_attention_bwd"],
+        + plane["flash_attention_bwd"] + fabric["flash_attention_bwd"],
         "max_abs_err": bwd_row["max_abs_err"],
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
@@ -2172,7 +2409,7 @@ def main() -> int:
         "source": src + "collective_codec/csrc/collective_codec.cu",
         "replaces": "src/repro/kernels/collective_codec/kernel.py:36",
         "launches": train_launches["collective_codec"]
-        + plane["collective_codec"],
+        + plane["collective_codec"] + fabric["collective_codec"],
         "max_abs_err": codec_row["max_abs_err"],
         "ms": codec_row["ms"], "plain_ms": codec_row["plain_ms"],
         "bound_ms": codec_row["bound_ms"],
@@ -2181,7 +2418,7 @@ def main() -> int:
         "name": "diff_merge", "route": "cuda",
         "source": src + "diff_merge/csrc/diff_merge.cu",
         "replaces": "src/repro/kernels/diff_merge/kernel.py:64",
-        "launches": plane["diff_merge"],
+        "launches": plane["diff_merge"] + fabric["diff_merge"],
         "max_abs_err": 0.0 if ds_res["sum"]["bit_exact"] else None,
         "ms": ds_res["sum"]["kernel_ms"],
         "plain_ms": ds_res["sum"]["plain_ms"],

@@ -28,15 +28,23 @@ lazily never holds more than one rank's at a time.
 
 Trees flatten in ``jax.tree.flatten`` order (``weights.tree_leaves``), so
 the flat vector, its chunk boundaries and the codec's picks are the JAX
-package's.  The HLO accounting and the collective tuner of the JAX module
-come with the fabric (ROADMAP, slice (c)).
+package's.
+
+``CollectiveTuner`` is the JAX module's per-(topology, size bucket)
+schedule dispatch, line for line: seeded from the analytic model of
+``core.comms`` and refined by one-shot probes (``measure_schedule``).
+The port has no compiled HLO to count slow-link bytes in, so its probe
+takes them from the ``comms`` model (see ``measure_schedule``).
 """
 from __future__ import annotations
 
-from typing import Any, Iterable, List, Optional, Tuple
+import dataclasses
+import time as _time
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import comms, telemetry
 from repro_torch.kernels.collective_codec import ops as codec_ops
 from repro_torch.weights import tree_leaves, tree_map, tree_unflatten
 
@@ -229,3 +237,213 @@ def tree_sync(per_rank: Iterable[Any], mode: str, pods: int, data: int,
         new_resid = new_resid.view(pods, data * length)
     out.div_(n_ranks)
     return unflatten_tree(out, spec), new_resid
+
+
+# ---------------------------------------------------------------------------
+# Topology-tuned schedule dispatch (DESIGN.md §11)
+# ---------------------------------------------------------------------------
+def modeled_slowlink_bytes(topo: comms.Topology, nbytes: int, mode: str,
+                           link: Optional[comms.LinkProfile] = None,
+                           frac: float = 0.05) -> float:
+    """Per-rank bytes that one all-reduce of ``nbytes`` under ``mode``
+    moves across the host (pod) boundary of ``topo``, by the analytic
+    model: the part of ``comms.schedule_cost`` that the slow link's
+    bandwidth prices, times that bandwidth.  (The JAX probe counts them
+    in the compiled HLO; the port compiles no HLO.)"""
+    link = link or comms.LinkProfile()
+    free = dataclasses.replace(link, slow_bps=float("inf"))
+    slow_s = (comms.schedule_cost(topo, nbytes, mode, link, frac)
+              - comms.schedule_cost(topo, nbytes, mode, free, frac))
+    return slow_s * link.slow_bps
+
+
+def measure_schedule(mesh, mode: str, nbytes: int,
+                     compress_frac: float = 0.05, reps: int = 3,
+                     link: Optional[comms.LinkProfile] = None) -> dict:
+    """One-shot measured probe of one collective schedule on a gang mesh
+    (``core.devices.GangMesh``).
+
+    Times ``reps`` runs of the port's ``tree_sync`` under ``mode`` over
+    the mesh's ``pods × data`` virtual ranks, each holding its shard of an
+    ``nbytes`` f32 tree (as the JAX probe's tree is sharded over its
+    devices), on the mesh's device.  The ranks share one card, so no link
+    between them is slow: as the JAX probe does on its CPU fabric
+    (``emulate_slow``), the probe adds the modelled slow-link time, the
+    schedule's slow-link bytes (``modeled_slowlink_bytes``) over the
+    profile's slow-link bandwidth, so schedules are compared under the
+    topology they are tuned for.  Returns ``{"wall_s", "slowlink_bytes",
+    "effective_s"}`` per all-reduce."""
+    link = link or comms.LinkProfile()
+    n_dev = mesh.size
+    n = max(n_dev, int(nbytes) // 4)
+    n += (-n) % n_dev
+    per = n // n_dev
+    rows = torch.ones((n_dev, per), dtype=torch.float32, device=mesh.device)
+    resid = (init_residual_buffer({"g": rows[0]}, mesh.pods, mesh.data)
+             if mode == "compressed" else None)
+
+    def run():
+        out, _ = tree_sync(({"g": rows[r]} for r in range(n_dev)), mode,
+                           mesh.pods, mesh.data, compress_frac, resid)
+        return out
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    run()                       # warm-up: first launches, allocations
+    sync()
+    t0 = _time.perf_counter()
+    for _ in range(reps):
+        run()
+    sync()
+    wall = (_time.perf_counter() - t0) / max(1, reps)
+    topo = comms.Topology(mesh.pods, n_dev, mesh.data)
+    slow_b = int(modeled_slowlink_bytes(topo, 4 * per, mode, link,
+                                        compress_frac))
+    return {"wall_s": wall, "slowlink_bytes": slow_b,
+            "effective_s": wall + slow_b / link.slow_bps}
+
+
+class CollectiveTuner:
+    """Per-(topology, message-size-bucket) collective schedule dispatch.
+
+    The table maps ``(Topology.key, size_bucket)`` to the schedule the
+    comms layer should run — flat / ring / hierarchical / compressed —
+    seeded from the analytical cost model in ``core.comms`` (slow-link
+    bytes x per-link bandwidth + per-step latency) and refined by
+    one-shot measured probes (``probe``/``record_probe``), which
+    overwrite the analytical estimate for the probed (topology, bucket,
+    mode) and re-derive the dispatch entry.
+
+    ``Fabric`` owns one; ``GangHandle`` re-derives a gang's entries
+    after every placement change (attach / migrate / evacuate /
+    rescale) via ``on_placement_change`` and drops them on release.
+    """
+
+    def __init__(self, link: Optional[comms.LinkProfile] = None,
+                 compress_frac: float = 0.05,
+                 modes: Sequence[str] = comms.MODES):
+        self.link = link or comms.LinkProfile()
+        self.compress_frac = float(compress_frac)
+        self.modes = tuple(modes)
+        # (topo.key, bucket) -> (mode, predicted seconds)
+        self.table: Dict[Tuple[Tuple[int, int, int], int],
+                         Tuple[str, float]] = {}
+        # (topo.key, bucket) -> {mode: measured seconds} probe overrides
+        self.measured: Dict[Tuple[Tuple[int, int, int], int],
+                            Dict[str, float]] = {}
+        self.gangs: Dict[str, comms.Topology] = {}
+        self.rederivations = 0
+
+    # ---- derivation --------------------------------------------------------
+    def _derive(self, topo: comms.Topology, bucket: int,
+                modes: Optional[Sequence[str]] = None
+                ) -> Tuple[str, float]:
+        entry = comms.best_schedule(
+            topo, comms.bucket_nbytes(bucket), self.link,
+            self.compress_frac, modes or self.modes,
+            measured=self.measured.get((topo.key, bucket)))
+        if modes is None:
+            self.table[(topo.key, bucket)] = entry
+        return entry
+
+    def on_placement_change(self, job_id: str,
+                            placement: Sequence[Tuple[int, int]]
+                            ) -> comms.Topology:
+        """Re-derive the dispatch entries for a gang whose placement
+        just changed (attach / migrate / evacuate / rescale)."""
+        tel = telemetry.get()
+        t0 = _time.perf_counter() if tel.enabled else 0.0
+        topo = comms.Topology.from_placement(placement)
+        self.gangs[job_id] = topo
+        self.rederivations += 1
+        for b in range(comms.MIN_BUCKET, comms.MAX_BUCKET + 1):
+            self._derive(topo, b)
+        if tel.enabled:
+            tel.count("collective.rederivations")
+            tel.span_at("collective.rederive", t0, _time.perf_counter(),
+                        track="collectives", clock="wall", job=job_id,
+                        hosts=topo.hosts, chips=topo.chips)
+        return topo
+
+    def forget(self, job_id: str) -> None:
+        self.gangs.pop(job_id, None)
+
+    # ---- dispatch ----------------------------------------------------------
+    def _topo(self, gang_or_placement) -> comms.Topology:
+        if isinstance(gang_or_placement, comms.Topology):
+            return gang_or_placement
+        if isinstance(gang_or_placement, str):
+            topo = self.gangs.get(gang_or_placement)
+            return topo if topo is not None else comms.Topology(1, 1, 1)
+        return comms.Topology.from_placement(gang_or_placement)
+
+    def mode_for(self, gang_or_placement, nbytes: Optional[int] = None,
+                 allowed: Optional[Sequence[str]] = None) -> str:
+        """The schedule to run for one collective: dispatch-table
+        lookup by (gang topology, size bucket), deriving on miss.
+        ``allowed`` restricts the choice (a single-axis mesh cannot run
+        the pod-level compressed/hierarchical schedules)."""
+        topo = self._topo(gang_or_placement)
+        bucket = comms.size_bucket(nbytes)
+        if allowed is not None and set(allowed) != set(self.modes):
+            mode = self._derive(topo, bucket, modes=tuple(allowed))[0]
+        else:
+            entry = self.table.get((topo.key, bucket))
+            if entry is None:
+                entry = self._derive(topo, bucket)
+            mode = entry[0]
+        tel = telemetry.get()
+        if tel.enabled:
+            tel.count(f"collective.dispatch.{mode}")
+        return mode
+
+    def predicted_time(self, gang_or_placement,
+                       nbytes: Optional[int] = None) -> float:
+        """Seconds for the dispatched (best) schedule — the quantity
+        ``CostModel.collective_time`` prices placements with."""
+        topo = self._topo(gang_or_placement)
+        bucket = comms.size_bucket(nbytes)
+        entry = self.table.get((topo.key, bucket))
+        if entry is None:
+            entry = self._derive(topo, bucket)
+        return entry[1]
+
+    # ---- measured refinement ----------------------------------------------
+    def record_probe(self, gang_or_placement, nbytes: int, mode: str,
+                     seconds: float) -> None:
+        """Fold one measured (topology, bucket, mode) timing into the
+        table: the measurement overrides the analytical estimate and
+        the dispatch entry is re-derived."""
+        topo = self._topo(gang_or_placement)
+        bucket = comms.size_bucket(nbytes)
+        self.measured.setdefault((topo.key, bucket), {})[mode] = \
+            float(seconds)
+        self._derive(topo, bucket)
+        tel = telemetry.get()
+        if tel.enabled:
+            tel.count("collective.probes")
+            tel.observe(f"collective.probe_s.{mode}", float(seconds))
+            tel.instant("collective.probe", track="collectives",
+                        mode=mode, bucket=bucket,
+                        seconds=float(seconds))
+
+    def probe(self, mesh, nbytes: int = comms.DEFAULT_NBYTES,
+              modes: Optional[Sequence[str]] = None, reps: int = 2
+              ) -> Dict[str, float]:
+        """Measure every available schedule once on ``mesh`` (a
+        ``GangMesh``) and refine the dispatch entry for its topology
+        (a one-shot calibration, not a hot path)."""
+        pods = mesh.pods
+        chips = mesh.size
+        topo = comms.Topology(pods, chips, max(1, chips // max(1, pods)))
+        out: Dict[str, float] = {}
+        for mode in (modes or self.modes):
+            if mode == "compressed" and pods <= 1:
+                continue
+            m = measure_schedule(mesh, mode, nbytes,
+                                 self.compress_frac, reps, self.link)
+            out[mode] = m["effective_s"]
+            self.record_probe(topo, nbytes, mode, m["effective_s"])
+        return out

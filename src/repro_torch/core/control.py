@@ -14,8 +14,8 @@ the runtime at every step boundary and may emit actions:
 ``Action`` is the shared vocabulary of the scheduling stack.  Straggler
 mitigation: an EWMA of step times flags steps slower than
 ``factor`` x the moving average; persistent stragglers trigger a migrate
-action.  The port's runtime acts on checkpoint actions; migrate and
-rescale wait for the fabric (ROADMAP, slice (c)) and are only recorded.
+action.  The port's runtime acts on every action through its fabric
+``GangHandle`` (``core.fabric``), as the JAX runtime does.
 """
 from __future__ import annotations
 

@@ -29,7 +29,9 @@ leaf dtype; integer leaves are exact for sum, subtract and overwrite.
 
 Leaves are tensors; a Python ``int`` leaf (the optimizer's step count) is
 an int32 scalar here, as the JAX package's step is, and ``apply_tree``
-gives it back as an ``int``.  Host rows are CPU tensors, bf16 included.
+gives it back as an ``int``; a numpy leaf (a serving state's slot
+bookkeeping) is read as a CPU tensor and given back as numpy.  Host rows
+are CPU tensors, bf16 included.
 The JAX package's ``reference_*`` implementations are not copied: the
 tests hold the port against the JAX package's own functions.
 """
@@ -38,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.diff_merge.ref import CHUNK, MERGE_OPS, \
@@ -57,9 +60,13 @@ KERNEL_MIN_ELEMS = 1 << 20
 
 
 def as_tensor(leaf) -> torch.Tensor:
-    """A state leaf as a tensor: an ``int`` becomes an int32 scalar."""
+    """A state leaf as a tensor: an ``int`` becomes an int32 scalar, a
+    numpy array (a serving state's host bookkeeping) a CPU tensor over
+    its memory."""
     if isinstance(leaf, int):
         return torch.tensor(leaf, dtype=torch.int32)
+    if isinstance(leaf, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(leaf))
     return leaf.detach() if leaf.requires_grad else leaf
 
 
@@ -151,7 +158,15 @@ def _nonzero32(mask: torch.Tensor) -> torch.Tensor:
 
 def diff_leaf(old, new, op: str = "overwrite") -> LeafDiff:
     """Chunk-wise compare ``new`` against the fork snapshot ``old``: one
-    compare over the chunk body plus a check of the ragged tail."""
+    compare over the chunk body plus a check of the ragged tail.
+
+    A CUDA ``new`` of ``KERNEL_MIN_ELEMS`` elements or more (a live
+    state's leaf diffed against its last checkpoint) is compared on the
+    card by the diff_merge kernel, and only its dirty chunks are copied
+    to the host (``_diff_leaf_on_device``); the LeafDiff is the same."""
+    if isinstance(new, torch.Tensor) and new.is_cuda \
+            and new.numel() >= KERNEL_MIN_ELEMS:
+        return _diff_leaf_on_device(as_tensor(old), new, op)
     old, new = _host(old), _host(new)
     assert old.shape == new.shape and old.dtype == new.dtype
     ob, ot = _body_tail(_flat_view(old))
@@ -165,6 +180,42 @@ def diff_leaf(old, new, op: str = "overwrite") -> LeafDiff:
         old_rows = torch.cat([old_rows, _pad_chunk(ot)])
     return LeafDiff(idx=idx, new=new_rows, old=old_rows,
                     shape=tuple(old.shape), dtype=old.dtype, op=op)
+
+
+def leaf_diff_from_mask(old: torch.Tensor, new: torch.Tensor,
+                        dirty: torch.Tensor, op: str) -> LeafDiff:
+    """The LeafDiff of ``new`` against ``old`` from its dirty chunk mask
+    (``diff_merge``'s: ceil(n / CHUNK) bools, the ragged tail last):
+    dirty rows of ``new`` are gathered where ``new`` lies and copied to
+    the host, rows of ``old`` on the host."""
+    assert old.shape == new.shape and old.dtype == new.dtype
+    old = _host(old)
+    idx = _nonzero32(dirty.cpu())
+    ob, ot = _body_tail(_flat_view(old))
+    nb, nt = _body_tail(_flat_view(new))
+    n_full = ob.shape[0]
+    has_tail = bool(idx.numel()) and int(idx[-1]) == n_full
+    body_idx = idx[:-1] if has_tail else idx
+    new_rows = _gather(nb, body_idx.to(nb.device)).cpu()
+    old_rows = _gather(ob, body_idx)
+    if has_tail:
+        new_rows = torch.cat([new_rows, _pad_chunk(nt.cpu())])
+        old_rows = torch.cat([old_rows, _pad_chunk(ot)])
+    return LeafDiff(idx=idx, new=new_rows, old=old_rows,
+                    shape=tuple(old.shape), dtype=old.dtype, op=op)
+
+
+def _diff_leaf_on_device(old: torch.Tensor, new: torch.Tensor,
+                         op: str) -> LeafDiff:
+    """``diff_leaf`` of a CUDA leaf: the host ``old`` goes to the card and
+    the diff_merge kernel finds the dirty chunks (main = fork = old, child
+    = new, op overwrite); its merged output is dropped."""
+    from repro_torch.kernels.diff_merge import ops as _kops
+    fork = old.to(new.device)
+    _, dirty = _kops.diff_merge_leaf(fork, fork, new.contiguous(),
+                                     op="overwrite")
+    del fork
+    return leaf_diff_from_mask(old, new, dirty, op)
 
 
 def _split_tail_idx(d: LeafDiff, n_full: int) -> Tuple[torch.Tensor, bool]:
@@ -305,7 +356,9 @@ def apply_tree(main_tree, diffs: Dict[str, Any], inplace: bool = False):
             if has_tail:
                 tail[:] = merged[row, :tail.numel()]
                 row += 1
-            out[i] = int(target) if isinstance(out[i], int) else target
+            out[i] = (int(target) if isinstance(out[i], int)
+                      else target.numpy() if isinstance(out[i], np.ndarray)
+                      else target)
     return tree_unflatten(main_tree, out)
 
 

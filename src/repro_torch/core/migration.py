@@ -13,6 +13,8 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
+
 from repro_torch import resolve_device
 from repro_torch.core import diffsync, snapshot as snap_mod
 from repro_torch.weights import tree_leaves, tree_map
@@ -43,9 +45,20 @@ def migrate_via_snapshot(job_id: str, step: int, state, dst_device="cuda",
 
 
 def migrate_live(state, dst_device):
-    """Direct device-to-device copy (no host round trip)."""
+    """Direct device-to-device copy (no host round trip).  Always a copy,
+    even onto the device the state already lies on: a move between two
+    virtual devices of one card must move the bytes, and the caller frees
+    the old copy by dropping it.  Host-side numpy leaves (a serving
+    state's slot bookkeeping) stay numpy."""
     dev = resolve_device(dst_device)
-    return tree_map(lambda x: x if isinstance(x, int) else x.to(dev), state)
+
+    def copy(x):
+        if isinstance(x, int):
+            return x
+        if isinstance(x, np.ndarray):
+            return np.array(x, copy=True)
+        return x.detach().to(dev, copy=True)
+    return tree_map(copy, state)
 
 
 def verify_migration(before, after) -> bool:

@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterable, Optional
 
 import numpy as np
@@ -25,34 +26,58 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import diffsync
-from repro_torch.weights import tree_leaves, tree_map
+from repro_torch.weights import tree_leaves, tree_map, tree_unflatten
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+def _hash_leaf(h, head: bytes, body: np.ndarray) -> None:
+    h.update(head)
+    h.update(body)
+
+
 def _fingerprint(leaves: Iterable[Any]) -> str:
     """sha256 over (dtype name, shape, bytes) of each leaf, first 16 hex
     digits.  Leaves may lie on any device; each is copied to the host in
-    turn, so a whole state is never held twice."""
+    turn, so a whole state is never held twice.  A worker thread hashes
+    one leaf while the next is copied (or produced by ``leaves``, which
+    may be a generator): both release the interpreter lock, so a device
+    state's copy to the host overlaps its hashing.  The bytes hashed, and
+    their order, are those of a plain loop."""
     h = hashlib.sha256()
-    for leaf in leaves:
-        t = diffsync.as_tensor(leaf)
-        h.update(_dtype_name(t.dtype).encode())
-        h.update(str(tuple(t.shape)).encode())
-        t = t.cpu().contiguous()
-        if t.dtype == torch.bfloat16:
-            t = t.view(torch.int16)
-        h.update(np.ascontiguousarray(t.numpy()).reshape(-1).view(np.uint8))
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        pending = None
+        for leaf in leaves:
+            t = diffsync.as_tensor(leaf)
+            head = (_dtype_name(t.dtype) + str(tuple(t.shape))).encode()
+            t = t.cpu().contiguous()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            body = np.ascontiguousarray(t.numpy()).reshape(-1).view(np.uint8)
+            if pending is not None:
+                pending.result()
+            pending = pool.submit(_hash_leaf, h, head, body)
+        if pending is not None:
+            pending.result()
     return h.hexdigest()[:16]
+
+
+def fingerprint(state) -> str:
+    """The snapshot fingerprint of a state tree wherever it lies (a
+    restored state is checked against its snapshot's)."""
+    return _fingerprint(tree_leaves(state))
 
 
 def _copy_to(leaf, device: torch.device):
     """A copy of one leaf on ``device`` (never an alias: the optimizer
-    updates its tensors in place)."""
+    updates its tensors in place).  A numpy leaf (host bookkeeping of a
+    serving state) stays a numpy copy on the host."""
     if isinstance(leaf, int):
         return leaf
+    if isinstance(leaf, np.ndarray):
+        return np.array(leaf, copy=True)
     return leaf.detach().to(device, copy=True)
 
 
@@ -75,8 +100,19 @@ def take(job_id: str, step: int, state, meta: Optional[Dict] = None,
          fingerprint: bool = True) -> Snapshot:
     """Snapshot device state to host memory."""
     cpu = torch.device("cpu")
-    host = tree_map(lambda x: _copy_to(x, cpu), state)
-    fp = _fingerprint(tree_leaves(host)) if fingerprint else ""
+    copies: list = []
+
+    def copied():
+        for leaf in tree_leaves(state):
+            copies.append(_copy_to(leaf, cpu))
+            yield copies[-1]
+    if fingerprint:
+        fp = _fingerprint(copied())     # hashes overlap the copies
+    else:
+        fp = ""
+        for _ in copied():
+            pass
+    host = tree_unflatten(state, copies)
     return Snapshot(job_id=job_id, step=step, state=host,
                     meta=dict(meta or {}), fingerprint=fp,
                     wall_time=time.time())

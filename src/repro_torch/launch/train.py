@@ -4,9 +4,9 @@
 Runs the gang runtime (``runtime.train_loop``) over ``--ranks`` virtual
 ranks on one device, ``--pods`` pods of ``ranks / pods``; gradients sync
 with the chosen schedule; control points checkpoint every
-``--checkpoint-every`` steps into ``--ckpt-dir`` and recover from a
-failure injected with ``--fail-at``.  Elastic rescale (``--rescale``)
-waits for a later slice of the port and raises if set.
+``--checkpoint-every`` steps into ``--ckpt-dir``, recover from a failure
+injected with ``--fail-at`` and rescale the gang at the steps of
+``--rescale`` (capped at the ``--ranks`` virtual devices of its fabric).
 
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
@@ -49,8 +49,7 @@ def main(argv=None):
     ap.add_argument("--fail-at", type=int, default=-1,
                     help="inject a failure at this step (recovery demo)")
     ap.add_argument("--rescale", default="",
-                    help="step:world pairs, e.g. '20:4,40:8': not ported "
-                    "yet (ROADMAP slice (c)); must stay at its default")
+                    help="step:world pairs, e.g. '20:4,40:8'")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 

@@ -22,9 +22,11 @@ The loops run on the device of ``params``.  Decode updates the KV buffers
 in place, so ``serve_state`` copies them and ``load_serve_state`` copies
 them back: a snapshot never aliases a live loop.
 
-Attaching a loop to a fabric ``GangHandle`` (replicated placement on a
-gang mesh, migration between gangs) waits for the port's fabric slice:
-the ``handle`` argument and ``attach`` are left out here.
+Either loop runs as a gang on a shared fabric (``core.fabric``):
+``attach(handle)`` places its params and in-flight state on the gang
+mesh's device, and re-attaching after a migrate, rescale or resume
+follows the new placement (``state`` adopts a restored or moved serving
+state in the same move).
 """
 from __future__ import annotations
 
@@ -69,6 +71,19 @@ def _copy(tree):
     return tree_map(lambda t: t.clone(), tree)
 
 
+def _place_on_gang(loop) -> None:
+    """Move a loop's params and device-side decode state onto its gang
+    mesh's device (no copy when they already lie there)."""
+    if loop.handle is None or loop.handle.mesh is None:
+        return
+    dev = loop.handle.mesh.device
+    loop.device = dev
+    loop.params = tree_map(lambda t: t.to(dev), loop.params)
+    if loop._states is not None:
+        loop._states = tree_map(lambda t: t.to(dev), loop._states)
+        loop._cur = loop._cur.to(dev)
+
+
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
@@ -81,6 +96,7 @@ class ServeLoop:
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
+        self.handle = None
         self.max_len = max_len
         self.window = window
         self._prefill = model_mod.make_prefill_step(cfg, window=window)
@@ -93,6 +109,18 @@ class ServeLoop:
         self._plen = 0
         self._t = 0
         self._max_new = 0
+
+    # ---- gang placement ----------------------------------------------------
+    def attach(self, handle, state: Optional[Dict[str, Any]] = None) -> None:
+        """Run this replica as a gang on a shared fabric: place params
+        (and any in-flight decode state) on the gang mesh's device.
+        Re-attach after a migrate/rescale/resume to follow the new
+        placement; ``state`` adopts a restored/moved serving state in the
+        same move."""
+        self.handle = handle
+        if state is not None:
+            self.load_serve_state(state)
+        _place_on_gang(self)
 
     # ---- serving state = the snapshot --------------------------------------
     def serve_state(self) -> Dict[str, Any]:
@@ -279,6 +307,7 @@ class ContinuousServeLoop:
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
+        self.handle = None
         self.slots = int(slots)
         self.max_len = max_len
         self.window = window
@@ -300,6 +329,15 @@ class ContinuousServeLoop:
         # device-side slot state (lazy until the first admit)
         self._states = None
         self._cur = None
+
+    # ---- gang placement ----------------------------------------------------
+    def attach(self, handle, state: Optional[Dict[str, Any]] = None) -> None:
+        """Follow a (new) gang placement; ``state`` adopts a restored /
+        moved serving state in the same move (see ServeLoop)."""
+        self.handle = handle
+        if state is not None:
+            self.load_serve_state(state)
+        _place_on_gang(self)
 
     # ---- slot accounting ---------------------------------------------------
     @property

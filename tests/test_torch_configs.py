@@ -78,7 +78,14 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.kernels.mamba_scan.ref",
                 "repro_torch.models.moe", "repro_torch.models.ssm",
                 "repro_torch.kernels.mlstm", "repro_torch.kernels.mlstm.ops",
-                "repro_torch.kernels.mlstm.ref", "repro_torch.models.xlstm"}
+                "repro_torch.kernels.mlstm.ref", "repro_torch.models.xlstm",
+                "repro_torch.core.comms", "repro_torch.core.telemetry",
+                "repro_torch.core.placement", "repro_torch.core.fleet",
+                "repro_torch.core.simulator", "repro_torch.core.scheduler",
+                "repro_torch.core.granule", "repro_torch.core.elastic",
+                "repro_torch.core.devices", "repro_torch.core.fabric",
+                "repro_torch.runtime.gang_workloads",
+                "repro_torch.launch.trace"}
         assert need <= set(names), sorted(need - set(names))
         assert len(names) >= 60, names
         print("imported", len(names))

@@ -340,3 +340,40 @@ def test_f32_sum_host_rounds_once_kernel_rounds_twice():
                                                use_kernel=True,
                                                interpret=True)[0]))
     assert (host != kern).sum() > 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+@pytest.mark.parametrize("size", SIZES)
+def test_leaf_diff_from_the_kernels_mask_equals_diff_leaf(dtype, size):
+    """The LeafDiff a live CUDA leaf gets (dirty chunks from the
+    diff_merge kernel, then rows gathered) is ``diff_leaf``'s: built here
+    from the plain version's mask on the same inputs."""
+    from repro_torch.kernels.diff_merge import ref as TR
+    rng = np.random.default_rng(size)
+    old = _t(rng.standard_normal(size).astype(NP[dtype]) * 8)
+    new = old.clone()
+    if size > 3:
+        new[size // 3] += 1
+    new[-1] += 1
+    mask = TR.diff_merge_leaf_ref(old, old, new, op="overwrite")[1]
+    got = TD.leaf_diff_from_mask(old, new, mask, "overwrite")
+    want = TD.diff_leaf(old, new, op="overwrite")
+    for f in ("idx", "new", "old"):
+        assert torch.equal(getattr(got, f), getattr(want, f))
+    assert got.shape == want.shape and got.dtype == want.dtype
+
+
+def test_numpy_leaves_diff_and_apply_as_numpy():
+    """A serving state's slot bookkeeping is numpy on the host: diffed as
+    CPU tensors over its memory, and given back as numpy by apply_tree."""
+    old = {"plen": np.arange(2000, dtype=np.int32),
+           "w": torch.zeros(3000)}
+    new = {"plen": old["plen"].copy(), "w": old["w"].clone()}
+    new["plen"][1500] = -1
+    diffs = TD.diff_tree(old, new)
+    assert list(diffs) == ["['plen']"]
+    merged = TD.apply_tree(old, diffs)
+    assert isinstance(merged["plen"], np.ndarray)
+    assert np.array_equal(merged["plen"], new["plen"])
+    assert old["plen"][1500] == 1500           # the main tree is untouched
+    assert TD.tree_nbytes(old) == 2000 * 4 + 3000 * 4

@@ -384,6 +384,41 @@ def test_cuda_diff_merge_int32_clean_chunks_round(cuda_device, op):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_diff_of_a_live_leaf_matches_the_host_diff(cuda_device, dtype):
+    """A fabric checkpoint diffs a gang's live CUDA leaves against the
+    last host checkpoint: the diff_merge kernel finds the dirty chunks on
+    the card, and the LeafDiff (indices, rows, the ragged tail) equals
+    the host diff's, so the chain replays bit for bit."""
+    from repro_torch.core import diffsync as DS
+    from repro_torch.kernels.diff_merge import ops as DO
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    n = DS.KERNEL_MIN_ELEMS + 777            # a ragged tail
+    dt = getattr(torch, dtype)
+    live = {"w": torch.randn(n, generator=gen, device=cuda_device).to(dt),
+            "b": torch.randn((5, 3), generator=gen,
+                             device=cuda_device).to(dt)}
+    old = {k: v.cpu() for k, v in live.items()}
+    live["w"][5 * 1024 + 3] += 1.0
+    live["w"][7 * 1024:9 * 1024] += 1.0
+    live["w"][-5] += 1.0                     # the tail chunk
+    live["b"][0, 0] += 1.0
+    before = DO.launches
+    got = DS.diff_tree(old, live)
+    assert DO.launches == before + 1         # the big leaf only
+    want = DS.diff_tree(old, {k: v.cpu() for k, v in live.items()})
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k].idx, want[k].idx)
+        assert torch.equal(got[k].new, want[k].new)
+        assert torch.equal(got[k].old, want[k].old)
+    assert got["['w']"].idx.tolist() == [5, 7, 8, n // 1024]
+    merged = DS.apply_tree(old, got)
+    for k in live:
+        assert torch.equal(merged[k], live[k].cpu())
+
+
+@pytest.mark.cuda
 def test_cuda_fused_diff_apply_sends_large_leaves_to_the_kernel(cuda_device):
     from repro_torch.core import diffsync as DS
     from repro_torch.kernels.diff_merge import ops as DO

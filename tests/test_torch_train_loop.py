@@ -4,8 +4,9 @@
 and the JAX batches; and 10 steps with a checkpoint every 4 and a failure
 at step 6 (tests/test_dist.py::test_runtime_failure_recovery_bit_exact).
 The JAX runtime runs in a subprocess that forces 4 CPU devices (as
-tests/test_dist.py does).  Also: the fields not ported yet raise, and the
-CLI runs on the CPU."""
+tests/test_dist.py does).  Also: every RuntimeConfig field is taken and
+the untrained families raise, a straggler's migrate moves the gang, and
+the CLI runs (and rescales) on the CPU."""
 import contextlib
 import io
 import json
@@ -24,6 +25,7 @@ from repro.data import pipeline as JD
 from repro.models import model as JM
 from repro.optim import adamw as JAW
 from repro_torch.configs import registry as treg
+from repro_torch.core import diffsync
 from repro_torch.data import pipeline as TD
 from repro_torch.launch import train as tlaunch
 from repro_torch.optim import adamw as TAW
@@ -180,24 +182,37 @@ def test_runtime_incremental_checkpoints_recover(tmp_path):
 
 
 def test_runtime_straggler_migrate_is_recorded_only(tmp_path):
-    """Migration belongs to slice (c): a straggler's migrate action is
-    kept in the control history, the gang stays where it is."""
+    """A straggler's migrate action is kept in the control history and,
+    since the port has a fabric, moves the gang through its handle: the
+    one-rank gang rotates onto itself, and its state is copied each time
+    (the bytes of the whole state), with the losses unchanged."""
     class AlwaysSlow:
         def observe(self, step_time):
             return True
     cfg = treg.reduced_config("llama3.2-1b").with_(n_layers=2, vocab=V)
-    rt = TRL.RuntimeConfig(total_steps=3, checkpoint_every=2,
-                           ckpt_dir=str(tmp_path))
-    runtime = TRL.FaabricTrainRuntime(
-        cfg, TAW.AdamWConfig(), TD.DataConfig(vocab=V, seq_len=S,
-                                              global_batch=B), rt,
-        device="cpu")
-    runtime.control.straggler = AlwaysSlow()
-    _, out = runtime.run(seed=0)
+
+    def run(slow, path):
+        rt = TRL.RuntimeConfig(total_steps=3, checkpoint_every=2,
+                               ckpt_dir=str(path))
+        runtime = TRL.FaabricTrainRuntime(
+            cfg, TAW.AdamWConfig(), TD.DataConfig(vocab=V, seq_len=S,
+                                                  global_batch=B), rt,
+            device="cpu")
+        if slow:
+            runtime.control.straggler = AlwaysSlow()
+        state, out = runtime.run(seed=0)
+        return runtime, state, out
+    runtime, state, out = run(True, tmp_path / "slow")
     kinds = [a.kind for a in runtime.control.history]
     assert kinds == ["migrate", "checkpoint", "migrate", "migrate"]
-    assert out["migrations"] == out["straggler_migrations"] == 0
+    assert out["migrations"] == out["straggler_migrations"] == 3
     assert [s["step"] for s in runtime.ckpt.stats] == [0, 2]
+    moves = [e for e in runtime.handle.epoch_log if e["kind"] == "migrate"]
+    nbytes = sum(diffsync.as_tensor(x).nbytes for x in tree_leaves(state))
+    assert [m["bytes"] for m in moves] == [nbytes] * 3
+    assert all(m["seconds"] >= 0 for m in moves)
+    _, _, base = run(False, tmp_path / "base")
+    assert out["losses"] == base["losses"]
 
 
 @pytest.mark.parametrize("field,value", [
@@ -205,13 +220,21 @@ def test_runtime_straggler_migrate_is_recorded_only(tmp_path):
     ("elastic", object()), ("sync_mode", "auto"),
     ("placement_policy", "spread"), ("chips_per_host", 8),
     ("job_kind", "omp")])
-def test_unported_fields_raise(field, value):
-    kw = {"checkpoint_every": 0, field: value}
+def test_unported_fields_raise(field, value, tmp_path):
+    """Every RuntimeConfig field is ported since the fabric slice: the
+    runtime takes each of these.  What stays unported, whatever the
+    fields, is training the MoE, hybrid and xLSTM families."""
+    kw = {"checkpoint_every": 0, "ckpt_dir": str(tmp_path), field: value}
     rt = TRL.RuntimeConfig(**kw)
-    cfg = treg.reduced_config("llama3.2-1b")
-    with pytest.raises(NotImplementedError, match="slice"):
-        TRL.FaabricTrainRuntime(cfg, TAW.AdamWConfig(), TD.DataConfig(), rt,
-                                device="cpu")
+    runtime = TRL.FaabricTrainRuntime(
+        treg.reduced_config("llama3.2-1b"), TAW.AdamWConfig(),
+        TD.DataConfig(), rt, device="cpu")
+    assert getattr(runtime.rt, field) is value
+    for arch in ("granite-moe-1b-a400m", "zamba2-2.7b", "xlstm-1.3b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TRL.FaabricTrainRuntime(treg.reduced_config(arch),
+                                    TAW.AdamWConfig(), TD.DataConfig(), rt,
+                                    device="cpu")
 
 
 def test_runtime_rejects_bad_gangs():
@@ -248,10 +271,11 @@ def test_cli_trains_on_the_cpu(tmp_path):
     assert report["steps"] == 12 and report["recoveries"] == 0
     assert report["last_loss"] < report["first_loss"]
     assert len(out["losses"]) == 12
-    with pytest.raises(NotImplementedError, match="slice"):
-        tlaunch.main(["--arch", "llama3.2-1b", "--reduced", "--device", "cpu",
-                      "--rescale", "2:2", "--steps", "3", "--ckpt-dir",
-                      str(tmp_path)])
+    out, _, report = _cli(["--arch", "llama3.2-1b", "--reduced", "--device",
+                           "cpu", "--ranks", "4", "--rescale", "2:2",
+                           "--steps", "3", "--ckpt-dir", str(tmp_path)])
+    assert report["rescales"] == 1
+    assert [e["world"] for e in out["log"]] == [4, 4, 2]
 
 
 def test_cli_fail_at_recovers(tmp_path):
