@@ -16,8 +16,9 @@ non-zero before printing any result):
    llama3.2-1b's prefill shapes (H=32, KV=8, hd=64; B=1 at S 128, 256,
    512, 1024 and a ragged 1000, and B=4 at S=512 as the fixed-batch
    serve runs it; a 256-token window; hd=80 through the padding wrapper;
-   non-causal; bf16 and f32) and at phi3.5-moe's hd=128 (B=1, S=1024),
-   and time the kernel, the plain
+   non-causal; bf16 and f32), at phi3.5-moe's and the vision model's
+   hd=128 (B=1, S=1024) and at group 1, whisper-small's 12 heads over 12
+   KV heads (B=1 at S=1024, B=4 at S=512), and time the kernel, the plain
    version and ``torch.nn.functional.scaled_dot_product_attention`` (the
    library yardstick, which the port itself never calls).
 4. Serve full-width llama3.2-1b in bf16 (random weights from a seed):
@@ -54,7 +55,8 @@ non-zero before printing any result):
    runtime (4 ranks, 2 pods, compressed sync at frac 1.0, 4 steps) run
    once uninterrupted (saving only the state before step 0) and once
    with checkpoints every 2 steps and a failure at step 3 (recovery to
-   the step-2 checkpoint), losses equal within 1e-6;
+   the step-2 checkpoint), losses equal within 1e-6 and the final
+   states bit for bit (on the card);
    then a delta-chain manager over 2 saves restored bit for bit, and a
    delta migration checked with ``verify_migration``.
 7. The shared Fabric (slice 9): ``Fabric.run_trace`` over 8 virtual
@@ -71,16 +73,27 @@ non-zero before printing any result):
    device's idle share, the trace's kernel launches) and checks the live
    completion order against ``predict_trace``, every resumed state's
    fingerprint against its snapshot's, and the rolled-back gang's losses
-   against an uninterrupted run of it (atol 1e-6).
-8. Serves the MoE, hybrid and xLSTM families at full width
+   against an uninterrupted run of it (atol 1e-6).  Then, on a fresh
+   pool of 8, the grow-with-drain step (slice 10): a 6-chip train gang
+   and a 2-chip serve gang of full-width llama3.2-1b; a
+   ``ServeAutoscaler`` under a breach emits "need" 4, and
+   ``Fabric.grow_with_drain`` grows the serve gang to 4 by draining the
+   train gang to 3; the donor's state must be bit for bit unchanged by
+   the drain, both gangs step again, and a grow to 8 must raise
+   (``fabric-grow-drain``).
+8. Serves the MoE, hybrid, xLSTM, audio and VLM families at full width
    (granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b cut to 8 of its 32
-   layers, zamba2-2.7b, xlstm-1.3b; the others at full depth; bf16,
-   random weights from a seed): first use of every serve shape, 8
-   Poisson requests through ``ContinuousServeLoop`` and a ``ServeLoop``
-   batch of 4 x 512 (``serve-moe``, ``serve-moe_phi``, ``serve-hybrid``,
-   ``serve-ssm``: every kernel count against the path's formula), the
-   prefill check against an f32 witness (for the MoE configs each MoE
-   layer also held alone), and a profile of each.
+   layers, zamba2-2.7b, xlstm-1.3b, whisper-small,
+   llama-3.2-vision-11b; the others at full depth; bf16, random weights
+   from a seed, the vision model's cross-attention gates drawn from
+   N(0, 1); the audio and VLM requests carry the serve CLI's seeded
+   frames and image tokens): first use of every serve shape, 8 Poisson
+   requests through ``ContinuousServeLoop`` and a ``ServeLoop`` batch of
+   4 x 512 (``serve-moe``, ``serve-moe_phi``, ``serve-hybrid``,
+   ``serve-ssm``, ``serve-audio``, ``serve-vlm``: every kernel count
+   against the path's formula), the prefill check against an f32
+   witness (for the MoE configs each MoE layer also held alone), and a
+   profile of each.
 9. Prints the ``kernels`` JSON line and, last, the device JSON line.
 
 Besides the forward kernel, phase 2 builds the flash-attention backward
@@ -170,9 +183,10 @@ def _bound(b, h, kv, s, hd, causal, window, dtype_name, esize):
 
 
 def check_kernel(torch, fa_ops, fa_ref, F):
-    """Phase 3: kernel vs plain version at the serve path's shapes."""
-    h, kv = 32, 8
-    cases = [  # (B, S, hd, causal, window, dtype)
+    """Phase 3: kernel vs plain version at the serve path's shapes: 32
+    query heads over 8 KV heads (llama3.2-1b, phi3.5-moe, the vision
+    model), and group 1 at whisper-small's 12 over 12."""
+    cases = [  # (B, S, hd, causal, window, dtype[, H, KV]); H 32, KV 8
         (1, 128, 64, True, 0, "bfloat16"), (1, 128, 64, True, 0, "float32"),
         (1, 256, 64, True, 0, "bfloat16"), (1, 512, 64, True, 0, "bfloat16"),
         (1, 1024, 64, True, 0, "bfloat16"), (1, 1024, 64, True, 0, "float32"),
@@ -188,10 +202,17 @@ def check_kernel(torch, fa_ops, fa_ref, F):
         # phi3.5-moe's native head dim (its prefill of 1024 tokens)
         (1, 1024, 128, True, 0, "bfloat16"),
         (1, 1024, 128, True, 0, "float32"),
+        # group 1: whisper-small's decoder (12 heads over 12 KV heads)
+        (1, 1024, 64, True, 0, "bfloat16", 12, 12),
+        (1, 1024, 64, True, 0, "float32", 12, 12),
+        (4, 512, 64, True, 0, "bfloat16", 12, 12),
+        (4, 512, 64, True, 0, "float32", 12, 12),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for b, s, hd, causal, window, dname in cases:
+    for case in cases:
+        b, s, hd, causal, window, dname = case[:6]
+        h, kv = case[6:] or (32, 8)
         dt = getattr(torch, dname)
         q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((b, s, kv, hd), generator=gen, device="cuda").to(dt)
@@ -204,9 +225,9 @@ def check_kernel(torch, fa_ops, fa_ref, F):
         err = (out.float() - ref.float()).abs().max().item()
         ok = bool(torch.isfinite(out.float()).all()) and torch.allclose(
             out.float(), ref.float(), atol=TOL[dname], rtol=TOL[dname])
-        row = {"B": b, "S": s, "hd": hd, "causal": causal, "window": window,
-               "dtype": dname, "max_abs_err": err, "tol": TOL[dname],
-               "ok": ok}
+        row = {"B": b, "S": s, "H": h, "KV": kv, "hd": hd,
+               "causal": causal, "window": window, "dtype": dname,
+               "max_abs_err": err, "tol": TOL[dname], "ok": ok}
         if hd in (64, 128):
             # times on the kernel's own (B,H,S,hd) layout
             ms = _time_ms(lambda: fa_ops._launch(
@@ -243,7 +264,7 @@ SHORT_FIRST_CALLS = {"prefill_1x256", "decode_step_8_lanes",
                      "fixed_decode_step_4_lanes"}
 
 
-def warm_up(torch, cfg, params, max_len, token_loop=False):
+def warm_up(torch, cfg, params, max_len, token_loop=False, extras=None):
     """Run every shape of the timed drives once before them, so that the
     serve numbers measure serving and not first use: the B=1 ragged
     prefill at the 256, 512 and 1024 buckets and an 8-lane decode step,
@@ -254,7 +275,9 @@ def warm_up(torch, cfg, params, max_len, token_loop=False):
     time, and its host operations by self time, which is where a
     one-time cost shows.  With ``token_loop`` (a prefill that launches
     kernels per token, whose long profiles take the profiler tens of
-    seconds to process) only SHORT_FIRST_CALLS run under the profiler."""
+    seconds to process) only SHORT_FIRST_CALLS run under the profiler.
+    ``extras``: the (per-request, per-batch) extras functions of an audio
+    or VLM config (``launch.serve._extras_fns``)."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -303,14 +326,19 @@ def warm_up(torch, cfg, params, max_len, token_loop=False):
                     "calls": e.count} for e in host[:6]]}
         print(f"first-call {json.dumps(row)}", flush=True)
 
+    # the extras (drawn on the host) are made before the timed calls
+    one, batch = extras or (None, None)
+    ex = one(req(1)) if one else None
+    fex = batch([req(1)] * 4) if batch else None
     loop = ContinuousServeLoop(cfg, params, slots=8, max_len=max_len)
     for n in (256, 512, 1024):
-        first_and_warm(f"prefill_1x{n}", lambda: loop.admit(req(n)))
+        first_and_warm(f"prefill_1x{n}",
+                       lambda: loop.admit(req(n), extras=ex))
     first_and_warm("decode_step_8_lanes", loop.decode_step)
     del loop
     fixed = ServeLoop(cfg, params, max_len=max_len)
-    first_and_warm("fixed_prefill_4x512",
-                   lambda: fixed.start([req(512) for _ in range(4)]))
+    first_and_warm("fixed_prefill_4x512", lambda: fixed.start(
+        [req(512) for _ in range(4)], extras=fex))
     first_and_warm("fixed_decode_step_4_lanes", fixed.decode_step)
     del fixed
 
@@ -320,10 +348,11 @@ def _pct(xs, q):
     return xs[min(len(xs) - 1, int(math.ceil(q / 100 * len(xs))) - 1)]
 
 
-def _drive_continuous(torch, cfg, params, reqs):
+def _drive_continuous(torch, cfg, params, reqs, extras_fn=None):
     """``ContinuousServeLoop`` (8 slots) under ``run_open_loop`` over
-    ``reqs``, each admission and decode step timed to the device's end.
-    Returns the ``serve-continuous`` numbers and the number of prefills."""
+    ``reqs`` (with each request's ``extras_fn(req)``), each admission and
+    decode step timed to the device's end.  Returns the
+    ``serve-continuous`` numbers and the number of prefills."""
     from repro_torch.runtime.admission import run_open_loop
     from repro_torch.runtime.serve_loop import ContinuousServeLoop
 
@@ -349,7 +378,7 @@ def _drive_continuous(torch, cfg, params, reqs):
 
     loop.admit, loop.decode_step = admit, decode_step
     t0 = time.perf_counter()
-    rep = run_open_loop(loop, reqs)
+    rep = run_open_loop(loop, reqs, extras_fn=extras_fn)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     assert rep.finished == len(reqs), (rep.finished, len(reqs))
@@ -365,10 +394,10 @@ def _drive_continuous(torch, cfg, params, reqs):
     return cont, loop.stats.admitted
 
 
-def _drive_fixed(torch, cfg, params, freqs):
-    """One ``ServeLoop`` batch of ``freqs`` under ``run_fixed_batch``,
-    timed like the continuous drive; returns the ``serve-fixed``
-    numbers."""
+def _drive_fixed(torch, cfg, params, freqs, extras_fn=None):
+    """One ``ServeLoop`` batch of ``freqs`` under ``run_fixed_batch``
+    (with the batch's ``extras_fn(reqs)``), timed like the continuous
+    drive; returns the ``serve-fixed`` numbers."""
     from repro_torch.runtime.admission import run_fixed_batch
     from repro_torch.runtime.serve_loop import ServeLoop
 
@@ -392,7 +421,8 @@ def _drive_fixed(torch, cfg, params, freqs):
 
     fixed_loop.start, fixed_loop.decode_step = start, fdecode_step
     t0 = time.perf_counter()
-    frep = run_fixed_batch(fixed_loop, freqs, batch=len(freqs))
+    frep = run_fixed_batch(fixed_loop, freqs, batch=len(freqs),
+                           extras_fn=extras_fn)
     torch.cuda.synchronize()
     fwall = time.perf_counter() - t0
     assert frep.finished == len(freqs)
@@ -516,7 +546,7 @@ def check_moe_layers(torch, captured):
     return worst
 
 
-def check_prefill(torch, cfg, params, reqs, max_len):
+def check_prefill(torch, cfg, params, reqs, max_len, extras_fn=None):
     """Prefill logits through the kernels and through the plain paths,
     both in bf16 on the card, each held against an f32 forward of the
     same weights on the plain paths (the witness).  Runs the serve path's
@@ -532,7 +562,13 @@ def check_prefill(torch, cfg, params, reqs, max_len):
     share of (token, layer) routes that differ from the witness's.  The
     whole-model criterion is held where the kernel path routes exactly as
     the plain path; the MoE layer itself is always held, on the kernel
-    path's dispatched inputs (``check_moe_layers``)."""
+    path's dispatched inputs (``check_moe_layers``).
+
+    An audio or VLM config's prompts carry their extras
+    (``extras_fn(req)``: encoder frames, image tokens), in bf16 for both
+    bf16 paths and in f32 for the witness; the vision model's
+    cross-attention gates are drawn (``draw_gates``), so that the check
+    sees its cross-attention."""
     from repro_torch.configs.base import MAMBA, MLSTM, MOE, SLSTM
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.runtime.serve_loop import _bucket, make_ragged_prefill
@@ -552,6 +588,7 @@ def check_prefill(torch, cfg, params, reqs, max_len):
     picked += [(r, b) for r, b in with_bucket if r.rid not in rids]
     picked = picked[:3]
     prefill = make_ragged_prefill(cfg)
+    torch.cuda.empty_cache()
     params32 = tree_map(lambda t: t.float(), params)
     out = []
     for r, bucket in picked:
@@ -559,6 +596,9 @@ def check_prefill(torch, cfg, params, reqs, max_len):
         tokens = torch.zeros((1, bucket), dtype=torch.int32,
                              device=params["embed"].device)
         tokens[0, :plen] = torch.as_tensor(r.prompt, device=tokens.device)
+        batch = {"tokens": tokens, **(extras_fn(r) if extras_fn else {})}
+        batch32 = {k: (v if k == "tokens" else v.float())
+                   for k, v in batch.items()}
         rk, rp, rw, captured = [], [], [], []
         orig_ffn = gmm_ops.expert_ffn
 
@@ -567,13 +607,13 @@ def check_prefill(torch, cfg, params, reqs, max_len):
             return orig_ffn(xe, w1, w2, w3, act=act)
         with _route_recorder(rk), \
                 mock.patch.object(gmm_ops, "expert_ffn", capture):
-            lk, _ = prefill(params, {"tokens": tokens}, plen)
+            lk, _ = prefill(params, batch, plen)
         before = _launch_counts()
         with _plain_paths():
             with _route_recorder(rp):
-                lp, _ = prefill(params, {"tokens": tokens}, plen)
+                lp, _ = prefill(params, batch, plen)
             with _route_recorder(rw):
-                lw, _ = prefill(params32, {"tokens": tokens}, plen)
+                lw, _ = prefill(params32, batch32, plen)
         assert _launch_counts() == before, "a plain path launched a kernel"
         torch.cuda.synchronize()
         assert lk.shape == (1, 1, cfg.vocab)
@@ -598,7 +638,7 @@ def check_prefill(torch, cfg, params, reqs, max_len):
             whole = res["route_flips_kernel_vs_plain"] == 0.0
             res["whole_model_held"] = whole
             res["moe_layers"] = check_moe_layers(torch, captured)
-        del captured
+        del captured, batch, batch32
         print(f"prefill-check {json.dumps(res)}", flush=True)
         if cfg.family == "dense":
             assert res["kernel_vs_f32"] <= TOL["bfloat16"], res
@@ -662,11 +702,11 @@ def profile_phase(torch, name, fn):
     return out
 
 
-def profile(torch, cfg, params, tag="", token_loop=False):
+def profile(torch, cfg, params, tag="", token_loop=False, extras=None):
     """Where the time goes: device time by kernel and the device's idle
     share over one 1024-token prefill, over 8-lane decode steps and,
     unless ``token_loop`` (see warm_up), over the 4 x 512 fixed-batch
-    prefill (phase names prefixed with ``tag``)."""
+    prefill (phase names prefixed with ``tag``); ``extras`` as warm_up's."""
     import numpy as np
 
     from repro_torch.runtime.serve_loop import (ContinuousServeLoop, Request,
@@ -677,13 +717,15 @@ def profile(torch, cfg, params, tag="", token_loop=False):
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, 1024,
                                                dtype=np.int32),
                     max_new_tokens=64) for i in range(8)]
-    for r in reqs[:7]:
-        loop.admit(r)
+    one, fbatch = extras or (None, None)
+    ex = [one(r) if one else None for r in reqs]    # before the profile
+    for r, e in zip(reqs[:7], ex):
+        loop.admit(r, extras=e)
     loop.decode_step()
     torch.cuda.synchronize()
 
     profile_phase(torch, tag + "prefill_1024",
-                  lambda: (loop.admit(reqs[7]), 1)[1])
+                  lambda: (loop.admit(reqs[7], extras=ex[7]), 1)[1])
     profile_phase(torch, tag + "decode_step_8_lanes",
                   lambda: sum(1 for _ in range(10) if loop.decode_step()))
     del loop
@@ -692,8 +734,9 @@ def profile(torch, cfg, params, tag="", token_loop=False):
     floop = ServeLoop(cfg, params, max_len=MAX_LEN)
     batch = [Request(rid=i, prompt=r.prompt[:512], max_new_tokens=4)
              for i, r in enumerate(reqs[:4])]
+    fex = fbatch(batch) if fbatch else None
     profile_phase(torch, tag + "fixed_prefill_4x512",
-                  lambda: (floop.start(batch), 1)[1])
+                  lambda: (floop.start(batch, extras=fex), 1)[1])
 
 
 # Backward tolerances (atol = rtol): the f32 sums run in another order
@@ -1450,20 +1493,23 @@ def ckpt_check(torch, cfg, state_bytes):
 
     # the uninterrupted run saves only the state before step 0 (as every
     # run does): its losses and final state are what the recovered run
-    # must repeat, and its periodic saves would add nothing to check
-    state, base, stats_a, spans_a, wall_a = gang("a", {}, 0)
+    # must repeat, and its periodic saves would add nothing to check.
+    # Its final state stays on the card to be compared bit for bit with
+    # the recovered run's (two host fingerprints took ~20 s more).
+    state_a, base, stats_a, spans_a, wall_a = gang("a", {}, 0)
     full_bytes = stats_a[0]["full_bytes"]
-    fp_a = snap_mod._fingerprint(tree_leaves(state))
-    del state
-    torch.cuda.empty_cache()
     shutil.rmtree(os.path.join(CKPT_ROOT, "a"))
     state, failed, stats_b, spans_b, wall_b = gang("b", {3: "chip_smoke"}, 2)
-    fp_b = snap_mod._fingerprint(tree_leaves(state))
+    states_equal = all(
+        bool(torch.equal(x, y)) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(tree_leaves(state_a), tree_leaves(state)))
+    del state_a
+    torch.cuda.empty_cache()
     shutil.rmtree(os.path.join(CKPT_ROOT, "b"))
     diff = max(abs(x - y) for x, y in zip(base["losses"], failed["losses"]))
     res = {"recoveries": failed["recoveries"], "losses": base["losses"],
            "losses_recovered": failed["losses"], "max_abs_diff": diff,
-           "atol": 1e-6, "fingerprints_equal": fp_a == fp_b,
+           "atol": 1e-6, "states_equal": states_equal,
            "full_bytes": full_bytes, "wall_s": [wall_a, wall_b],
            "saves": [{k: s[k] for k in ("step", "kind", "bytes",
                                         "device_to_host_s")}
@@ -1474,6 +1520,7 @@ def ckpt_check(torch, cfg, state_bytes):
     print(f"ckpt {json.dumps(res)}", flush=True)
     assert res["recoveries"] == 1, res
     assert len(failed["losses"]) == steps and diff <= 1e-6, res
+    assert states_equal, "the recovered run's final state differs"
 
     # a (base, delta) chain of 2 saves (short, for the script's time
     # limit): rows of the embedding and the step move between saves, as a
@@ -1590,7 +1637,8 @@ def fabric_phase(torch, cfg, mods):
     (device busy time).  Asserts: the live completion order is the
     predicted one; every resume restored its snapshot's fingerprint; the
     rolled-back gang's losses are within 1e-6 of an uninterrupted run of
-    the same gang.  Returns the trace's kernel launches."""
+    the same gang.  Then the grow-with-drain step (``grow_drain``).
+    Returns the kernel launches of the trace and the step together."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -1735,6 +1783,117 @@ def fabric_phase(torch, cfg, mods):
     for name in ("flash_attention", "flash_attention_bwd",
                  "collective_codec", "diff_merge"):
         assert launches[name] > 0, launches
+    grown = grow_drain(torch, cfg, mods)
+    return {name: launches[name] + grown[name] for name in launches}
+
+
+# The grow-with-drain step: a train gang of 6 virtual chips and a serve gang
+# of 2 on the phase's 8; the serve gang grows to 4, the train gang drains
+# to 3 (its floor is 2).
+GROW = {"train": 6, "serve": 2, "floor": 2, "seq_len": 512,
+        "global_batch": 6, "over": 8}
+
+
+def grow_drain(torch, cfg, mods):
+    """``Fabric.grow_with_drain`` at the full width of ``cfg`` (the
+    serve side of slice 10; tests/test_serving.py:254 at full width): a
+    ``ServeAutoscaler`` under a breach on the full pool emits "need" for
+    world 4, the serve gang grows to it by draining the train gang (the
+    donor) from 6 chips to 3, and both gangs step again.  Checks that the
+    donor's parameters and optimizer state right after the drain equal
+    those right before it bit for bit (a drain keeps every step), and
+    that a grow to 8 raises RuntimeError.  Kernel counts are set to 0
+    just before and read just after; prints ``fabric-grow-drain``.
+    Returns the step's launches."""
+    from repro_torch.core.elastic import ElasticPolicy
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.admission import ServeAutoscaler, ServeSLO
+    from repro_torch.runtime.gang_workloads import (ServeWorkload,
+                                                    TrainWorkload)
+    from repro_torch.weights import tree_leaves
+
+    for mod, attr in mods.values():
+        setattr(mod, attr, 0)
+    fab = Fabric(n_virtual=FABRIC["pool"],
+                 chips_per_host=FABRIC["chips_per_host"], device="cuda")
+    t = fab.allocate("train0", GROW["train"], priority=0)
+    s = fab.allocate("serve0", GROW["serve"], priority=5)
+    twl = TrainWorkload(
+        cfg, AdamWConfig(lr=FABRIC["lr"], warmup_steps=1, total_steps=4),
+        DataConfig(vocab=cfg.vocab, seq_len=GROW["seq_len"],
+                   global_batch=GROW["global_batch"]), total_steps=4)
+    twl.bind(t)
+    twl.init_state(t)
+    twl.run_step(t)
+    swl = ServeWorkload(cfg, prompt_len=FABRIC["prompt_len"],
+                        new_tokens=FABRIC["serve_tokens"], batch=2,
+                        max_len=FABRIC["prompt_len"]
+                        + FABRIC["serve_tokens"] + 1, seed=1)
+    swl.bind(s)
+    swl.init_state(s)
+    swl.run_step(s)
+    scaler = ServeAutoscaler(ElasticPolicy(min_world=1, max_world=8),
+                             fab.engine, slo=ServeSLO(target_p99_s=0.5),
+                             base_world=GROW["serve"])
+    acts = scaler.decide(0.0, queue_depth=0, p99=1.0,
+                         gang_worlds={"serve0": s.n})
+    assert [(a.kind, a.world) for a in acts] == [("need", 4)], acts
+    before = [x.clone() if isinstance(x, torch.Tensor) else x
+              for x in tree_leaves(twl.state)]
+    worlds = {"serve": [s.n], "train": [t.n]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, donors = fab.grow_with_drain(
+        s, swl.state, acts[0].world,
+        donors=[(t, twl.state, GROW["floor"])])
+    torch.cuda.synchronize()
+    grow_s = time.perf_counter() - t0
+    worlds["serve"].append(s.n)
+    worlds["train"].append(t.n)
+    after = tree_leaves(donors["train0"])
+    same = len(after) == len(before) and all(
+        (a.dtype == b.dtype and torch.equal(a, b))
+        if isinstance(a, torch.Tensor) else a == b
+        for a, b in zip(before, after))
+    del before, after
+    twl.state = donors["train0"]
+    twl.bind(t)
+    swl.state = state
+    swl.bind(s)
+    twl.run_step(t)
+    swl.run_step(s)
+    over = None
+    try:
+        fab.grow_with_drain(s, swl.state, GROW["over"],
+                            donors=[(t, twl.state, GROW["floor"])])
+    except RuntimeError as e:
+        over = str(e)
+    torch.cuda.synchronize()
+    launches = {name: getattr(mod, attr) for name, (mod, attr)
+                in mods.items()}
+    moves = {h.job_id: [{k: e[k] for k in ("kind", "to", "seconds",
+                                            "bytes") if k in e}
+                        for e in h.epoch_log if e["kind"] == "rescale"]
+             for h in (s, t)}
+    res = {"worlds": worlds, "action": [acts[0].kind, acts[0].world],
+           "grow_s": grow_s, "reshards": moves,
+           "donor_state_bit_exact": same, "losses": twl.losses,
+           "serve_tokens": [list(r.out) for r in swl.requests],
+           "over_grow_raised": over, "launches": launches}
+    print("fabric-grow-drain " + json.dumps(res), flush=True)
+    s.release()
+    t.release()
+    del twl, swl, state, donors, fab
+    torch.cuda.empty_cache()
+    assert worlds == {"serve": [2, 4], "train": [6, 3]}, worlds
+    assert same, "the drain changed the donor's state"
+    assert over is not None, "a grow past the pool did not raise"
+    assert len(res["losses"]) == 2 and all(
+        math.isfinite(x) for x in res["losses"]), res["losses"]
+    assert launches["flash_attention"] > 0 \
+        and launches["flash_attention_bwd"] > 0, launches
     return launches
 
 
@@ -2146,7 +2305,8 @@ def check_mlstm(torch, cfg):
     return rows
 
 
-def serve_family(torch, cfg, params, tag, counters, reduced=None):
+def serve_family(torch, cfg, params, tag, counters, reduced=None,
+                 extras=None):
     """The serving path of one family at full width and depth: 8 Poisson
     requests (prompts 256-1024 tokens, cut to whole 64-token chunks for
     a hybrid config, whose prefill runs at the exact length; an xLSTM
@@ -2156,9 +2316,12 @@ def serve_family(torch, cfg, params, tag, counters, reduced=None):
     just before and read just after; each must equal what the path
     implies: per prefill one launch per attention block (flash), per
     Mamba block (mamba_scan) and per mLSTM block (mlstm), per prefill and
-    decode step one per MoE block (moe_gmm).  ``reduced`` names a cut of
-    the config, printed on the line."""
-    from repro_torch.configs.base import ATTN, MAMBA, MLSTM, MOE, \
+    decode step one per MoE block (moe_gmm); an ENCDEC block's causal
+    self-attention counts as an attention block, its cross-attention and
+    the audio encoder do not, nor does a CROSS_ATTN block (plain
+    products).  ``reduced`` names a cut of the config, printed on the
+    line; ``extras`` as warm_up's."""
+    from repro_torch.configs.base import ATTN, ENCDEC, MAMBA, MLSTM, MOE, \
         SHARED_ATTN
     from repro_torch.runtime.admission import request_stream
 
@@ -2174,13 +2337,15 @@ def serve_family(torch, cfg, params, tag, counters, reduced=None):
                            max_new=(16, 32))
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
-    cont, admitted = _drive_continuous(torch, cfg, params, reqs)
-    fixed = _drive_fixed(torch, cfg, params, freqs)
+    one, batch = extras or (None, None)
+    cont, admitted = _drive_continuous(torch, cfg, params, reqs,
+                                       extras_fn=one)
+    fixed = _drive_fixed(torch, cfg, params, freqs, extras_fn=batch)
     launches = {name: getattr(mod, attr)
                 for name, (mod, attr) in counters.items()}
     kinds = cfg.period() * cfg.n_periods()
     n_moe = kinds.count(MOE)
-    n_attn = sum(kinds.count(k) for k in (ATTN, SHARED_ATTN, MOE))
+    n_attn = sum(kinds.count(k) for k in (ATTN, SHARED_ATTN, MOE, ENCDEC))
     prefills = admitted + 1
     steps = cont["steps"] + fixed["steps"]
     expect = dict.fromkeys(counters, 0)
@@ -2197,44 +2362,75 @@ def serve_family(torch, cfg, params, tag, counters, reduced=None):
     return reqs, launches
 
 
+def draw_gates(torch, cfg, params, seed=5):
+    """Give every CROSS_ATTN block of ``params`` gates drawn from N(0, 1)
+    (f32, one per layer).  At init they are 0, and tanh(0) = 0 makes the
+    block the identity, through which no check sees the cross-attention,
+    the image K/V cache or a lost image."""
+    import numpy as np
+
+    from repro_torch.configs.base import CROSS_ATTN
+    rng = np.random.default_rng(seed)
+    for blk, kind in zip(params["blocks"], cfg.period()):
+        if kind == CROSS_ATTN:
+            for g in ("gate_attn", "gate_mlp"):
+                blk[g] = torch.as_tensor(
+                    rng.normal(size=tuple(blk[g].shape)).astype(np.float32),
+                    device=blk[g].device)
+
+
 # phi3.5-moe-42b-a6.6b at full width, cut in depth: 8 of its 32 layers
 # are 10,665,136,128 params (21.3 GB in bf16); all 32 are 41,872,527,360
 # (83.7 GB), more than the card's 80 GB.
 PHI_LAYERS = 8
+# (arch, line tag, token_loop, layers or None, the cut or None)
+FAMILIES = [
+    ("granite-moe-1b-a400m", "moe", False, None, None),
+    ("phi3.5-moe-42b-a6.6b", "moe_phi", False, PHI_LAYERS,
+     f"depth {PHI_LAYERS} of 32 layers: 10,665,136,128 params (21.3 GB "
+     "bf16); all 32 are 83.7 GB, over the card's 80 GB"),
+    ("zamba2-2.7b", "hybrid", False, None, None),
+    ("xlstm-1.3b", "ssm", True, None, None),
+    ("whisper-small", "audio", False, None, None),
+    ("llama-3.2-vision-11b", "vlm", False, None, None)]
 
 
 def families(torch, counters, phase_time):
-    """Phase 7: serve full-width granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b
-    (PHI_LAYERS of its 32 layers), zamba2-2.7b and xlstm-1.3b in bf16
-    (random weights from a seed): first use of every serve shape, the
-    serving drive, the prefill check and a profile, for each.  An xLSTM
+    """Phase 8: serve full-width granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b
+    (PHI_LAYERS of its 32 layers), zamba2-2.7b, xlstm-1.3b, whisper-small
+    and llama-3.2-vision-11b (the last two at full depth too) in bf16
+    (random weights from a seed; the vision model's cross-attention
+    gates drawn, ``draw_gates``): first use of every serve shape, the
+    serving drive, the prefill check and a profile, for each.  The audio
+    and VLM requests carry the serve CLI's extras (encoder frames of
+    (1, 1500, 768), image tokens of (1, 1601, 4096), drawn from
+    ``default_rng([0, 5, rid])``).  An xLSTM
     prefill launches about 140 kernels a token (the sLSTM token loop),
     and the profiler's own processing of a 1024-token one takes tens of
     seconds, so that family is marked ``token_loop`` (see warm_up and
     profile).  ``phase_time`` marks each family's end."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import _extras_fns
     from repro_torch.models import transformer as tf
 
     total = dict.fromkeys(counters, 0)
-    phi_cut = (f"depth {PHI_LAYERS} of 32 layers: 10,665,136,128 params "
-               "(21.3 GB bf16); all 32 are 83.7 GB, over the card's 80 GB")
-    for arch, tag, token_loop, layers, reduced in (
-            ("granite-moe-1b-a400m", "moe", False, None, None),
-            ("phi3.5-moe-42b-a6.6b", "moe_phi", False, PHI_LAYERS, phi_cut),
-            ("zamba2-2.7b", "hybrid", False, None, None),
-            ("xlstm-1.3b", "ssm", True, None, None)):
+    for arch, tag, token_loop, layers, reduced in FAMILIES:
         cfg = get_config(arch)
         if layers:
             cfg = cfg.with_(n_layers=layers)
         gen = torch.Generator(device="cuda").manual_seed(0)
+        extras = _extras_fns(cfg, 0, "cuda")     # (None, None) elsewhere
         with torch.no_grad():
             params = tf.init_params(gen, cfg, device="cuda")
-            warm_up(torch, cfg, params, MAX_LEN, token_loop=token_loop)
+            draw_gates(torch, cfg, params)
+            warm_up(torch, cfg, params, MAX_LEN, token_loop=token_loop,
+                    extras=extras)
             reqs, launches = serve_family(torch, cfg, params, tag, counters,
-                                          reduced=reduced)
-            check_prefill(torch, cfg, params, reqs, MAX_LEN)
+                                          reduced=reduced, extras=extras)
+            check_prefill(torch, cfg, params, reqs, MAX_LEN,
+                          extras_fn=extras[0])
             profile(torch, cfg, params, tag=f"{tag}_",
-                    token_loop=token_loop)
+                    token_loop=token_loop, extras=extras)
         for name in total:
             total[name] += launches[name]
         del params
@@ -2315,8 +2511,8 @@ def main() -> int:
         [r for r in codec_rows + dm_rows if not r["bit_exact"]]
     assert not bad, bad
     main_row = next(r for r in rows if r["B"] == 1 and r["S"] == 1024
-                    and r["hd"] == 64 and r["window"] == 0 and r["causal"]
-                    and r["dtype"] == "bfloat16")
+                    and r["H"] == 32 and r["hd"] == 64 and r["window"] == 0
+                    and r["causal"] and r["dtype"] == "bfloat16")
     bwd_row = next(r for r in bwd_rows if r["B"] == 2 and r["S"] == 1024
                    and r["hd"] == 64 and r["window"] == 0
                    and r["dtype"] == "bfloat16")

@@ -6,11 +6,13 @@ bursty) and enter a ``ContinuousServeLoop`` slot as soon as one frees;
 ``--engine fixed`` replays the same stream through the drain-to-slowest
 batch loop, and ``--engine both`` reports the head-to-head.  Latency
 percentiles are in virtual seconds (one decode step = ``--step-ms``);
-``wall_s`` is real time.  The port serves the dense, MoE, hybrid and
-xLSTM families (llama3.2-1b, granite-moe-1b-a400m, zamba2-2.7b,
-xlstm-1.3b, ...); the audio and VLM families raise
-``NotImplementedError``.  Hybrid and xLSTM configs prefill at the exact
-prompt length.
+``wall_s`` is real time.  The port serves every family of the JAX
+package: dense, MoE, hybrid, xLSTM, audio and VLM (llama3.2-1b,
+granite-moe-1b-a400m, zamba2-2.7b, xlstm-1.3b, whisper-small,
+llama-3.2-vision-11b, ...).  Hybrid and xLSTM configs prefill at the
+exact prompt length.  The audio and VLM families take per-request
+extras (encoder frames, image tokens) drawn from the seed as the JAX
+CLI draws them, so both CLIs serve the same inputs.
 
 Example:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
@@ -20,6 +22,8 @@ Example:
         --engine both --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
         --engine both --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
+        --engine both --device cpu
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -41,6 +46,30 @@ from repro_torch.runtime.serve_loop import ContinuousServeLoop, ServeLoop
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _extras_fns(cfg, seed: int, device):
+    """Per-request / per-batch model extras (audio frames, image tokens)
+    for the multimodal families; None elsewhere.  Request ``rid``'s
+    extra is ``default_rng([seed, 5, rid]).normal`` of shape
+    (1, enc_seq or n_img_tokens, d_model), cast from float64 to the
+    model's dtype, as the JAX CLI draws it."""
+    if cfg.family not in ("audio", "vlm"):
+        return None, None
+    key, shape = (("frames", cfg.enc_seq) if cfg.family == "audio"
+                  else ("img", cfg.n_img_tokens))
+
+    def draw(b: int, rid: int):
+        rng = np.random.default_rng([seed, 5, rid])
+        return torch.from_numpy(rng.normal(size=(b, shape, cfg.d_model))).to(
+            device=device, dtype=cfg.torch_dtype())
+
+    def one(req):
+        return {key: draw(1, req.rid)}
+
+    def batch(reqs):
+        return {key: torch.cat([draw(1, r.rid) for r in reqs])}
+    return one, batch
 
 
 def main(argv=None):
@@ -85,6 +114,7 @@ def main(argv=None):
     params = tf.init_params(gen, cfg, device=device)
     batch = args.batch or args.slots
     step_s = args.step_ms / 1e3
+    one_extra, batch_extra = _extras_fns(cfg, args.seed, device)
 
     # the fixed baseline needs equal-length prompts; the continuous
     # engine takes the stream ragged
@@ -126,13 +156,15 @@ def main(argv=None):
         loop = ContinuousServeLoop(cfg, params, slots=args.slots,
                                    max_len=args.max_len)
         t0 = time.time()
-        rep = run_open_loop(loop, stream(), step_s=step_s)
+        rep = run_open_loop(loop, stream(), step_s=step_s,
+                            extras_fn=one_extra)
         _sync(device)
         emit("continuous", rep, time.time() - t0)
     if args.engine in ("fixed", "both"):
         loop = ServeLoop(cfg, params, max_len=args.max_len)
         t0 = time.time()
-        rep = run_fixed_batch(loop, stream(), batch, step_s=step_s)
+        rep = run_fixed_batch(loop, stream(), batch, step_s=step_s,
+                              extras_fn=batch_extra)
         _sync(device)
         emit("fixed", rep, time.time() - t0)
     if args.engine == "both":

@@ -43,6 +43,17 @@ def rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5):
     return (y * w.float()).to(x.dtype)
 
 
+def layer_norm(params, x: torch.Tensor, eps: float = 1e-5):
+    """LayerNorm with weight ``params["w"]`` and bias ``params["b"]``, in
+    f32 (the population variance, as ``jnp.var``), cast back to x's
+    dtype."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * params["w"].float() + params["b"].float()).to(x.dtype)
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Contract the last axis of ``x`` with the first of ``w``.  PyTorch's
     bf16 GEMM accumulates in f32 and rounds once to bf16, which is what the

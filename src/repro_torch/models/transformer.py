@@ -1,5 +1,5 @@
-"""Block stack of the dense, MoE, hybrid and xLSTM families (PyTorch port
-of ``repro.models.transformer``).
+"""Block stack of every family: dense, MoE, hybrid, xLSTM, VLM and audio
+(PyTorch port of ``repro.models.transformer``).
 
 The stack is ``n_periods`` repetitions of a period of block kinds (see
 ``ArchConfig.period()``); parameters and decode states are stacked per
@@ -9,9 +9,16 @@ attention block lives unstacked in ``params["shared"]``, with ``None`` at
 its place in ``params["blocks"]``; it keeps a KV state per period like any
 attention block.
 
-Ported kinds: ATTN, MOE, MAMBA, SHARED_ATTN, MLSTM and SLSTM.  The others
-(cross-attention, encoder-decoder) raise ``NotImplementedError`` until the
-ROADMAP's slices port them.
+The VLM's CROSS_ATTN block attends to the image embeddings
+(``ctx["img"]``) through tanh gates (f32 scalars, 0 at init, so a freshly
+initialised block is the identity); its decode state is the image K/V.
+The audio family's ENCDEC block adds cross-attention to the encoder's
+states (``ctx["enc"]``, which ``forward`` computes from ``ctx["frames"]``
+with ``encode``) after a causal self-attention; its decode state is the
+self-attention cache plus the encoder K/V (``xk``, ``xv``).
+Cross-attention and the bidirectional encoder are plain products, as in
+the JAX package (its kernel takes only causal self-attention); the
+causal self-attentions run the flash kernel on CUDA.
 """
 from __future__ import annotations
 
@@ -30,12 +37,6 @@ from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (dense_init, init_mlp, matmul, mlp,
                                        rms_norm)
 from repro_torch.weights import tree_map
-
-
-def _unported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported to repro_torch yet (ROADMAP, "
-        "'The port: slices': the audio and VLM blocks)")
 
 
 _ATTN_KINDS = (cb.ATTN, cb.SHARED_ATTN, cb.MOE)
@@ -64,6 +65,23 @@ def init_block(gen, kind: str, cfg, device="cuda") -> Dict[str, Any]:
         return {"ln1": ones(),
                 "attn": attn.init_attention(gen, cfg, device=dev),
                 "ln2": ones(), "moe": moe_mod.init_moe(gen, cfg, device=dev)}
+    if kind == cb.CROSS_ATTN:
+        # llama3.2-vision style: tanh-gated cross-attention + gated MLP
+        gate = lambda: torch.zeros((), dtype=torch.float32, device=dev)
+        return {"ln1": ones(),
+                "xattn": attn.init_attention(gen, cfg, device=dev),
+                "ln2": ones(),
+                "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                                device=dev),
+                "gate_attn": gate(), "gate_mlp": gate()}
+    if kind == cb.ENCDEC:
+        return {"ln1": ones(),
+                "attn": attn.init_attention(gen, cfg, device=dev),
+                "lnx": ones(),
+                "xattn": attn.init_attention(gen, cfg, device=dev),
+                "ln2": ones(),
+                "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                                device=dev)}
     if kind == cb.MAMBA:
         return {"ln1": ones(),
                 "mamba": ssm_mod.init_mamba(gen, cfg, device=dev)}
@@ -73,7 +91,7 @@ def init_block(gen, kind: str, cfg, device="cuda") -> Dict[str, Any]:
     if kind == cb.SLSTM:
         return {"ln1": ones(),
                 "slstm": xlstm_mod.init_slstm(gen, cfg, device=dev)}
-    raise _unported(kind)
+    raise ValueError(kind)
 
 
 def init_block_state(kind: str, cfg, batch: int, max_len: int, dtype,
@@ -82,18 +100,41 @@ def init_block_state(kind: str, cfg, batch: int, max_len: int, dtype,
     if kind in _ATTN_KINDS:
         return attn.init_kv_cache(cfg, batch, max_len, dtype, window=window,
                                   device=device)
+    if kind in (cb.CROSS_ATTN, cb.ENCDEC):
+        dev = resolve_device(device)
+        seq = cfg.n_img_tokens if kind == cb.CROSS_ATTN else cfg.enc_seq
+        shape = (batch, seq, cfg.n_kv_heads, cfg.hd())
+        cross = [torch.zeros(shape, dtype=dtype, device=dev)
+                 for _ in range(2)]
+        if kind == cb.CROSS_ATTN:
+            return dict(zip(("k", "v"), cross))
+        c = attn.init_kv_cache(cfg, batch, max_len, dtype, device=dev)
+        c["xk"], c["xv"] = cross
+        return c
     if kind == cb.MAMBA:
         return ssm_mod.init_mamba_state(cfg, batch, dtype, device=device)
     if kind == cb.MLSTM:
         return xlstm_mod.init_mlstm_state(cfg, batch, dtype, device=device)
     if kind == cb.SLSTM:
         return xlstm_mod.init_slstm_state(cfg, batch, dtype, device=device)
-    raise _unported(kind)
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
 # Per-kind block apply
 # ---------------------------------------------------------------------------
+def _gate(g, x):
+    """A CROSS_ATTN gate: tanh of the f32 scalar, cast to x's dtype (the
+    JAX package's ``jnp.tanh(g).astype(x.dtype)``)."""
+    return torch.tanh(g).to(x.dtype)
+
+
+def _gated_mlp(p, x, cfg):
+    """The CROSS_ATTN block's second half: x + tanh(gate_mlp) * MLP."""
+    h = mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), cfg.act, cfg)
+    return x + _gate(p["gate_mlp"], x) * h
+
+
 def apply_block_seq(kind: str, p, x, cfg, ctx):
     """x: (B,S,d) -> (x', aux_loss, state).
 
@@ -115,11 +156,31 @@ def apply_block_seq(kind: str, p, x, cfg, ctx):
             h = mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), cfg.act,
                     cfg)
         return x + h, aux, state
+    if kind == cb.CROSS_ATTN:
+        h, (k, v) = attn.attention(
+            p["xattn"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg,
+            ctx["positions"], causal=False, kv_x=ctx["img"], use_rope=False)
+        state = {"k": k, "v": v} if collect else None
+        return _gated_mlp(p, x + _gate(p["gate_attn"], x) * h, cfg), aux, \
+            state
+    if kind == cb.ENCDEC:
+        h, (k, v) = attn.attention(
+            p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg,
+            ctx["positions"], causal=True)
+        x = x + h
+        h, (xk, xv) = attn.attention(
+            p["xattn"], rms_norm(p["lnx"], x, cfg.norm_eps), cfg,
+            ctx["positions"], causal=False, kv_x=ctx["enc"], use_rope=False)
+        state = ({"k": k, "v": v, "xk": xk, "xv": xv} if collect
+                 else None)
+        x = x + h
+        h = mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), cfg.act, cfg)
+        return x + h, aux, state
     if kind in _RECURRENT:
         key, fwd, _ = _RECURRENT[kind]
         h, st = fwd(p[key], rms_norm(p["ln1"], x, cfg.norm_eps), cfg)
         return x + h, aux, (st if collect else None)
-    raise _unported(kind)
+    raise ValueError(kind)
 
 
 def apply_block_decode(kind: str, p, x, state, cfg, ctx):
@@ -139,6 +200,26 @@ def apply_block_decode(kind: str, p, x, state, cfg, ctx):
             h = mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), cfg.act,
                     cfg)
         return x + h, state
+    if kind == cb.CROSS_ATTN:
+        # the image K/V of the state are static: read, never written
+        h, _ = attn.decode_attention(
+            p["xattn"], rms_norm(p["ln1"], x, cfg.norm_eps), state, cfg,
+            ctx["positions"], kv_x=True, use_rope=False)
+        return _gated_mlp(p, x + _gate(p["gate_attn"], x) * h, cfg), state
+    if kind == cb.ENCDEC:
+        # the new self-attention row goes into state["k"] / state["v"]
+        # in place; the encoder K/V (xk, xv) are only read
+        h, _ = attn.decode_attention(
+            p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), state, cfg,
+            ctx["positions"])
+        x = x + h
+        h, _ = attn.decode_attention(
+            p["xattn"], rms_norm(p["lnx"], x, cfg.norm_eps),
+            {"k": state["xk"], "v": state["xv"]}, cfg, ctx["positions"],
+            kv_x=True, use_rope=False)
+        x = x + h
+        h = mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), cfg.act, cfg)
+        return x + h, state
     if kind in _RECURRENT:
         key, _, dec = _RECURRENT[kind]
         h, new = dec(p[key], rms_norm(p["ln1"], x, cfg.norm_eps), state, cfg)
@@ -146,7 +227,7 @@ def apply_block_decode(kind: str, p, x, state, cfg, ctx):
             if t is not state[name]:
                 state[name].copy_(t)
         return x + h, state
-    raise _unported(kind)
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +264,49 @@ def init_params(gen: Optional[torch.Generator], cfg,
         for kind in period]
     if cb.SHARED_ATTN in period:
         params["shared"] = init_block(gen, cb.SHARED_ATTN, cfg, device=dev)
+    if cfg.family == "audio":
+        params["encoder"] = {
+            "blocks": _stack([init_block(gen, cb.ATTN, cfg, device=dev)
+                              for _ in range(cfg.n_enc_layers)]),
+            "norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev)}
     return params
+
+
+# ---------------------------------------------------------------------------
+# Encoder (audio): bidirectional attention over pre-embedded frames
+# ---------------------------------------------------------------------------
+def _sinusoid(seq: int, d: int, device) -> torch.Tensor:
+    """(seq, d) f32 sinusoidal positions: sin on even columns, cos on odd
+    ones, each step in f32 as the JAX package computes it."""
+    f32 = torch.float32
+    pos = torch.arange(seq, dtype=f32, device=device)[:, None]
+    log = torch.log(torch.tensor(10000.0, dtype=f32, device=device))
+    div = torch.exp(-log * torch.arange(0, d, 2, dtype=f32, device=device)
+                    / d)
+    pe = torch.zeros((seq, d), dtype=f32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+def encode(params, frames, cfg):
+    """frames: (B, enc_seq, d) stub frontend output -> encoder states.
+    The positions are added in f32 cast to the frames' dtype; each of
+    the ``n_enc_layers`` blocks is bidirectional self-attention (no RoPE)
+    and an MLP; a final RMSNorm."""
+    seq = frames.shape[1]
+    x = frames + _sinusoid(seq, cfg.d_model, frames.device).to(frames.dtype)
+    enc = params["encoder"]
+    positions = torch.arange(seq, device=frames.device)[None, :]
+    for i in range(cfg.n_enc_layers):
+        p = period_params(enc["blocks"], i)
+        h, _ = attn.attention(p["attn"],
+                              rms_norm(p["ln1"], x, cfg.norm_eps), cfg,
+                              positions, causal=False, use_rope=False)
+        x = x + h
+        x = x + mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), cfg.act,
+                    cfg)
+    return rms_norm(enc["norm"], x, cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +360,8 @@ def forward(params, tokens, cfg, ctx: Optional[Dict[str, Any]] = None):
     x = F.embedding(tokens.long(), params["embed"])
     ctx.setdefault("positions",
                    torch.arange(s, device=tokens.device)[None, :])
+    if cfg.family == "audio":
+        ctx["enc"] = encode(params, ctx["frames"], cfg)
     collect = ctx.get("collect_state", False)
     remat = cfg.remat and not collect and torch.is_grad_enabled()
     period = cfg.period()

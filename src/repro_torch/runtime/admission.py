@@ -13,14 +13,19 @@ engines on a deterministic virtual clock (one decode step = ``step_s``):
 * ``run_fixed_batch``: the fixed-batch baseline: wait for a full batch,
   drain it to the slowest member, repeat.
 
-The SLO autoscaler (``ServeSLO``, ``ServeAutoscaler``) decides through
-placement and waits for the port's fabric slice.
+``ServeAutoscaler`` is the control loop: it watches queue depth and the
+sliding-window p99 per-token latency against a ``ServeSLO`` and asks
+``ElasticPolicy.decide_scaled`` / ``PlacementEngine`` for grow, shrink
+or clone actions, the same placement path trace jobs use, so serve
+capacity and training tenants contend under one accounting.  Its
+``ServeSLO``, ``ScaleAction`` and ``ServeAutoscaler`` are the JAX
+module's, line for line.
 """
 from __future__ import annotations
 
 import dataclasses
 import heapq
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -29,8 +34,8 @@ from repro_torch.core.arrivals import ARRIVAL_REGIMES, arrival_times
 from repro_torch.runtime.serve_loop import Request
 
 __all__ = ["ARRIVAL_REGIMES", "AdmissionQueue", "LatencyWindow",
-           "ServeReport", "request_stream", "run_fixed_batch",
-           "run_open_loop"]
+           "ScaleAction", "ServeAutoscaler", "ServeReport", "ServeSLO",
+           "request_stream", "run_fixed_batch", "run_open_loop"]
 
 
 def request_stream(n: int, rate: float, seed: int,
@@ -133,6 +138,105 @@ class LatencyWindow:
     @property
     def p99(self) -> Optional[float]:
         return self.percentile(99.0)
+
+
+@dataclasses.dataclass
+class ServeSLO:
+    """The serve objective the autoscaler holds: p99 per-token latency
+    below ``target_p99_s`` with queue depth bounded per slot."""
+    target_p99_s: float = 0.5
+    queue_high: float = 2.0        # queued requests per slot -> grow
+    queue_low: float = 0.25        # queued requests per slot -> shrink
+    headroom: float = 0.6          # shrink only when p99 < headroom*target
+
+
+@dataclasses.dataclass
+class ScaleAction:
+    gang_id: str
+    kind: str            # "grow" | "shrink" | "clone" | "need"
+    world: int           # target world (new gang world for clone)
+
+
+class ServeAutoscaler:
+    """SLO-driven control loop over one or more serve gangs.
+
+    Each control tick compares the measured p99 per-token latency and
+    queue pressure against the ``ServeSLO`` and emits ``ScaleAction``s:
+
+    * breach (p99 over target, or queue above ``queue_high``/slot) →
+      grow the busiest gang 2x through ``ElasticPolicy.decide_scaled``;
+      if the policy can't grow it (budget/probe), **clone** a new gang
+      at base world instead — scale out when scale up is exhausted.
+    * comfortable (p99 under ``headroom``*target and queue below
+      ``queue_low``/slot) → shrink the largest gang 2x, retiring clones
+      at min world, returning chips to the pool for training backfill.
+
+    A cooldown of ``cooldown_s`` separates actions so one decision's
+    effect lands in the window before the next is taken.  The caller
+    applies actions (rescale / spawn / retire) — the controller only
+    decides, against the same engine accounting placements use.
+    """
+
+    def __init__(self, policy, engine, slo: Optional[ServeSLO] = None,
+                 slots_per_chip: int = 1, base_world: Optional[int] = None,
+                 cooldown_s: float = 2.0, kind: str = "omp"):
+        self.policy = policy
+        self.engine = engine
+        self.slo = slo or ServeSLO()
+        self.slots_per_chip = int(slots_per_chip)
+        self.base_world = base_world or policy.min_world
+        self.cooldown_s = float(cooldown_s)
+        self.kind = kind
+        self._last_action_t = -1e18
+        self.actions: List[Tuple[float, ScaleAction]] = []
+
+    def _emit(self, now: float, act: ScaleAction) -> List[ScaleAction]:
+        self._last_action_t = now
+        self.actions.append((now, act))
+        return [act]
+
+    def decide(self, now: float, queue_depth: int,
+               p99: Optional[float],
+               gang_worlds: Dict[str, int]) -> List[ScaleAction]:
+        if not gang_worlds or now - self._last_action_t < self.cooldown_s:
+            return []
+        slots = sum(gang_worlds.values()) * self.slots_per_chip
+        per_slot = queue_depth / max(1, slots)
+        breach = (p99 is not None and p99 > self.slo.target_p99_s) \
+            or per_slot > self.slo.queue_high
+        comfy = (p99 is None or p99 < self.slo.headroom
+                 * self.slo.target_p99_s) \
+            and per_slot < self.slo.queue_low
+        if breach:
+            # grow the most loaded gang; clone when grow is impossible;
+            # when the pool itself is exhausted, emit "need" — the
+            # fleet's cue to reclaim chips from elastic tenants (a
+            # training gang drains at its control point) and retry
+            gid = max(gang_worlds, key=lambda g: (-gang_worlds[g], g))
+            new = self.policy.decide_scaled(gang_worlds[gid], self.engine,
+                                            2.0, kind=self.kind)
+            if new is not None and new > gang_worlds[gid]:
+                return self._emit(now, ScaleAction(gid, "grow", new))
+            res = self.engine.reserve(self.base_world, kind=self.kind)
+            if res is not None:
+                self.engine.cancel(res)
+                return self._emit(
+                    now, ScaleAction(f"clone-{len(self.actions)}",
+                                     "clone", self.base_world))
+            want = min(self.policy.max_world, gang_worlds[gid] * 2)
+            if want > gang_worlds[gid]:
+                return self._emit(now, ScaleAction(gid, "need", want))
+            return []
+        if comfy and (len(gang_worlds) > 1
+                      or max(gang_worlds.values()) > self.policy.min_world):
+            gid = max(gang_worlds, key=lambda g: (gang_worlds[g], g))
+            new = self.policy.decide_scaled(gang_worlds[gid], self.engine,
+                                            0.5, kind=self.kind)
+            if new is not None and new < gang_worlds[gid]:
+                return self._emit(now, ScaleAction(gid, "shrink", new))
+            if len(gang_worlds) > 1:    # clone already at min world
+                return self._emit(now, ScaleAction(gid, "shrink", 0))
+        return []
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,8 @@ recovered run repeat the lost steps.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
 ignored: training the MoE, hybrid and xLSTM families (their kernels have
-no backward yet).
+no backward yet) and the audio and VLM families (their batches carry
+frames and image tokens, which the data path does not make yet).
 """
 from __future__ import annotations
 
@@ -47,6 +48,8 @@ from repro_torch.weights import tree_leaves
 
 _TRAIN_FAMILIES = ("training of the MoE and hybrid families and of xLSTM: "
                    "gradients through moe_gmm, mamba_scan and mlstm")
+_TRAIN_EXTRAS = ("training of the audio and VLM families: the frames and "
+                 "image-token extras of each batch (extra_batch_specs)")
 
 
 @dataclasses.dataclass
@@ -81,11 +84,13 @@ class RuntimeConfig:
 
 def _refuse_unported(cfg: ArchConfig) -> None:
     """Raise for a family whose training is not ported yet."""
-    if cfg.family in ("moe", "hybrid", "ssm"):
+    later = {"moe": _TRAIN_FAMILIES, "hybrid": _TRAIN_FAMILIES,
+             "ssm": _TRAIN_FAMILIES, "audio": _TRAIN_EXTRAS,
+             "vlm": _TRAIN_EXTRAS}.get(cfg.family)
+    if later is not None:
         raise NotImplementedError(
             f"training the {cfg.family} family ({cfg.name}) is not ported to "
-            f"repro_torch yet (ROADMAP, 'The port: slices', "
-            f"{_TRAIN_FAMILIES})")
+            f"repro_torch yet (ROADMAP, 'The port: slices', {later})")
 
 
 def params_nbytes(tree) -> int:

@@ -1,25 +1,39 @@
 """Run a JAX-package test file's cases against the port: the file's source
-with its ``repro.core`` imports pointed at ``repro_torch.core``, executed
-as a module of its own, its cases (and fixtures) handed to the calling
-test module."""
+with its imports of the port's verbatim copies (``repro.core`` and the
+serve-control modules ``repro.runtime.{admission,serve_fleet,
+serve_loop}``) pointed at ``repro_torch``, executed as a module of its
+own, its cases (and fixtures) handed to the calling test module."""
 import importlib.util
 import inspect
 import os
 import re
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-IMPORT = re.compile(r"^(\s*)(from|import) repro\.core\b", re.M)
+IMPORT = re.compile(r"^(\s*)(from|import) repro\.((?:core|runtime\."
+                    r"(?:admission|serve_fleet|serve_loop))\b)", re.M)
+
+
+def rewrite(text):
+    """``text`` with the imports ``IMPORT`` matches pointed at the port."""
+    return IMPORT.sub(r"\1\2 repro_torch.\3", text)
+
+
+def _case_bodies(text):
+    """Each top-level ``def test_*`` of ``text`` and its source."""
+    return dict(re.findall(r"^def (test_\w+)(.*?)(?=^\S|\Z)", text,
+                           re.M | re.S))
 
 
 def ported_module(fname):
-    """The JAX test file ``fname``, its ``repro.core`` imports pointed at
+    """The JAX test file ``fname``, its imports of the copies pointed at
     the port."""
     with open(os.path.join(HERE, fname)) as f:
-        text = IMPORT.sub(r"\1\2 repro_torch.core", f.read())
+        text = rewrite(f.read())
     spec = importlib.util.spec_from_loader("_port_mirror_" + fname[:-3],
                                            loader=None)
     mod = importlib.util.module_from_spec(spec)
     mod.__file__ = os.path.join(HERE, fname)
+    mod._ported_source = text
     exec(compile(text, mod.__file__, "exec"), mod.__dict__)
     return mod
 
@@ -53,7 +67,9 @@ def export(namespace, fname, take=None, skip=()):
 
 def check_coverage(namespace, fname, mod, take=None, skip=()):
     """Every case of ``fname`` bar ``skip`` is in ``namespace``, and the
-    ported module refers to the port's modules, never the JAX package's."""
+    ported module refers to the port's modules, never the JAX package's:
+    neither its module-level imports nor the imports inside the cases
+    taken (where a file imports only inside its cases)."""
     with open(os.path.join(HERE, fname)) as f:
         cases = re.findall(r"^def (test_\w+)", f.read(), re.M)
     for c in cases:
@@ -65,4 +81,12 @@ def check_coverage(namespace, fname, mod, take=None, skip=()):
              if inspect.ismodule(v) or inspect.isclass(v)}
     assert not any(n == "repro" or n.startswith("repro.") for n in names), \
         names
-    assert any(n.startswith("repro_torch.") for n in names), names
+    bodies = _case_bodies(mod._ported_source)
+    taken = [bodies[c] for c in cases
+             if (take is None or c in take) and c not in skip]
+    inner = re.findall(r"^\s*(?:from|import) (repro\S*)", "".join(taken),
+                       re.M)
+    assert not any(n == "repro" or n.startswith("repro.") for n in inner), \
+        inner
+    assert any(n.startswith("repro_torch.") for n in names) \
+        or any(n.startswith("repro_torch.") for n in inner), (names, inner)

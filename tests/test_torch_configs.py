@@ -85,7 +85,8 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.core.granule", "repro_torch.core.elastic",
                 "repro_torch.core.devices", "repro_torch.core.fabric",
                 "repro_torch.runtime.gang_workloads",
-                "repro_torch.launch.trace"}
+                "repro_torch.launch.trace",
+                "repro_torch.runtime.serve_fleet"}
         assert need <= set(names), sorted(need - set(names))
         assert len(names) >= 60, names
         print("imported", len(names))

@@ -39,24 +39,25 @@ from repro_torch.core import simulator as TS
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.join(HERE, "..")
+# modules of core/ by name; others by their path under the package
 COPIES = ("comms", "telemetry", "placement", "fleet", "simulator",
-          "scheduler", "granule")
-_IMPORT = _port_mirror.IMPORT
+          "scheduler", "granule", "runtime/serve_fleet")
 
 
 def _import_lines(text):
     return [ln for ln in text.splitlines()
-            if re.match(r"\s*(from|import) repro(_torch)?\.core", ln)]
+            if re.match(r"\s*(from|import) repro(_torch)?\.(core|runtime)\.?",
+                        ln)]
 
 
 @pytest.mark.parametrize("name", COPIES)
 def test_copies_differ_only_in_their_import_lines(name):
-    with open(os.path.join(ROOT, "src", "repro", "core", name + ".py")) as f:
+    rel = (name if "/" in name else "core/" + name) + ".py"
+    with open(os.path.join(ROOT, "src", "repro", rel)) as f:
         jax_text = f.read()
-    with open(os.path.join(ROOT, "src", "repro_torch", "core",
-                           name + ".py")) as f:
+    with open(os.path.join(ROOT, "src", "repro_torch", rel)) as f:
         port_text = f.read()
-    assert _IMPORT.sub(r"\1\2 repro_torch.core", jax_text) == port_text
+    assert _port_mirror.rewrite(jax_text) == port_text
     changed = [ln[2:] for ln in difflib.ndiff(jax_text.splitlines(),
                                                port_text.splitlines())
                if ln[:2] in ("+ ", "- ")]

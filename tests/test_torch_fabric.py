@@ -11,6 +11,9 @@ tests/test_dist.py and the fabric hook case of tests/test_collectives.py).
   assertions as they stand (bit-exact where they are bit-exact).
 * tests/test_dist.py's elastic loss invariance, migration between device
   sets and straggler migration, on the port runtime.
+* tests/test_serving.py's grow-with-drain case: a serve gang under a
+  breach grows from 2 to 4 chips by draining a 6-chip training gang to
+  3, after a ``ServeAutoscaler`` on the full pool asks for it ("need").
 * One live trace with two preemptions and a hard host failure runs in
   both packages (JAX in an 8-device subprocess; the port from the JAX
   init, serve weights and batches, carried as numpy): the port's
@@ -45,12 +48,15 @@ from repro_torch.core.placement import CostModel, LocalityScoredPolicy, \
 from repro_torch.core.simulator import Job, hetero_speeds
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.models import transformer as tf
+from repro_torch.core.elastic import ElasticPolicy
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.runtime.admission import ServeAutoscaler, ServeSLO
 from repro_torch.runtime.gang_workloads import (ServeWorkload, TrainWorkload,
                                                 workload_factory)
 from repro_torch.runtime.serve_loop import Request, ServeLoop
 from repro_torch.runtime.train_loop import FaabricTrainRuntime, RuntimeConfig
-from repro_torch.weights import params_from_numpy, state_from_numpy
+from repro_torch.weights import (params_from_numpy, state_from_numpy,
+                                 tree_leaves)
 
 torch.set_num_threads(2)   # several test workers share the cores
 
@@ -237,6 +243,63 @@ def test_shared_fabric_rescale_caps_and_serve_resume_fresh_loop(tmp_path):
         while l2.decode_step():
             pass
     assert [r.out for r in rebuilt] == ref
+
+
+def _same_tree(a, b):
+    """Leaves equal bit for bit (tensors: dtype, shape and values)."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        (x.dtype == y.dtype and torch.equal(x, y))
+        if isinstance(x, torch.Tensor) else np.array_equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def test_fabric_grow_with_drain_reclaims_from_donors():
+    """tests/test_serving.py:254 on the port's Fabric (8 virtual CPU
+    devices), with the autoscaler's "need" that asks for the grow and
+    the donor's state checked bit for bit across its drain."""
+    fab = _fabric()                                 # 8 chips
+    t = fab.allocate("train0", 6, priority=0)
+    s = fab.allocate("serve0", 2, priority=5)
+    twl = TrainWorkload(CFG, OCFG, DCFG, total_steps=8)
+    twl.bind(t)
+    twl.init_state(t)
+    twl.run_step(t)
+    swl = ServeWorkload(CFG, new_tokens=3, batch=2, max_len=16)
+    swl.bind(s)
+    swl.init_state(s)
+    swl.run_step(s)
+    # a breach on a full pool: no grow, no clone fits -> "need" 4
+    scaler = ServeAutoscaler(ElasticPolicy(min_world=1, max_world=8),
+                             fab.engine, slo=ServeSLO(target_p99_s=0.5),
+                             base_world=2)
+    acts = scaler.decide(0.0, queue_depth=0, p99=1.0,
+                         gang_worlds={"serve0": s.n})
+    assert [(a.kind, a.world) for a in acts] == [("need", 4)]
+    before = [x.clone() if isinstance(x, torch.Tensor) else x
+              for x in tree_leaves(twl.state)]
+    # the training donor drains (graceful shrink, zero lost work)
+    state, donors = fab.grow_with_drain(
+        s, swl.state, acts[0].world, donors=[(t, twl.state, 2)])
+    assert s.n == 4 and t.n == 3, (s.n, t.n)
+    assert set(donors) == {"train0"}
+    assert _same_tree(before, donors["train0"])
+    moves = [(e["kind"], e.get("to")) for e in t.epoch_log
+             if e["kind"] == "rescale"]
+    assert moves == [("rescale", 3)]
+    twl.state = donors["train0"]
+    twl.bind(t)
+    swl.state = state
+    swl.bind(s)
+    # both gangs keep running on their new placements
+    twl.run_step(t)
+    swl.run_step(s)
+    assert len(twl.losses) == 2 and np.isfinite(twl.losses).all()
+    assert twl.data_cfg.global_batch == 6
+    # donors exhausted at their floor -> the grow raises
+    with pytest.raises(RuntimeError):
+        fab.grow_with_drain(s, swl.state, 8, donors=[(t, twl.state, 2)])
+    assert s.n == 4 and t.n == 3      # 3 // 2 is below the floor of 2
 
 
 @pytest.mark.parametrize("continuous", [False, True])

@@ -42,6 +42,36 @@ def test_cuda_kernel_matches_plain(cuda_device, b, s, window, hd, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(1, 1024), (4, 512), (1, 1000)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_group_one_matches_plain(cuda_device, b, s, dtype):
+    """Group 1: as many KV heads as query heads, at whisper-small's
+    decoder (H 12 = KV 12, hd 64): a 1024-token prefill, the 4 x 512
+    fixed batch and a ragged length; forward and backward."""
+    tol = {"float32": 2e-5, "bfloat16": 2e-2}[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(s + b)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn((b, s, 12, 64), generator=gen,
+                           device=cuda_device).to(dt).requires_grad_()
+               for _ in range(3))
+    dout = torch.randn((b, s, 12, 64), generator=gen,
+                       device=cuda_device).to(dt)
+    before = (TO.launches, TO.bwd_launches)
+    out = TO.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert (TO.launches, TO.bwd_launches) == (before[0] + 1, before[1] + 1)
+    ref = TR.attention_ref(*(x.transpose(1, 2) for x in (q, k, v)),
+                           causal=True).transpose(1, 2)
+    rgrads = torch.autograd.grad(ref, (q, k, v), dout)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    btol = BWD_TOL[dtype]
+    for g, r in zip(grads, rgrads):
+        torch.testing.assert_close(g.float(), r.float(), atol=btol,
+                                   rtol=btol)
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     q = torch.zeros((1, 4, 128, 64), device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError, match="dtype"):

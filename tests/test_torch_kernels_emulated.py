@@ -181,6 +181,9 @@ FWD_CASES = [  # (B, H, KV, S, hd, causal, window, dtype, rising)
     (2, 2, 1, 256, 64, True, 0, torch.bfloat16, True),
     (1, 2, 1, 100, 64, True, 0, torch.float32, False),
     (1, 2, 1, 130, 128, True, 40, torch.float32, False),
+    # group 1 (as many KV heads as query heads: whisper-small's 12 / 12)
+    (1, 2, 2, 136, 64, True, 0, torch.bfloat16, False),
+    (1, 2, 2, 100, 64, True, 0, torch.float32, False),
 ]
 
 
@@ -205,6 +208,9 @@ BWD_CASES = [  # (B, H, KV, S, hd, window, dtype, rising)
     (1, 2, 1, 256, 64, 0, torch.bfloat16, True),
     (1, 2, 1, 256, 128, 0, torch.bfloat16, True),
     (1, 2, 1, 100, 64, 0, torch.float32, False),
+    # group 1
+    (1, 2, 2, 136, 64, 0, torch.bfloat16, False),
+    (1, 2, 2, 100, 64, 0, torch.float32, False),
 ]
 
 

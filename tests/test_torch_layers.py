@@ -26,6 +26,28 @@ def test_rms_norm(shape):
            J.rms_norm(jnp.asarray(w), jnp.asarray(x), 1e-5))
 
 
+@pytest.mark.parametrize("shape,dtype", [((3, 64), "float32"),
+                                         ((2, 5, 48), "float32"),
+                                         ((4, 768), "bfloat16")])
+def test_layer_norm(shape, dtype):
+    """Mean and variance in f32 (the population variance), cast back to
+    the input's dtype; bf16 rounds once at the end in both packages."""
+    rng = np.random.default_rng(4)
+    x = (rng.normal(size=shape) * 3 + 1.5).astype(np.float32)
+    w = rng.normal(size=shape[-1:]).astype(np.float32)
+    b = rng.normal(size=shape[-1:]).astype(np.float32)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    jx = jnp.asarray(x).astype(dtype)
+    t = T.layer_norm({"w": torch.from_numpy(w), "b": torch.from_numpy(b)},
+                     tx, 1e-5)
+    j = J.layer_norm({"w": jnp.asarray(w), "b": jnp.asarray(b)}, jx, 1e-5)
+    assert t.dtype == tx.dtype
+    atol = ATOL if dtype == "float32" else 0.0
+    np.testing.assert_allclose(t.float().numpy(),
+                               np.asarray(j.astype(jnp.float32)),
+                               atol=atol, rtol=1e-5 if atol else 1e-2)
+
+
 @pytest.mark.parametrize("theta", [10_000.0, 500_000.0])
 @pytest.mark.parametrize("hd", [16, 64, 80])
 def test_apply_rope(theta, hd):

@@ -129,9 +129,3 @@ def test_params_cross_bit_exact_in_bf16():
         assert a.dtype == b.dtype and a.shape == b.shape
         assert a.tobytes() == b.tobytes()
 
-
-def test_unported_families_raise():
-    for arch in ("whisper-small", "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TT.init_params(torch.Generator(), treg.reduced_config(arch),
-                           device="cpu")

@@ -223,14 +223,15 @@ def test_runtime_straggler_migrate_is_recorded_only(tmp_path):
 def test_unported_fields_raise(field, value, tmp_path):
     """Every RuntimeConfig field is ported since the fabric slice: the
     runtime takes each of these.  What stays unported, whatever the
-    fields, is training the MoE, hybrid and xLSTM families."""
+    fields, is training the MoE, hybrid, xLSTM, audio and VLM families."""
     kw = {"checkpoint_every": 0, "ckpt_dir": str(tmp_path), field: value}
     rt = TRL.RuntimeConfig(**kw)
     runtime = TRL.FaabricTrainRuntime(
         treg.reduced_config("llama3.2-1b"), TAW.AdamWConfig(),
         TD.DataConfig(), rt, device="cpu")
     assert getattr(runtime.rt, field) is value
-    for arch in ("granite-moe-1b-a400m", "zamba2-2.7b", "xlstm-1.3b"):
+    for arch in ("granite-moe-1b-a400m", "zamba2-2.7b", "xlstm-1.3b",
+                 "whisper-small", "llama-3.2-vision-11b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TRL.FaabricTrainRuntime(treg.reduced_config(arch),
                                     TAW.AdamWConfig(), TD.DataConfig(), rt,
