@@ -6,11 +6,15 @@ capacity-dispatched MoE inputs (PyTorch port of
 kernel's (E, G·C, d), experts outermost, as the JAX wrapper does.  A CUDA
 tensor goes to the hand-written kernel (``csrc/moe_gmm.cu``) or the call
 raises; a CPU tensor goes to the plain version (``ref.expert_ffn_ref``).
-There is no fallback from one to the other.  The kernel has no backward
-yet, so on CUDA the wrapper refuses inputs that want a gradient.
-``launches`` counts calls of the kernel route: for bf16 one call is two
-CUDA launches (the gate-up kernel, which writes h as a bf16 pair into a
-workspace this wrapper allocates, then the down kernel), for f32 one.
+There is no fallback from one to the other.  Where an input wants a
+gradient, the CUDA route is a ``torch.autograd.Function`` whose backward
+launches the hand-written backward (``csrc/moe_gmm_bwd.cu``); on the CPU
+autograd runs through the plain version.  ``launches`` counts calls of the
+forward kernel route: for bf16 one call is two CUDA launches (the gate-up
+kernel, which writes h as a bf16 pair into a workspace this wrapper
+allocates, then the down kernel), for f32 one.  ``bwd_launches`` counts
+calls of the backward, three CUDA launches each (gate-up with dh, dx, the
+weight gradients).
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ import torch
 
 from repro_torch.kernels.moe_gmm.ref import expert_ffn_ref
 
-launches = 0            # kernel-route calls since the last reset
+launches = 0            # forward kernel-route calls since the last reset
+bwd_launches = 0        # backward kernel-route calls since the last reset
 
 ACTS = ("silu", "gelu")
 MAX_GRID_YZ = 65535     # CUDA's limit on a grid's y and z
@@ -36,19 +41,29 @@ BM_F32 = 32             # token rows per block
 SLAB = 1024             # widest slab of y's columns one block accumulates
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
+_BWD_SOURCE = _SOURCE.parent / "moe_gmm_bwd.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, w1, w3, w2, h (workspace), y; E, M, d, ff; act, dtype, stream
 _SIG = {"mg_ffn": [_P] * 6 + [_I] * 4 + [_I, _I, _P]}
+# x, w1, w3, w2, dy, workspace, dx, dw1, dw3, dw2; E, M, d, ff; act,
+# dtype, stream
+_BWD_SIG = {"mg_ffn_bwd": [_P] * 10 + [_I] * 4 + [_I, _I, _P]}
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, bwd_launches
     launches = 0
+    bwd_launches = 0
 
 
 def lib():
     from repro_torch.kernels import _build
     return _build.load("moe_gmm", _SOURCE, _SIG)
+
+
+def bwd_lib():
+    from repro_torch.kernels import _build
+    return _build.load("moe_gmm_bwd", _BWD_SOURCE, _BWD_SIG)
 
 
 def _check(x, w1, w2, w3, act):
@@ -77,6 +92,14 @@ def workspace_shape(e: int, m: int, ff: int) -> tuple:
     return 2, e, m, -(-ff // HCOLS) * HCOLS
 
 
+def bwd_workspace_shape(e: int, m: int, ff: int,
+                        dtype: torch.dtype = torch.bfloat16) -> tuple:
+    """The backward's workspace: planes of (E, M, ldh), ldh = ff rounded
+    up to whole HCOLS: h_hi, h_lo, dg, du in bf16; h, dg, du in f32."""
+    return (4 if dtype == torch.bfloat16 else 3, e, m,
+            -(-ff // HCOLS) * HCOLS)
+
+
 def launch_grid(e: int, m: int, d: int, ff: int,
                 dtype: torch.dtype = torch.bfloat16) -> tuple:
     """The kernel route's grids, one per launch, for x (E, M, d) and an
@@ -103,25 +126,28 @@ def launch_grid(e: int, m: int, d: int, ff: int,
     return (-(-m // gbm), f_tiles, e), (-(-m // dbm), n_tiles, e)
 
 
+def _check_cuda(ts) -> None:
+    """Every tensor of ``ts`` on x's CUDA device, of x's dtype (f32 or
+    bf16), contiguous; x is ``ts[0]``."""
+    x = ts[0]
+    if not all(t.is_cuda and t.device == x.device for t in ts):
+        raise TypeError("moe_gmm: x, w1, w2, w3 (and dy) must be on one "
+                        "CUDA device")
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in ts):
+        raise TypeError(f"moe_gmm: dtypes {[t.dtype for t in ts]}; need "
+                        "float32 or bfloat16, all alike")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("moe_gmm: x, w1, w2, w3 (and dy) must be "
+                         "contiguous")
+
+
 def _launch(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
             w3: torch.Tensor, act: str) -> torch.Tensor:
     """The kernel on contiguous CUDA tensors x (E, M, d), w1/w3 (E, d, ff),
     w2 (E, ff, d) of one dtype -> y (E, M, d)."""
     global launches
     _check(x, w1, w2, w3, act)
-    ts = (x, w1, w2, w3)
-    if not all(t.is_cuda and t.device == x.device for t in ts):
-        raise TypeError("moe_gmm: x, w1, w2 and w3 must be on one CUDA "
-                        "device")
-    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in ts):
-        raise TypeError(f"moe_gmm: dtypes {[t.dtype for t in ts]}; need "
-                        "float32 or bfloat16, all alike")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("moe_gmm: x, w1, w2 and w3 must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            "moe_gmm: the kernel has no backward yet (ROADMAP, 'The port: "
-            "slices': training of the MoE and hybrid families)")
+    _check_cuda((x, w1, w2, w3))
     e, m, d = x.shape
     ff = w1.shape[-1]
     launch_grid(e, m, d, ff, x.dtype)
@@ -141,15 +167,66 @@ def _launch(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     return y
 
 
+def _launch_bwd(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                w3: torch.Tensor, dy: torch.Tensor, act: str) -> tuple:
+    """The backward kernel on contiguous CUDA tensors (those of ``_launch``
+    and dy (E, M, d), y's gradient) -> (dx, dw1, dw2, dw3) in their
+    dtype; with gelu dw3 is 0 (w3 is unused)."""
+    global bwd_launches
+    _check(x, w1, w2, w3, act)
+    if dy.shape != x.shape:
+        raise ValueError(f"moe_gmm: dy {tuple(dy.shape)} is not x's shape "
+                         f"{tuple(x.shape)}")
+    _check_cuda((x, w1, w2, w3, dy))
+    e, m, d = x.shape
+    ff = w1.shape[-1]
+    launch_grid(e, m, d, ff, x.dtype)
+    dx, dw1, dw2 = (torch.empty_like(t) for t in (x, w1, w2))
+    dw3 = torch.empty_like(w3) if act == "silu" else torch.zeros_like(w3)
+    ws = torch.empty(bwd_workspace_shape(e, m, ff, x.dtype), dtype=x.dtype,
+                     device=x.device)
+    handle = bwd_lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = handle.mg_ffn_bwd(
+            x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
+            dy.data_ptr(), ws.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
+            dw3.data_ptr(), dw2.data_ptr(), e, m, d, ff, ACTS.index(act),
+            _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"moe_gmm: CUDA error {err} at the backward's "
+                           "launch")
+    bwd_launches += 1
+    return dx, dw1, dw2, dw3
+
+
+class _ExpertFFN(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w2, w3, act):
+        ctx.save_for_backward(x, w1, w2, w3)
+        ctx.act = act
+        return _launch(x, w1, w2, w3, act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, w2, w3 = ctx.saved_tensors
+        return (*_launch_bwd(x, w1, w2, w3, dy.contiguous(), ctx.act), None)
+
+
 def expert_ffn_kernel_layout(x: torch.Tensor, w1: torch.Tensor,
                              w2: torch.Tensor, w3: torch.Tensor, *,
                              act: str = "silu") -> torch.Tensor:
-    """x: (E, M, d) -> (E, M, d): the kernel on CUDA tensors, the plain
-    version on CPU ones (the JAX package's ``kernel.expert_ffn``)."""
+    """x: (E, M, d) -> (E, M, d): the kernel on CUDA tensors (its backward
+    too where an input wants a gradient), the plain version on CPU ones
+    (the JAX package's ``kernel.expert_ffn``)."""
     _check(x, w1, w2, w3, act)
     if x.is_cuda:
-        return _launch(x.contiguous(), w1.contiguous(), w2.contiguous(),
-                       w3.contiguous(), act)
+        ts = tuple(t.contiguous() for t in (x, w1, w2, w3))
+        if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+            return _ExpertFFN.apply(*ts, act)
+        return _launch(*ts, act)
     return expert_ffn_ref(x, w1, w2, w3, act=act)
 
 

@@ -44,3 +44,52 @@ def common_part_inputs(e: int, m: int, d: int, ff: int, *,
     w2 -= w2.mean(1, keepdim=True)
     y = expert_ffn_ref(x.float(), w1.float(), w2, w3.float())
     return x, w1, (w2 / y.std()).to(dtype), w3
+
+
+def expert_ffn_grads_ref(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                         w3: torch.Tensor, dy: torch.Tensor, *,
+                         act: str = "silu") -> tuple:
+    """(dx, dw1, dw2, dw3): autograd of ``expert_ffn_ref`` for y's gradient
+    ``dy``, each in its input's dtype (the backward kernel's oracle); with
+    gelu dw3 is 0, as ``jax.grad`` gives it for an unused input."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, w1, w2, w3)]
+        y = expert_ffn_ref(*leaves, act=act)
+        grads = torch.autograd.grad(y, leaves, dy, allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves, grads))
+
+
+def common_part_grad(e: int, m: int, d: int, *, dtype: torch.dtype,
+                     device="cpu", seed: int = 0) -> torch.Tensor:
+    """y's gradient dy (E, M, d) for the backward's common-part case (with
+    ``common_part_inputs``): N(0, 1) with each column's mean over M taken
+    out, so in dw2 = h^T dy the part of h common to every row meets a sum
+    of about zero and only h's spread is left; one bf16 rounding of h
+    (an error up to 0.125 of its 64) then errs by more than a 2e-2
+    tolerance on dw2.  Needs M >= 2."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dy = torch.randn((e, m, d), generator=gen, device=device)
+    return (dy - dy.mean(1, keepdim=True)).to(dtype)
+
+
+# The backward's planted fault: moe_gmm_bwd.cu without the product of h's
+# low bf16 part in dw2 = h^T dy, so h is rounded once to bf16 there.  The
+# common-part cases (``common_part_inputs`` with ``common_part_grad``)
+# must fail dw2, and only dw2, on such a copy.
+BWD_ROUND_FAULT = (
+    "          mma_step<true, true>(acc, st + B, st + 2 * B, lane, f.wr, "
+    "f.wc, ks);\n", "")
+
+
+def grads_close(got, ref, tol: float) -> list:
+    """For each gradient of ``got`` (dx, dw1, dw2, dw3): finite and within
+    ``tol`` of ``ref``'s, its atol scaled by the reference's largest
+    magnitude (an f32 sum errs with the size of its terms, not of its
+    result)."""
+    out = []
+    for g, r in zip(got, ref):
+        g, r = g.float(), r.float()
+        out.append(bool(torch.isfinite(g).all()) and torch.allclose(
+            g, r, rtol=tol, atol=tol * r.abs().max().item()))
+    return out

@@ -45,7 +45,8 @@ from repro_torch.models import model as model_mod
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw
 from repro_torch.runtime.serve_loop import ContinuousServeLoop, Request
-from repro_torch.runtime.train_loop import (make_dp_train_step,
+from repro_torch.runtime.train_loop import (family_batch_fn,
+                                            make_dp_train_step,
                                             resolve_sync_mode)
 
 
@@ -55,9 +56,10 @@ class TrainWorkload(GangWorkload):
     ``pods``: the gang mesh's pod count (2 or more for the compressed
     schedule, which compresses across pods).  ``init``: a train state to
     start from instead of the seeded init.  ``batch_fn(data_cfg, step)``:
-    the global batch of a step (default ``data.pipeline.make_batch``).
-    ``loss_log`` keeps (step, loss) of every step run, the replays after
-    a rollback included."""
+    the global batch of a step (default ``family_batch_fn``: the family's
+    extras drawn too).  ``loss_log`` keeps
+    (step, loss) of every step run, the replays after a rollback
+    included."""
 
     def __init__(self, cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
                  data_cfg: dp.DataConfig, total_steps: int = 4,
@@ -73,7 +75,7 @@ class TrainWorkload(GangWorkload):
         self.seed = seed
         self.pods = pods
         self._init = init
-        self.batch_fn = batch_fn or dp.make_batch
+        self.batch_fn = batch_fn or family_batch_fn(cfg)
         self.state = None
         self.resid = None
         self.steps_done = 0

@@ -21,16 +21,17 @@ or an ``ElasticPolicy``) regrows it on the shared fabric, as the JAX
 runtime does.  The deterministic (seed, step)-keyed batches make the
 recovered run repeat the lost steps.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: training the MoE, hybrid and xLSTM families (their kernels have
-no backward yet) and the audio and VLM families (their batches carry
-frames and image tokens, which the data path does not make yet).
+The audio and VLM families train with their batches' extras (encoder
+frames, image tokens; ``extra_batch_specs``), the MoE family through the
+moe_gmm kernel's backward.  Not ported yet, and refused with
+``NotImplementedError`` rather than ignored: training the hybrid and
+xLSTM families (mamba_scan and mlstm have no backward yet).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,10 +47,9 @@ from repro_torch.models import model as model_mod
 from repro_torch.optim import adamw
 from repro_torch.weights import tree_leaves
 
-_TRAIN_FAMILIES = ("training of the MoE and hybrid families and of xLSTM: "
-                   "gradients through moe_gmm, mamba_scan and mlstm")
-_TRAIN_EXTRAS = ("training of the audio and VLM families: the frames and "
-                 "image-token extras of each batch (extra_batch_specs)")
+_TRAIN_SCANS = {"hybrid": "item 2c: training of the hybrid family, "
+                          "gradients through mamba_scan",
+                "ssm": "item 2d: training of xLSTM, gradients through mlstm"}
 
 
 @dataclasses.dataclass
@@ -84,13 +84,32 @@ class RuntimeConfig:
 
 def _refuse_unported(cfg: ArchConfig) -> None:
     """Raise for a family whose training is not ported yet."""
-    later = {"moe": _TRAIN_FAMILIES, "hybrid": _TRAIN_FAMILIES,
-             "ssm": _TRAIN_FAMILIES, "audio": _TRAIN_EXTRAS,
-             "vlm": _TRAIN_EXTRAS}.get(cfg.family)
+    later = _TRAIN_SCANS.get(cfg.family)
     if later is not None:
         raise NotImplementedError(
             f"training the {cfg.family} family ({cfg.name}) is not ported to "
             f"repro_torch yet (ROADMAP, 'The port: slices', {later})")
+
+
+def extra_batch_specs(cfg: ArchConfig, global_batch: int
+                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Modality extras (audio frames / vision tokens) of a batch, as
+    ``data.pipeline.make_batch`` takes them: name -> (shape, dtype)."""
+    if cfg.family == "audio":
+        return {"frames": ((global_batch, cfg.enc_seq, cfg.d_model),
+                           cfg.torch_dtype())}
+    if cfg.family == "vlm":
+        return {"img": ((global_batch, cfg.n_img_tokens, cfg.d_model),
+                        cfg.torch_dtype())}
+    return {}
+
+
+def family_batch_fn(cfg: ArchConfig) -> Callable[[dp.DataConfig, int],
+                                                 Dict[str, Any]]:
+    """The default ``batch_fn(data_cfg, step)`` of ``cfg``'s family:
+    ``data.pipeline.make_batch`` with the family's extras."""
+    return lambda data_cfg, step: dp.make_batch(
+        data_cfg, step, extra_batch_specs(cfg, data_cfg.global_batch))
 
 
 def params_nbytes(tree) -> int:
@@ -302,9 +321,10 @@ class FaabricTrainRuntime:
                                         Dict[str, Any]]] = None):
         """Train ``rt.total_steps`` steps; returns (state, report) with the
         JAX runtime's report keys.  ``batch_fn(data_cfg, step)`` gives the
-        global batch of a step (default ``data.pipeline.make_batch``)."""
+        global batch of a step (default ``family_batch_fn``: with the
+        family's extras)."""
         rt = self.rt
-        batch_fn = batch_fn or dp.make_batch
+        batch_fn = batch_fn or family_batch_fn(self.cfg)
         if state is None:
             state = self.init_state(seed)
         self._build(state)

@@ -120,6 +120,44 @@ def test_cuda_backward_matches_autograd_of_plain(cuda_device, b, s, window,
         torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
 
 
+# (H, KV, hd, B, S) of the training paths' flash shapes: whisper-small's
+# group 1 (a rank's 2 x 448), granite-moe-1b-a400m's group 2 (4 x 1024)
+# and llama-3.2-vision-11b's group 4 at hd 128 (2 x 1024); and groups 3
+# and 16 at hd 128 (24 / 8 and 32 / 2 heads)
+GROUP_CASES = [(12, 12, 64, 2, 448), (16, 8, 64, 4, 1024),
+               (32, 8, 128, 2, 1024), (24, 8, 128, 1, 1024),
+               (32, 2, 128, 1, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kv,hd,b,s", GROUP_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_groups_match_plain(cuda_device, h, kv, hd, b, s, dtype):
+    """Forward and backward at the head groups the trained families run
+    (and groups 3 and 16), against the plain version and its autograd."""
+    gen = torch.Generator(device=cuda_device).manual_seed(h * kv + s)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=cuda_device)
+               .to(dt).requires_grad_() for n in (h, kv, kv))
+    dout = torch.randn((b, s, h, hd), generator=gen,
+                       device=cuda_device).to(dt)
+    before = (TO.launches, TO.bwd_launches)
+    out = TO.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert (TO.launches, TO.bwd_launches) == (before[0] + 1, before[1] + 1)
+    ref = TR.attention_ref(*(x.transpose(1, 2) for x in (q, k, v)),
+                           causal=True).transpose(1, 2)
+    rgrads = torch.autograd.grad(ref, (q, k, v), dout)
+    torch.cuda.synchronize()
+    tol = {"float32": 2e-5, "bfloat16": 2e-2}[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    btol = BWD_TOL[dtype]
+    for g, r in zip(grads, rgrads):
+        assert bool(torch.isfinite(g.float()).all())
+        torch.testing.assert_close(g.float(), r.float(), atol=btol,
+                                   rtol=btol)
+
+
 def _rising_inputs(b, s, hd, dtype, device, seed):
     """q, k, v (B, S, H, hd) with H 32, KV 8 whose keys grow with their
     position, so that each row's running maximum rises from one key tile
@@ -596,14 +634,129 @@ def test_cuda_moe_gmm_model_layout_and_refusals(cuda_device):
                                rtol=1e-4)
     with pytest.raises(TypeError, match="dtype"):
         GO.expert_ffn_kernel_layout(x, w1.bfloat16(), w2, w3)
-    with pytest.raises(NotImplementedError, match="backward"):
-        GO.expert_ffn_kernel_layout(x, w1.requires_grad_(), w2, w3)
+    # a gradient flows through the kernel: the backward kernel's
+    w1g = w1.clone().requires_grad_()
+    before = GO.bwd_launches
+    (g1,) = torch.autograd.grad(
+        GO.expert_ffn_kernel_layout(x, w1g, w2, w3).square().sum(), [w1g])
+    assert GO.bwd_launches == before + 1
+    ref = w1.clone().requires_grad_()
+    (r1,) = torch.autograd.grad(
+        GR.expert_ffn_ref(x, ref, w2, w3).square().sum(), [ref])
+    torch.testing.assert_close(g1, r1, atol=1e-4, rtol=1e-4)
     # d above one slab of 1024 columns runs (two slabs here)
     x, w1, w2, w3 = _gmm_inputs(1, 8, 2048, 8, "float32", cuda_device, 4)
     out = GO.expert_ffn_kernel_layout(x, w1, w2, w3)
     ref = GR.expert_ffn_ref(x, w1, w2, w3)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+def _gmm_grads(GO, x, w1, w2, w3, dy, act):
+    """(dx, dw1, dw2, dw3) through the wrapper's autograd route: one
+    forward and one backward call of the kernels."""
+    leaves = [t.clone().requires_grad_() for t in (x, w1, w2, w3)]
+    before = (GO.launches, GO.bwd_launches)
+    y = GO.expert_ffn_kernel_layout(*leaves, act=act)
+    grads = torch.autograd.grad(y, leaves, dy, allow_unused=True)
+    assert (GO.launches, GO.bwd_launches) == (before[0] + 1, before[1] + 1)
+    return grads
+
+
+def _gmm_grads_ok(got, ref, dtype):
+    """Each gradient within GMM_TOL (``ref.grads_close``)."""
+    from repro_torch.kernels.moe_gmm import ref as GR
+    return GR.grads_close(got, ref, GMM_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,d,ff,act", [
+    # granite's training shape (8 groups x capacity 160), a ragged M, gelu
+    (32, 1280, 1024, 512, "silu"), (32, 100, 1024, 512, "silu"),
+    (4, 256, 64, 256, "gelu"),
+    # unaligned d and ff (element loads), ragged tiles
+    (2, 33, 130, 70, "gelu"), (3, 40, 1000, 200, "silu"),
+    # phi3.5-moe's prefill shape (ff 6400, d 4096)
+    (16, 160, 4096, 6400, "silu")])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_moe_gmm_bwd_matches_autograd_of_plain(cuda_device, e, m, d, ff,
+                                                    act, dtype):
+    from repro_torch.kernels.moe_gmm import ops as GO
+    from repro_torch.kernels.moe_gmm import ref as GR
+    x, w1, w2, w3 = _gmm_inputs(e, m, d, ff, dtype, cuda_device, m + ff)
+    dy = torch.randn((e, m, d), generator=torch.Generator(
+        device=cuda_device).manual_seed(m), device=cuda_device).to(x.dtype)
+    got = _gmm_grads(GO, x, w1, w2, w3, dy, act)
+    ref = GR.expert_ffn_grads_ref(x, w1, w2, w3, dy, act=act)
+    torch.cuda.synchronize()
+    assert [g.dtype for g in got] == [x.dtype] * 4
+    assert all(_gmm_grads_ok(got, ref, dtype)), _gmm_grads_ok(got, ref, dtype)
+    if act == "gelu":
+        assert not got[3].any()
+
+
+@pytest.mark.cuda
+def test_cuda_moe_gmm_bwd_is_deterministic(cuda_device):
+    """The weight gradients are reduced over M in a fixed order, with no
+    float atomics: two runs are bit-equal."""
+    from repro_torch.kernels.moe_gmm import ops as GO
+    x, w1, w2, w3 = _gmm_inputs(32, 1280, 1024, 512, "bfloat16",
+                                cuda_device, 5)
+    dy = torch.randn_like(x)
+    first = GO._launch_bwd(x, w1, w2, w3, dy, "silu")
+    second = GO._launch_bwd(x, w1, w2, w3, dy, "silu")
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# The backward's common-part cases (ref.common_part_inputs with
+# ref.common_part_grad): granite's training shape, phi3.5-moe's prefill
+# shape and a small one.  h rounded once to bf16 in dw2 fails them.
+GMM_BWD_COMMON = [(32, 1280, 1024, 512), (16, 160, 4096, 6400),
+                  (1, 100, 256, 128)]
+
+
+def _gmm_bwd_common(GO, GR, e, m, d, ff, device):
+    ins = GR.common_part_inputs(e, m, d, ff, dtype=torch.bfloat16,
+                                device=device, seed=m)
+    dy = GR.common_part_grad(e, m, d, dtype=torch.bfloat16, device=device,
+                             seed=m + 1)
+    got = _gmm_grads(GO, *ins, dy, "silu")
+    return _gmm_grads_ok(got, GR.expert_ffn_grads_ref(*ins, dy), "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,d,ff", GMM_BWD_COMMON)
+def test_cuda_moe_gmm_bwd_keeps_h_precision(cuda_device, e, m, d, ff):
+    """dw2 from h's hi + lo pair passes; dg and du, each rounded once to
+    bf16, pass dx, dw1 and dw3."""
+    from repro_torch.kernels.moe_gmm import ops as GO
+    from repro_torch.kernels.moe_gmm import ref as GR
+    assert all(_gmm_bwd_common(GO, GR, e, m, d, ff, cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_moe_gmm_bwd_checks_catch_h_rounded_once(cuda_device, tmp_path,
+                                                      monkeypatch):
+    """A copy of moe_gmm_bwd.cu without the h_lo product (h rounded once
+    to bf16 in dw2) fails dw2, and only dw2, in every common-part case."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.moe_gmm import ops as GO
+    from repro_torch.kernels.moe_gmm import ref as GR
+    old, new = GR.BWD_ROUND_FAULT
+    source = GO._BWD_SOURCE.read_text()
+    assert source.count(old) == 1
+    mutant = tmp_path / "moe_gmm_bwd.cu"
+    mutant.write_text(source.replace(old, new))
+    so = tmp_path / "libmoe_gmm_bwd_fault.so"
+    _build.compile_to("moe_gmm_bwd_fault", mutant, so)
+    lib = _build.bind(ctypes.CDLL(str(so)), GO._BWD_SIG)
+    monkeypatch.setattr(GO, "bwd_lib", lambda: lib)
+    for e, m, d, ff in GMM_BWD_COMMON:
+        ok = _gmm_bwd_common(GO, GR, e, m, d, ff, cuda_device)
+        print(f"gmm-bwd-fault E {e} M {m} d {d} ff {ff} ok {ok}", flush=True)
+        assert ok == [True, True, False, True], (e, m, d, ff, ok)
 
 
 # mamba_scan's gates: "jax" draws dt = softplus(N(0, 1)), about 0.8, with

@@ -125,6 +125,8 @@ def libs(tmp_path_factory):
                      out, "bwd", FO._BWD_SIG),
         "gmm": build(GO._SOURCE.read_text(), GO._SOURCE.parent, out, "gmm",
                      GO._SIG),
+        "gmm_bwd": build(GO._BWD_SOURCE.read_text(), GO._SOURCE.parent, out,
+                         "gmm_bwd", GO._BWD_SIG),
         "mlstm": build(MO._SOURCE.read_text(), MO._SOURCE.parent, out,
                        "mlstm", MO._SIG),
         "scan": build(SO._SOURCE.read_text(), SO._SOURCE.parent, out,
@@ -184,6 +186,10 @@ FWD_CASES = [  # (B, H, KV, S, hd, causal, window, dtype, rising)
     # group 1 (as many KV heads as query heads: whisper-small's 12 / 12)
     (1, 2, 2, 136, 64, True, 0, torch.bfloat16, False),
     (1, 2, 2, 100, 64, True, 0, torch.float32, False),
+    # groups 3 and 16 at hd 128 (24 / 8 and 32 / 2 heads)
+    (1, 3, 1, 136, 128, True, 0, torch.bfloat16, False),
+    (1, 3, 1, 100, 128, True, 0, torch.float32, False),
+    (1, 16, 1, 72, 128, True, 0, torch.bfloat16, False),
 ]
 
 
@@ -211,6 +217,9 @@ BWD_CASES = [  # (B, H, KV, S, hd, window, dtype, rising)
     # group 1
     (1, 2, 2, 136, 64, 0, torch.bfloat16, False),
     (1, 2, 2, 100, 64, 0, torch.float32, False),
+    # groups 3 and 16 at hd 128
+    (1, 3, 1, 136, 128, 0, torch.bfloat16, False),
+    (1, 16, 1, 72, 128, 0, torch.bfloat16, False),
 ]
 
 
@@ -307,6 +316,97 @@ def test_emulated_moe_gmm_checks_catch_h_rounded_once(libs):
         y = _gmm(lib, *ins, "silu")
         ref = GR.expert_ffn_ref(*ins)
         assert not torch.allclose(y.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def _gmm_bwd(lib, x, w1, w2, w3, dy, act):
+    """(dx, dw1, dw2, dw3) from the emulated mg_ffn_bwd."""
+    e, m, d = x.shape
+    ff = w1.shape[-1]
+    dx, dw1, dw2 = (torch.empty_like(t) for t in (x, w1, w2))
+    dw3 = torch.empty_like(w3) if act == "silu" else torch.zeros_like(w3)
+    ws = torch.empty(GO.bwd_workspace_shape(e, m, ff, x.dtype),
+                     dtype=x.dtype)
+    err = lib.mg_ffn_bwd(x.data_ptr(), w1.data_ptr(), w3.data_ptr(),
+                         w2.data_ptr(), dy.data_ptr(), ws.data_ptr(),
+                         dx.data_ptr(), dw1.data_ptr(), dw3.data_ptr(),
+                         dw2.data_ptr(), e, m, d, ff, GO.ACTS.index(act),
+                         GO._DTYPES[x.dtype], None)
+    assert err == 0
+    return dx, dw1, dw2, dw3
+
+
+def _grads_close(got, ref, dtype):
+    """Each gradient within the moe_gmm tolerance (``ref.grads_close``)."""
+    return GR.grads_close(got, ref, GMM_TOL[dtype])
+
+
+@pytest.mark.parametrize("e,m,d,ff,act,dtype", [
+    # bf16 on the tensor cores: ragged M (40 of a 64-row tile) and ff
+    # (96 -> workspace rows of 128)
+    (2, 40, 64, 96, "silu", torch.bfloat16),
+    # M over two tiles, ff 200 ragged in its last tile, d over two tiles
+    (2, 100, 128, 200, "silu", torch.bfloat16),
+    # ff not a multiple of 8 (element loads), gelu (dw3 = 0)
+    (2, 33, 72, 70, "gelu", torch.bfloat16),
+    # d not a multiple of 8
+    (1, 17, 130, 64, "silu", torch.bfloat16),
+    # f32 on the CUDA cores
+    (2, 40, 64, 96, "silu", torch.float32),
+    (2, 33, 72, 70, "gelu", torch.float32),
+    (1, 70, 130, 66, "silu", torch.float32)])
+def test_emulated_moe_gmm_bwd_matches_autograd_of_plain(libs, e, m, d, ff,
+                                                        act, dtype):
+    gen = torch.Generator().manual_seed(d + ff)
+    x = (torch.randn((e, m, d), generator=gen) * 0.5).to(dtype)
+    w1, w3 = ((torch.randn((e, d, ff), generator=gen) * 0.05).to(dtype)
+              for _ in range(2))
+    w2 = (torch.randn((e, ff, d), generator=gen) * 0.05).to(dtype)
+    dy = torch.randn((e, m, d), generator=gen).to(dtype)
+    got = _gmm_bwd(libs["gmm_bwd"], x, w1, w2, w3, dy, act)
+    ref = GR.expert_ffn_grads_ref(x, w1, w2, w3, dy, act=act)
+    assert all(g.dtype == dtype for g in got)
+    assert all(_grads_close(got, ref, dtype)), _grads_close(got, ref, dtype)
+    if act == "gelu":
+        assert not got[3].any()
+    again = _gmm_bwd(libs["gmm_bwd"], x, w1, w2, w3, dy, act)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# (E, M, d, ff) of the backward's common-part cases: shapes at which one
+# bf16 rounding of h fails dw2 by 1.5-2x its tolerance (a float64 model of
+# the sums; at granite's training shape 3x)
+GMM_BWD_COMMON = [(1, 64, 256, 64), (1, 100, 256, 128)]
+
+
+def _bwd_common(e, m, d, ff):
+    ins = GR.common_part_inputs(e, m, d, ff, dtype=torch.bfloat16, seed=m)
+    dy = GR.common_part_grad(e, m, d, dtype=torch.bfloat16, seed=m + 1)
+    return ins, dy, GR.expert_ffn_grads_ref(*ins, dy)
+
+
+@pytest.mark.parametrize("e,m,d,ff", GMM_BWD_COMMON)
+def test_emulated_moe_gmm_bwd_keeps_h_precision(libs, e, m, d, ff):
+    """bf16 inputs whose h has a large common part and a dy whose columns
+    sum to zero over M: dw2 from h's hi + lo pair passes, and dg and du,
+    rounded once, pass dx, dw1 and dw3."""
+    ins, dy, ref = _bwd_common(e, m, d, ff)
+    got = _gmm_bwd(libs["gmm_bwd"], *ins, dy, "silu")
+    assert all(_grads_close(got, ref, torch.bfloat16))
+
+
+def test_emulated_moe_gmm_bwd_checks_catch_h_rounded_once(libs):
+    """moe_gmm_bwd.cu without the h_lo product (h rounded once to bf16 in
+    dw2) fails dw2 in the common-part cases, and only dw2."""
+    old, new = GR.BWD_ROUND_FAULT
+    source = GO._BWD_SOURCE.read_text()
+    assert source.count(old) == 1
+    lib = build(source.replace(old, new), GO._SOURCE.parent, libs["out"],
+                "gmm_bwd_fault", GO._BWD_SIG)
+    for e, m, d, ff in GMM_BWD_COMMON:
+        ins, dy, ref = _bwd_common(e, m, d, ff)
+        got = _gmm_bwd(lib, *ins, dy, "silu")
+        assert _grads_close(got, ref, torch.bfloat16) == [True, True, False,
+                                                          True]
 
 
 def test_emulated_checks_catch_a_missing_rescale(libs):
