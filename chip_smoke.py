@@ -106,7 +106,9 @@ non-zero before printing any result):
    and an f32 witness (``train-family-grad``, the MoE routes pinned);
    after it the loss must have fallen and every kernel count equal the
    path's formula (flash and moe_gmm forwards twice a step under remat,
-   their backwards once).
+   their backwards once, every moe_gmm backward through the wgmma
+   design); then one more warm granite step is profiled
+   (``profile train_step_moe``).
 10. Prints the ``kernels`` JSON line and, last, the device JSON line.
 
 Besides the forward kernel, phase 2 builds the flash-attention backward
@@ -130,8 +132,10 @@ function, not one call), moe_gmm's backward (``kernel-check
 moe_gmm_bwd``: dx, dw1, dw2, dw3 against autograd of the plain version
 at granite's training shape and phi3.5-moe's prefill shape, both acts,
 bf16 and f32, bit-equal on a rerun, and a common-part case that a
-planted copy rounding h once in dw2 must fail; beside each bf16 row the
-time of autograd of the cuBLAS composition), mamba_scan at zamba2's
+planted copy rounding h once in dw2 must fail, all through the wgmma
+design, and two shapes TMA cannot describe through the mma.sync design,
+each row naming its design; beside each bf16 row each launch's time and
+the time of autograd of the cuBLAS composition), mamba_scan at zamba2's
 (``kernel-check mamba_scan``: with the model's gates and with slow ones
 that carry the state over several chunks, and one case whose state has a
 large common part) and mlstm at xlstm-1.3b's (``kernel-check mlstm``: a
@@ -146,9 +150,11 @@ checkpoints of the state.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -172,6 +178,17 @@ def _sh(cmd):
                               timeout=60).stdout.strip()
     except (OSError, subprocess.SubprocessError) as e:
         return f"unavailable ({e.__class__.__name__})"
+
+
+def _host_rss_gb():
+    """The process's resident host memory, GB (Linux), or NaN."""
+    try:
+        with open("/proc/self/status") as f:
+            kb = next(int(ln.split()[1]) for ln in f
+                      if ln.startswith("VmRSS:"))
+        return kb / 1e6
+    except (OSError, StopIteration, ValueError):
+        return float("nan")
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -685,6 +702,8 @@ def check_prefill(torch, cfg, params, reqs, max_len, extras_fn=None):
 KERNEL_KINDS = [
     ("flash_attention", ("fa_fwd_",)),
     ("moe_gmm", ("mg_ffn_",)),
+    # the backward's kernels (and, under another checkout, PR 21's names)
+    ("moe_gmm_bwd", ("mg_bwd_", "bw_gate_up_", "bw_dx_", "bw_dw_")),
     ("mamba_scan", ("ms_ssd", "ms_cb_kernel")),
     ("mlstm", ("ml_gate_", "ml_scores", "ml_state", "ml_hout")),
     ("flash_attention_bwd", ("fa_bwd_",)),
@@ -2100,10 +2119,14 @@ def check_moe_gmm(torch, cfg):
 # granite's training shape (E 32, d 1024, ff 512; M 1280 = 8 groups x
 # capacity 160 of a 4 x 1024-token rank batch) and phi3.5-moe's prefill
 # shape (E 16, d 4096, ff 6400, M 160; kernel level only: phi3.5 does not
-# train here).  "model": the model's init for the weights, x and dy ~
-# N(0, 1); "common": ref.common_part_inputs with ref.common_part_grad (h
-# has a large part common to each row and dy's columns sum to zero over
-# M: one bf16 rounding of h fails dw2, and the planted copy must).
+# train here), both through the wgmma design (ops.bwd_design); two shapes
+# TMA cannot describe (ff 70, d 130) through the mma.sync design.
+# "model": the model's init for the weights, x and dy ~ N(0, 1);
+# "common": ref.common_part_inputs with ref.common_part_grad (h has a large
+# part common to each row and dy's columns sum to zero over M: one bf16
+# rounding of h fails dw2, and the planted copy must); "random": x ~
+# N(0, 0.25), the weights ~ N(0, 0.0025), dy ~ N(0, 1) (the emulated
+# tests' draw).
 GMM_BWD_CASES = [
     (32, 1280, 1024, 512, "silu", "bfloat16", "model"),
     (32, 1280, 1024, 512, "gelu", "bfloat16", "model"),
@@ -2112,7 +2135,9 @@ GMM_BWD_CASES = [
     (32, 1280, 1024, 512, "silu", "bfloat16", "common"),
     (16, 160, 4096, 6400, "silu", "bfloat16", "model"),
     (16, 160, 4096, 6400, "silu", "float32", "model"),
-    (16, 160, 4096, 6400, "silu", "bfloat16", "common")]
+    (16, 160, 4096, 6400, "silu", "bfloat16", "common"),
+    (2, 33, 72, 70, "gelu", "bfloat16", "random"),
+    (1, 17, 130, 64, "silu", "bfloat16", "random")]
 GRAD_NAMES = ("dx", "dw1", "dw2", "dw3")
 
 
@@ -2136,15 +2161,41 @@ def _max_errs(got, ref):
             for g, r in zip(got, ref)]
 
 
+def pass_ms(torch, fn, iters=10):
+    """Device time of each CUDA kernel that ``fn`` launches, ms a call
+    (torch.profiler, after a warm-up): a multi-pass kernel's passes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None) or getattr(
+            e, "cuda_time_total", 0)
+        if t:       # "void (anonymous namespace)::ml_x<T>(...)" -> "ml_x"
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = re.split(r"[(<]", name.removeprefix("void "))[0]
+            name = name.split("::")[-1]
+            out[name] = out.get(name, 0.0) + t / iters / 1000
+    return out
+
+
 def check_moe_gmm_bwd(torch):
     """moe_gmm's backward kernel against autograd of its plain version
     (``ref.expert_ffn_grads_ref``) at GMM_BWD_CASES, with TF32 off, each
-    gradient within ``ref.grads_close``; on the common-part cases also
-    the planted copy (``ref.BWD_ROUND_FAULT``: h rounded once in dw2),
-    which must fail dw2 and only dw2.  Times: the kernel (its three
-    launches), autograd of the plain version, and for bf16 autograd of
-    the cuBLAS composition (``_gmm_cublas``: h in bf16, another
-    function; several calls)."""
+    gradient within ``ref.grads_close``, through the design
+    ``ops.bwd_design`` names (each row's ``design``: the one whose count
+    rose); on the common-part cases also the planted copy
+    (``ref.BWD_ROUND_FAULT``: h rounded once in dw2), which must fail dw2
+    and only dw2.  Times: the kernel (its three launches, and each
+    launch's device time on the bf16 rows, ``launch_ms``), autograd of
+    the plain version, and for bf16 autograd of the cuBLAS composition
+    (``_gmm_cublas``: h in bf16, another function; several calls)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.moe_gmm import ops as go
@@ -2160,18 +2211,29 @@ def check_moe_gmm_bwd(torch):
     rows = []
     for e, m, d, ff, act, dname, inputs in GMM_BWD_CASES:
         dt = getattr(torch, dname)
-        cfg = configs[(e, d, ff)]
+        cfg = configs.get((e, d, ff))
         if inputs == "common":
             x, w1, w2, w3 = gr.common_part_inputs(e, m, d, ff, dtype=dt,
                                                   device="cuda", seed=m)
             dy = gr.common_part_grad(e, m, d, dtype=dt, device="cuda",
                                      seed=m + 1)
+        elif inputs == "random":
+            x = (torch.randn((e, m, d), generator=gen, device="cuda")
+                 * 0.5).to(dt)
+            w1, w3 = ((torch.randn((e, d, ff), generator=gen, device="cuda")
+                       * 0.05).to(dt) for _ in range(2))
+            w2 = (torch.randn((e, ff, d), generator=gen, device="cuda")
+                  * 0.05).to(dt)
+            dy = torch.randn((e, m, d), generator=gen, device="cuda").to(dt)
         else:
             p = moe_mod.init_moe(gen, cfg.with_(dtype=dname), device="cuda")
             w1, w2, w3 = p["w1"], p["w2"], p["w3"]
             x, dy = (torch.randn((e, m, d), generator=gen,
                                  device="cuda").to(dt) for _ in range(2))
+        before = dict(go.bwd_design_launches)
         got = go._launch_bwd(x, w1, w2, w3, dy, act)
+        took = [k for k in go.BWD_DESIGNS
+                if go.bwd_design_launches[k] > before[k]]
         again = go._launch_bwd(x, w1, w2, w3, dy, act)
         ref = gr.expert_ffn_grads_ref(x, w1, w2, w3, dy, act=act)
         torch.cuda.synchronize()
@@ -2179,14 +2241,16 @@ def check_moe_gmm_bwd(torch):
         oks, errs = gr.grads_close(got, ref, tol), _max_errs(got, ref)
         bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
         del again
-        row = {"arch": cfg.name, "E": e, "M": m, "d": d, "ff": ff,
-               "act": act, "dtype": dname, "inputs": inputs,
+        design = go.bwd_design(e, m, d, ff, dt)
+        row = {"arch": cfg.name if cfg else None, "E": e, "M": m, "d": d,
+               "ff": ff, "act": act, "dtype": dname, "inputs": inputs,
+               "design": took[0] if len(took) == 1 else took,
                "ok_" + "_".join(GRAD_NAMES): oks,
                "max_abs_err_" + "_".join(GRAD_NAMES): errs,
                "max_abs_err": max(errs), "rtol": tol,
                "atol": "rtol x each gradient's largest magnitude",
                "bit_equal_rerun": bit_equal}
-        ok = all(oks) and bit_equal
+        ok = all(oks) and bit_equal and took == [design]
         if inputs == "common":
             with mock.patch.object(go, "bwd_lib", lambda: fault_lib):
                 bad = go._launch_bwd(x, w1, w2, w3, dy, act)
@@ -2198,8 +2262,10 @@ def check_moe_gmm_bwd(torch):
                       iters=10)
         plain_ms = _time_ms(lambda: gr.expert_ffn_grads_ref(
             x, w1, w2, w3, dy, act=act), iters=3, warmup=1)
-        comp_ms = None
+        comp_ms = launch_ms = None
         if dname == "bfloat16":
+            launch_ms = pass_ms(torch, lambda: go._launch_bwd(
+                x, w1, w2, w3, dy, act), iters=5)
             leaves = [t.detach().clone().requires_grad_()
                       for t in (x, w1, w2, w3)]
             yc = _gmm_cublas(torch, *leaves, act)
@@ -2209,7 +2275,8 @@ def check_moe_gmm_bwd(torch):
             del yc, leaves
         bound_ms, bound_by, flops, nbytes = _gmm_bwd_bound(
             e, m, d, ff, act, dname, x.element_size())
-        row.update(ok=ok, ms=ms, plain_ms=plain_ms, library_ms=None,
+        row.update(ok=ok, ms=ms, launch_ms=launch_ms, plain_ms=plain_ms,
+                   library_ms=None,
                    cublas_composition_ms=comp_ms,
                    cublas_composition="autograd of torch.bmm per product "
                                       "+ the activation, h in bf16 "
@@ -2813,17 +2880,24 @@ def train_families(torch, counters, phase_time):
     ``family_grad_check`` holds step 0's loss and gradient against the
     plain paths and an f32 witness, whatever the learning rate; after
     it, the loss must have fallen.  The runtime saves the state before
-    step 0, as every run does."""
+    step 0, as every run does.  Every moe_gmm backward call must go
+    through the wgmma design (``ops.bwd_design_launches``).  After the
+    run, one more step of the MoE family's (granite's) runtime, warm, is
+    profiled (``profile_phase``: device time by kernel kind, idle
+    share)."""
     from repro_torch.configs.base import ATTN, ENCDEC, MOE, SHARED_ATTN
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.models.model import count_params
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime.train_loop import (FaabricTrainRuntime,
                                                 RuntimeConfig,
-                                                extra_batch_specs)
+                                                extra_batch_specs,
+                                                family_batch_fn)
 
     total = dict.fromkeys(counters, 0)
+    total["moe_gmm_bwd_by_design"] = dict.fromkeys(gmm_ops.BWD_DESIGNS, 0)
     for arch, tag, layers, ranks, gb, seq, steps, lr, cut in TRAIN_FAMILIES:
         cfg = get_config(arch)
         if layers:
@@ -2846,12 +2920,14 @@ def train_families(torch, counters, phase_time):
         torch.cuda.reset_peak_memory_stats()
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
+        gmm_ops.reset_launches()
         t0 = time.perf_counter()
         state, out = runtime.run(state=state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: getattr(mod, attr)
                     for name, (mod, attr) in counters.items()}
+        designs = dict(gmm_ops.bwd_design_launches)
         kinds = cfg.period() * cfg.n_periods()
         n_attn = sum(kinds.count(k) for k in (ATTN, SHARED_ATTN, MOE, ENCDEC))
         n_moe = kinds.count(MOE)
@@ -2880,8 +2956,23 @@ def train_families(torch, counters, phase_time):
                "step_s_max": warm[-1], "wall_s": wall,
                "tokens_per_s_warm": gb * seq / p50,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "launches": launches, "expected_launches": expect}
+               "launches": launches, "expected_launches": expect,
+               "moe_gmm_bwd_by_design": designs}
         print(f"train-family-{tag} {json.dumps(res)}", flush=True)
+        if tag == "moe":
+            # one more step of the same runtime, warm, under the profiler
+            run = {"state": state, "resid": runtime._init_resid(state)}
+            batch = {k: torch.as_tensor(v).cuda() for k, v in
+                     family_batch_fn(cfg)(dcfg, steps).items()}
+
+            def one_step():
+                run["state"], metrics, run["resid"] = runtime._step_fn(
+                    run["state"], batch, run["resid"])
+                float(metrics["loss"])
+                return 1
+            profile_phase(torch, "train_step_moe", one_step)
+            state = run["state"]
+            del batch, run
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         runtime.release()
         del state, runtime
@@ -2889,8 +2980,11 @@ def train_families(torch, counters, phase_time):
         assert all(math.isfinite(x) for x in losses), res
         assert losses[-1] < losses[0], res
         assert launches == expect, (launches, expect)
-        for name in total:
+        assert designs["wgmma"] == expect["moe_gmm_bwd"], designs
+        for name in counters:
             total[name] += launches[name]
+        for name in designs:
+            total["moe_gmm_bwd_by_design"][name] += designs[name]
         phase_time(f"train-family-{tag}")
     return total
 
@@ -2919,11 +3013,16 @@ def main() -> int:
     last = [time.perf_counter()]
 
     def phase_time(name):
-        """Print the wall time since the last mark: where the script's
-        time limit goes."""
+        """Print the wall time since the last mark (where the script's
+        time limit goes) and the process's host memory once the phase's
+        garbage is collected (the machine's limit is 96 GiB, and a
+        phase's state held in a reference cycle outlives the phase until
+        a full collection)."""
         now = time.perf_counter()
-        print(f"phase-time {name} {now - last[0]:.1f}s", flush=True)
-        last[0] = now
+        gc.collect()
+        print(f"phase-time {name} {now - last[0]:.1f}s "
+              f"host_rss_gb={_host_rss_gb():.2f}", flush=True)
+        last[0] = time.perf_counter()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3098,6 +3197,7 @@ def main() -> int:
         "source": src + "moe_gmm/csrc/moe_gmm_bwd.cu",
         "replaces": "src/repro/kernels/moe_gmm/kernel.py:28",
         "launches": tfam["moe_gmm_bwd"],
+        "launches_by_design": tfam["moe_gmm_bwd_by_design"],
         "max_abs_err": gmm_bwd_row["max_abs_err"],
         "ms": gmm_bwd_row["ms"], "plain_ms": gmm_bwd_row["plain_ms"],
         "bound_ms": gmm_bwd_row["bound_ms"],

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time one kernel of two checkouts on one GPU, in turns.
 
-    python3 compare_flash.py [--kernel flash|moe_gmm|mlstm|mamba_scan]
-        OLD_CHECKOUT [NEW_CHECKOUT]
+    python3 compare_flash.py [--kernel flash|moe_gmm|moe_gmm_bwd|moe_step|
+                              mlstm|mamba_scan] OLD_CHECKOUT [NEW_CHECKOUT]
 
 NEW_CHECKOUT defaults to this script's own directory.  Both packages are
 named ``repro_torch``, so each checkout runs in a process of its own, in
@@ -23,6 +23,16 @@ the port never calls.
 each, the cuBLAS composition of the same FFN (``chip_smoke._gmm_cublas``:
 h rounded to bf16, several calls), effective GB/s and TFLOP/s.
 
+``moe_gmm_bwd``: the expert FFN's backward at granite-moe-1b-a400m's
+training shape (E 32, M 1280, d 1024, ff 512), SwiGLU and gelu, and at
+phi3.5-moe's prefill shape (E 16, M 160, d 4096, ff 6400), SwiGLU; beside
+each its bound and the device time of each of its launches
+(``passes_ms``).  ``moe_step``: one warm training step of granite-moe-
+1b-a400m as chip_smoke's ``train-family-moe`` runs it (full width and
+depth, 2 ranks, global batch 8 x 1024, hierarchical sync): the median of
+five steps' wall time, and one step under torch.profiler
+(``chip_smoke.profile_phase``: device time by kernel kind, idle share).
+
 ``mlstm``: the chunkwise mLSTM at xlstm-1.3b's shapes (H 4, hd 1024,
 chunk 128, the model's forget gates): B 1 at L 1024 (a prefill), L 1000
 (ragged) and L 300 from an initial state, and B 4 at L 512 (the fixed
@@ -40,7 +50,6 @@ from __future__ import annotations
 
 import json
 import os
-import re
 import subprocess
 import sys
 
@@ -53,7 +62,12 @@ GMM_SHAPES = [("granite", 32, 320, 1024, 512), ("granite", 32, 8, 1024, 512),
 ML_SHAPES = [(1, 1024, False), (1, 1000, False), (4, 512, False),
              (1, 300, True)]
 SCAN_SHAPES = [(1, 1024), (1, 256), (4, 512)]
-KERNELS = ("flash", "moe_gmm", "mlstm", "mamba_scan")
+# (arch, E, M, d, ff, act) of the moe_gmm backward
+GMM_BWD_SHAPES = [("granite", 32, 1280, 1024, 512, "silu"),
+                  ("granite", 32, 1280, 1024, 512, "gelu"),
+                  ("phi3.5", 16, 160, 4096, 6400, "silu")]
+KERNELS = ("flash", "moe_gmm", "moe_gmm_bwd", "moe_step", "mlstm",
+           "mamba_scan")
 
 
 def gmm_rows(torch, cs):
@@ -82,28 +96,75 @@ def gmm_rows(torch, cs):
     return rows
 
 
-def pass_ms(torch, fn, iters=10):
-    """Device time of each CUDA kernel that ``fn`` launches, ms a call
-    (torch.profiler, after a warm-up): a multi-pass kernel's passes."""
-    from torch.profiler import ProfilerActivity, profile
+def gmm_bwd_rows(torch, cs):
+    from repro_torch.kernels.moe_gmm import ops
 
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for arch, e, m, d, ff, act in GMM_BWD_SHAPES:
+        x, dy = (torch.randn((e, m, d), generator=gen, device="cuda")
+                 .bfloat16() for _ in range(2))
+        w1, w3 = (torch.randn((e, d, ff), generator=gen, device="cuda")
+                  .mul_(0.02).bfloat16() for _ in range(2))
+        w2 = torch.randn((e, ff, d), generator=gen, device="cuda").mul_(
+            0.02).bfloat16()
+
+        def fn():
+            return ops._launch_bwd(x, w1, w2, w3, dy, act)
+        ms = cs._time_ms(fn, iters=10)
+        bound_ms, bound_by, flops, _ = cs._gmm_bwd_bound(
+            e, m, d, ff, act, "bfloat16", 2)
+        rows.append({"key": f"{arch} M{m} {act}", "E": e, "M": m, "d": d,
+                     "ff": ff, "act": act, "ms": ms,
+                     "tflops": flops / (ms * 1e-3) / 1e12,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "passes_ms": cs.pass_ms(torch, fn, iters=5)})
+        del x, dy, w1, w2, w3
+    return rows
+
+
+def moe_step_rows(torch, cs):
+    import time
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import (FaabricTrainRuntime,
+                                                RuntimeConfig,
+                                                family_batch_fn)
+
+    arch, _, _, ranks, gb, seq, steps, lr, _ = next(
+        f for f in cs.TRAIN_FAMILIES if f[1] == "moe")
+    cfg = get_config(arch)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb)
+    rt = RuntimeConfig(total_steps=steps, checkpoint_every=0,
+                       ckpt_dir=os.path.join(HERE, "build", "compare_ckpt"))
+    runtime = FaabricTrainRuntime(
+        cfg, AdamWConfig(lr=lr, warmup_steps=steps // 2, total_steps=steps),
+        dcfg, rt, ranks=ranks, device="cuda")
+    run = {"state": runtime.init_state(seed=0)}
+    runtime._build(run["state"])
+    run["resid"] = runtime._init_resid(run["state"])
+    batch = {k: torch.as_tensor(v).to("cuda")
+             for k, v in family_batch_fn(cfg)(dcfg, 0).items()}
+
+    def step():
+        run["state"], metrics, run["resid"] = runtime._step_fn(
+            run["state"], batch, run["resid"])
+        return float(metrics["loss"])
+    for _ in range(2):          # warm
+        step()
+    times = []
+    for _ in range(5):
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", None) or getattr(
-            e, "cuda_time_total", 0)
-        if t:       # "void (anonymous namespace)::ml_x<T>(...)" -> "ml_x"
-            name = e.key.replace("(anonymous namespace)::", "")
-            name = re.split(r"[(<]", name.removeprefix("void "))[0]
-            name = name.split("::")[-1]
-            out[name] = out.get(name, 0.0) + t / iters / 1000
-    return out
+        t0 = time.perf_counter()
+        step()
+        times.append(time.perf_counter() - t0)
+    prof = cs.profile_phase(torch, "moe_train_step", lambda: (step(), 1)[1])
+    runtime.release()
+    return [{"key": f"{arch} step", "ms": sorted(times)[2] * 1e3,
+             "step_ms": [t * 1e3 for t in times], "ranks": ranks,
+             "batch": [gb, seq], "profile": prof}]
 
 
 def mlstm_rows(torch, cs):
@@ -134,7 +195,7 @@ def mlstm_rows(torch, cs):
                      "B": b, "L": length, "state": with_state, "ms": ms,
                      "tflops": flops / (ms * 1e-3) / 1e12,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "passes_ms": pass_ms(torch, fn)})
+                     "passes_ms": cs.pass_ms(torch, fn)})
     return rows
 
 
@@ -160,7 +221,7 @@ def scan_rows(torch, cs):
         rows.append({"key": f"B{b} L{length}", "B": b, "L": length,
                      "ms": ms, "gbytes_per_s": nbytes / ms * 1e-6,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "passes_ms": pass_ms(torch, fn)})
+                     "passes_ms": cs.pass_ms(torch, fn)})
     return rows
 
 
@@ -181,7 +242,8 @@ def child(tree: str, kernel: str) -> int:
     for mod in (ops, gmm_ops, ml_ops, scan_ops):
         assert mod.__file__.startswith(os.path.abspath(tree)), mod.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
-    other = {"moe_gmm": gmm_rows, "mlstm": mlstm_rows,
+    other = {"moe_gmm": gmm_rows, "moe_gmm_bwd": gmm_bwd_rows,
+             "moe_step": moe_step_rows, "mlstm": mlstm_rows,
              "mamba_scan": scan_rows}
     if kernel in other:
         print(f"{kernel}-compare " + json.dumps({

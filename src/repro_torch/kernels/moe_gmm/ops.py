@@ -14,7 +14,9 @@ forward kernel route: for bf16 one call is two CUDA launches (the gate-up
 kernel, which writes h as a bf16 pair into a workspace this wrapper
 allocates, then the down kernel), for f32 one.  ``bwd_launches`` counts
 calls of the backward, three CUDA launches each (gate-up with dh, dx, the
-weight gradients).
+weight gradients), and ``bwd_design_launches`` the same calls by the
+backward's design (``bwd_design``): "wgmma" (bf16 that TMA can describe),
+"mma.sync" (other bf16 shapes), "fma" (f32 on the CUDA cores).
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ from repro_torch.kernels.moe_gmm.ref import expert_ffn_ref
 
 launches = 0            # forward kernel-route calls since the last reset
 bwd_launches = 0        # backward kernel-route calls since the last reset
+BWD_DESIGNS = ("wgmma", "mma.sync", "fma")
+bwd_design_launches = dict.fromkeys(BWD_DESIGNS, 0)     # the same, by design
 
 ACTS = ("silu", "gelu")
 MAX_GRID_YZ = 65535     # CUDA's limit on a grid's y and z
@@ -46,14 +50,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, w1, w3, w2, h (workspace), y; E, M, d, ff; act, dtype, stream
 _SIG = {"mg_ffn": [_P] * 6 + [_I] * 4 + [_I, _I, _P]}
 # x, w1, w3, w2, dy, workspace, dx, dw1, dw3, dw2; E, M, d, ff; act,
-# dtype, stream
-_BWD_SIG = {"mg_ffn_bwd": [_P] * 10 + [_I] * 4 + [_I, _I, _P]}
+# dtype, design, stream
+_BWD_SIG = {"mg_ffn_bwd": [_P] * 10 + [_I] * 4 + [_I, _I, _I, _P]}
 
 
 def reset_launches() -> None:
     global launches, bwd_launches
     launches = 0
     bwd_launches = 0
+    for name in BWD_DESIGNS:
+        bwd_design_launches[name] = 0
 
 
 def lib():
@@ -98,6 +104,24 @@ def bwd_workspace_shape(e: int, m: int, ff: int,
     up to whole HCOLS: h_hi, h_lo, dg, du in bf16; h, dg, du in f32."""
     return (4 if dtype == torch.bfloat16 else 3, e, m,
             -(-ff // HCOLS) * HCOLS)
+
+
+def bwd_design(e: int, m: int, d: int, ff: int, dtype: torch.dtype,
+               aligned: bool = True) -> str:
+    """The backward's design for x (E, M, d), an expert ff and the dtype:
+    "fma" for f32; for bf16 "wgmma" where TMA can describe every operand
+    (d and ff multiples of 8, so rows are whole 16 bytes, and every
+    pointer 16-byte aligned: ``aligned``), else "mma.sync".  Pure: the C
+    entry takes the same rule and refuses a call that names another."""
+    if not (e > 0 and m > 0 and ff > 0 and d > 0):
+        raise ValueError(f"moe_gmm: E {e}, M {m}, ff {ff}, d {d}; need "
+                         "all > 0")
+    if dtype not in _DTYPES:
+        raise TypeError(f"moe_gmm: dtype {dtype}; need float32 or "
+                        "bfloat16")
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if d % 8 == 0 and ff % 8 == 0 and aligned else "mma.sync"
 
 
 def launch_grid(e: int, m: int, d: int, ff: int,
@@ -185,18 +209,20 @@ def _launch_bwd(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     dw3 = torch.empty_like(w3) if act == "silu" else torch.zeros_like(w3)
     ws = torch.empty(bwd_workspace_shape(e, m, ff, x.dtype), dtype=x.dtype,
                      device=x.device)
+    ptrs = [t.data_ptr() for t in (x, w1, w3, w2, dy, ws, dx, dw1, dw3, dw2)]
+    design = bwd_design(e, m, d, ff, x.dtype,
+                        aligned=all(p % 16 == 0 for p in ptrs))
     handle = bwd_lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = handle.mg_ffn_bwd(
-            x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
-            dy.data_ptr(), ws.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
-            dw3.data_ptr(), dw2.data_ptr(), e, m, d, ff, ACTS.index(act),
-            _DTYPES[x.dtype], stream)
+        err = handle.mg_ffn_bwd(*ptrs, e, m, d, ff, ACTS.index(act),
+                                _DTYPES[x.dtype], BWD_DESIGNS.index(design),
+                                stream)
     if err != 0:
         raise RuntimeError(f"moe_gmm: CUDA error {err} at the backward's "
-                           "launch")
+                           f"launch ({design})")
     bwd_launches += 1
+    bwd_design_launches[design] += 1
     return dx, dw1, dw2, dw3
 
 

@@ -73,13 +73,20 @@ def common_part_grad(e: int, m: int, d: int, *, dtype: torch.dtype,
     return (dy - dy.mean(1, keepdim=True)).to(dtype)
 
 
-# The backward's planted fault: moe_gmm_bwd.cu without the product of h's
-# low bf16 part in dw2 = h^T dy, so h is rounded once to bf16 there.  The
-# common-part cases (``common_part_inputs`` with ``common_part_grad``)
-# must fail dw2, and only dw2, on such a copy.
+# The forward's planted fault: moe_gmm.cu's down kernel without the
+# product of h's low bf16 part, so h is rounded once to bf16 before h w2.
+# The forward's common-part cases (``common_part_inputs``) must fail on
+# such a copy.
+FWD_ROUND_FAULT = ("tc::mma_bf16(acc[mt][2 * np + j], alo[mt], b[2 * j], "
+                   "b[2 * j + 1]);", "")
+
+# The backward's planted fault: moe_gmm_bwd.cu's wgmma design without the
+# product of h's low bf16 part in dw2 = h^T dy, so h is rounded once to
+# bf16 there.  The common-part cases (``common_part_inputs`` with
+# ``common_part_grad``) must fail dw2, and only dw2, on such a copy.
 BWD_ROUND_FAULT = (
-    "          mma_step<true, true>(acc, st + B, st + 2 * B, lane, f.wr, "
-    "f.wc, ks);\n", "")
+    "            wg::mma_n128<1, 1>(acc, mn(st + 2 * DW_SLOT + c * BOX, kk), "
+    "b);\n", "")
 
 
 def grads_close(got, ref, tol: float) -> list:

@@ -14,16 +14,34 @@
 // operands exactly in f32 and sums in another order than the tensor cores.
 // Fragment layouts follow the PTX ISA ("Matrix fragments for
 // mma.m16n8k16", "ldmatrix").
+//
+// Hopper (wgmma_bf16.cuh): a warpgroup's wgmma exchanges its descriptors
+// across its 128 threads (they must agree) and is computed only when
+// wgmma.wait_group retires its group, reading shared memory then through
+// the descriptor and the 128-byte swizzle of the PTX ISA's shared-memory
+// matrix layouts, so an accumulator read before its wait sees the old
+// value.  An mbarrier keeps its phase, pending arrivals and transaction
+// count.  A TMA load is held on its barrier and lands (its box swizzled,
+// what lies outside the tensor 0) only when a wait on that barrier
+// observes it, so a read of a stage before its wait sees stale bytes; a
+// TMA store reads shared memory only when cp.async.bulk.wait_group.read
+// retires its group, so a box rewritten before that wait shows.  The
+// dynamic shared memory starts on 1024 bytes; tc::smem_u32 is the offset
+// from its start.
 #pragma once
 #include <algorithm>
 #include <barrier>
+#include <chrono>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -31,8 +49,10 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(x)
+#define __grid_constant__
+#define __trap() std::abort()
 // A static __shared__ array is one object for all the threads of the
 // block (blocks run one after another); unlike the dynamic smem() it is
 // not filled with NaN bytes.
@@ -48,6 +68,8 @@ struct dim3 {
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
 inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __expf(float x) { return std::exp(x); }
+inline float __fdividef(float a, float b) { return a / b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
@@ -55,10 +77,15 @@ inline float4 make_float4(float a, float b, float c, float d) {
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <typename F>
 int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
+inline int cudaGetDevice(int* dev) {
+  *dev = 0;
+  return 0;
+}
 
 struct __nv_bfloat16 { uint16_t x; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
@@ -95,7 +122,22 @@ struct Warp {
 inline std::vector<std::unique_ptr<Warp>> warps;
 inline std::unique_ptr<std::barrier<>> block_bar;
 inline std::vector<unsigned char> smem_buf;
-inline unsigned char* smem() { return smem_buf.data(); }
+inline unsigned char* smem_base;    // smem_buf's first 1024-byte boundary
+inline unsigned char* smem() { return smem_base; }
+constexpr int SMS = 3;              // multiprocessors (persistent grids)
+// A warpgroup's exchange area (its wgmma's descriptors).
+struct WarpGroup {
+  std::barrier<> bar{128};
+  uint64_t a[128], b[128];
+};
+inline std::vector<std::unique_ptr<WarpGroup>> warpgroups;
+struct WgOp { float* d; int n, ta, tb; uint64_t a, b; };
+inline thread_local std::vector<WgOp> wg_cur;
+inline thread_local std::vector<std::vector<WgOp>> wg_groups;
+struct TmaStore;
+inline thread_local std::vector<TmaStore> bulk_cur;
+inline thread_local std::vector<std::vector<TmaStore>> bulk_groups;
+inline void reset_mbarriers();
 struct Copy { void* dst; const void* src; int n, src_n; };
 inline thread_local std::vector<Copy> cur;
 inline thread_local std::vector<std::vector<Copy>> pending;
@@ -111,9 +153,16 @@ inline void launch(dim3 grid, dim3 block, int smem_bytes, void*,
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
-        smem_buf.assign(smem_bytes + 16, 0xFF);
+        smem_buf.assign(smem_bytes + 1024 + 16, 0xFF);
+        smem_base = smem_buf.data() +
+                    (1024 - reinterpret_cast<uintptr_t>(smem_buf.data()) %
+                                1024) % 1024;
         warps.clear();
         for (int w = 0; w < (nt + 31) / 32; ++w) warps.emplace_back(new Warp);
+        warpgroups.clear();
+        for (int w = 0; nt % 128 == 0 && w < nt / 128; ++w)
+          warpgroups.emplace_back(new WarpGroup);
+        reset_mbarriers();
         block_bar.reset(new std::barrier<>(nt));
         std::vector<std::thread> ts;
         for (int t = 0; t < nt; ++t)
@@ -122,9 +171,21 @@ inline void launch(dim3 grid, dim3 block, int smem_bytes, void*,
             bIdx = dim3(bx, by, bz);
             cur.clear();
             pending.clear();
+            wg_cur.clear();
+            wg_groups.clear();
+            bulk_cur.clear();
+            bulk_groups.clear();
             fn();
             if (!pending.empty() || !cur.empty()) {
               std::fprintf(stderr, "a thread left cp.async groups pending\n");
+              std::abort();
+            }
+            if (!wg_groups.empty() || !wg_cur.empty()) {
+              std::fprintf(stderr, "a thread left wgmma groups pending\n");
+              std::abort();
+            }
+            if (!bulk_groups.empty() || !bulk_cur.empty()) {
+              std::fprintf(stderr, "a thread left TMA stores unread\n");
               std::abort();
             }
           });
@@ -161,9 +222,18 @@ inline float shfl_up(float v, int off) {
 #define __shfl_xor_sync(mask, v, off) emu::shfl_xor((v), (off))
 #define __shfl_up_sync(mask, v, off) emu::shfl_up((v), (off))
 
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = emu::SMS;
+  return 0;
+}
+
 // The tc:: primitives that mma_bf16.cuh writes in inline PTX (the
 // translation drops those definitions).
 namespace tc {
+// A shared address: the offset from the dynamic shared memory's start.
+inline uint32_t smem_u32(const void* p) {
+  return (uint32_t)(static_cast<const unsigned char*>(p) - emu::smem_base);
+}
 inline void cp_async16(void* dst, const void* src, int n) {
   emu::cur.push_back({dst, src, 16, n});
 }
@@ -243,3 +313,313 @@ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
   for (int e = 0; e < 4; ++e) d[e] = out[e];
 }
 }  // namespace tc
+
+// ---------------------------------------------------------------------------
+// Hopper: the driver's tensor maps and the wg:: primitives that
+// wgmma_bf16.cuh writes in inline PTX (the translation drops those
+// definitions).
+// ---------------------------------------------------------------------------
+typedef int CUresult;
+enum { CUDA_SUCCESS = 0 };
+typedef uint64_t cuuint64_t;
+typedef uint32_t cuuint32_t;
+enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9 };
+enum CUtensorMapInterleave { CU_TENSOR_MAP_INTERLEAVE_NONE = 0 };
+enum CUtensorMapSwizzle { CU_TENSOR_MAP_SWIZZLE_128B = 3 };
+enum CUtensorMapL2promotion { CU_TENSOR_MAP_L2_PROMOTION_L2_256B = 3 };
+enum CUtensorMapFloatOOBfill { CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE = 0 };
+// What an encoding keeps (the driver's is 128 opaque bytes).
+struct CUtensorMap {
+  const unsigned char* base;
+  uint32_t rank, box[5];
+  uint64_t dims[5], strides[5];   // strides[i]: bytes of a step of dim i + 1
+};
+enum cudaDriverEntryPointQueryResult { cudaDriverEntryPointSuccess = 0 };
+enum { cudaEnableDefault = 0 };
+#define CUDART_VERSION 12000
+
+// cuTensorMapEncodeTiled for bf16 with the 128-byte swizzle, under TMA's
+// rules: a 16-byte aligned base, strides multiples of 16 bytes, box sides
+// of 1 to 256 and an inner side of 16 to 128 bytes.
+inline CUresult emu_encode_tiled(CUtensorMap* m, CUtensorMapDataType type,
+                                 cuuint32_t rank, void* base,
+                                 const cuuint64_t* dims,
+                                 const cuuint64_t* strides,
+                                 const cuuint32_t* box,
+                                 const cuuint32_t* step,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle sw,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill) {
+  if (type != CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ||
+      sw != CU_TENSOR_MAP_SWIZZLE_128B || rank < 1 || rank > 5 ||
+      reinterpret_cast<uintptr_t>(base) % 16 || box[0] * 2 > 128 ||
+      box[0] * 2 % 16)
+    return 1;
+  m->base = static_cast<const unsigned char*>(base);
+  m->rank = rank;
+  for (uint32_t i = 0; i < rank; ++i) {
+    if (box[i] < 1 || box[i] > 256 || step[i] != 1 || dims[i] < 1) return 1;
+    if (i + 1 < rank && strides[i] % 16) return 1;
+    m->box[i] = box[i];
+    m->dims[i] = dims[i];
+    if (i + 1 < rank) m->strides[i] = strides[i];
+  }
+  return CUDA_SUCCESS;
+}
+
+inline int cudaGetDriverEntryPoint(const char* symbol, void** fn,
+                                   unsigned long long,
+                                   cudaDriverEntryPointQueryResult* found) {
+  if (std::strcmp(symbol, "cuTensorMapEncodeTiled") != 0) return 1;
+  *fn = reinterpret_cast<void*>(&emu_encode_tiled);
+  *found = cudaDriverEntryPointSuccess;
+  return 0;
+}
+
+namespace emu {
+struct Tma {
+  unsigned char* dst;
+  CUtensorMap map;
+  long long c[3];
+};
+struct TmaStore {
+  const unsigned char* src;
+  CUtensorMap map;
+  long long c[3];
+};
+struct Mbar {
+  int count = 0, pending = 0;    // arrivals a phase needs, and still owes
+  long long tx = 0;              // transaction bytes still owed
+  unsigned phases = 0;           // phases completed
+  std::vector<Tma> loads;        // issued, not landed
+};
+inline std::mutex mbar_mu;
+inline std::condition_variable mbar_cv;
+inline std::map<const void*, Mbar> mbars;
+inline void reset_mbarriers() {
+  std::lock_guard<std::mutex> lock(mbar_mu);
+  mbars.clear();
+}
+[[noreturn]] inline void fail(const char* what) {
+  std::fprintf(stderr, "%s\n", what);
+  std::abort();
+}
+inline Mbar& mbar(const void* p) {
+  auto it = mbars.find(p);
+  if (it == mbars.end()) fail("an mbarrier used before its init");
+  return it->second;
+}
+inline uint64_t box_bytes(const CUtensorMap& m) {
+  uint64_t n = 2;
+  for (uint32_t i = 0; i < m.rank; ++i) n *= m.box[i];
+  return n;
+}
+// Land a TMA box: its element (x, y, z) is the tensor's at c + (x, y, z),
+// or 0 outside it, at byte b = 2 ((z Y + y) X + x) of the box, with the
+// 128-byte swizzle's chunk b bits 4-6 XOR b bits 7-9.
+inline void land(const Tma& t) {
+  const CUtensorMap& m = t.map;
+  if (tc::smem_u32(t.dst) % 1024)
+    fail("a 128-byte-swizzled TMA box not on 1024 bytes");
+  const uint32_t X = m.box[0], Y = m.rank > 1 ? m.box[1] : 1,
+                 Z = m.rank > 2 ? m.box[2] : 1;
+  uint64_t b = 0;
+  for (uint32_t z = 0; z < Z; ++z)
+    for (uint32_t y = 0; y < Y; ++y)
+      for (uint32_t x = 0; x < X; ++x, b += 2) {
+        const long long g[3] = {t.c[0] + x, t.c[1] + y, t.c[2] + z};
+        bool in = true;
+        uint64_t off = 0;
+        for (uint32_t i = 0; i < m.rank; ++i) {
+          in = in && g[i] >= 0 && g[i] < (long long)m.dims[i];
+          if (in) off += (i == 0 ? 2 : m.strides[i - 1]) * (uint64_t)g[i];
+        }
+        unsigned char* dst = t.dst + (b ^ (((b >> 7) & 7) << 4));
+        if (in)
+          std::memcpy(dst, m.base + off, 2);
+        else
+          std::memset(dst, 0, 2);
+      }
+}
+// Store a TMA box from shared memory: the inverse of land, writing nothing
+// outside the tensor.
+inline void store(const TmaStore& t) {
+  const CUtensorMap& m = t.map;
+  if (tc::smem_u32(t.src) % 1024)
+    fail("a 128-byte-swizzled TMA box not on 1024 bytes");
+  const uint32_t X = m.box[0], Y = m.rank > 1 ? m.box[1] : 1,
+                 Z = m.rank > 2 ? m.box[2] : 1;
+  uint64_t b = 0;
+  for (uint32_t z = 0; z < Z; ++z)
+    for (uint32_t y = 0; y < Y; ++y)
+      for (uint32_t x = 0; x < X; ++x, b += 2) {
+        const long long g[3] = {t.c[0] + x, t.c[1] + y, t.c[2] + z};
+        bool in = true;
+        uint64_t off = 0;
+        for (uint32_t i = 0; i < m.rank; ++i) {
+          in = in && g[i] >= 0 && g[i] < (long long)m.dims[i];
+          if (in) off += (i == 0 ? 2 : m.strides[i - 1]) * (uint64_t)g[i];
+        }
+        if (in)
+          std::memcpy(const_cast<unsigned char*>(m.base) + off,
+                      t.src + (b ^ (((b >> 7) & 7) << 4)), 2);
+      }
+}
+inline void try_complete(Mbar& b) {
+  if (b.pending == 0 && b.tx == 0) {
+    ++b.phases;
+    b.pending = b.count;
+    mbar_cv.notify_all();
+  }
+}
+// A wait's view of the barrier: its loads land, then whether the phase of
+// parity `parity` has completed (mbar_mu held).
+inline bool observe(Mbar& b, uint32_t parity) {
+  for (const Tma& t : b.loads) {
+    land(t);
+    b.tx -= (long long)box_bytes(t.map);
+  }
+  b.loads.clear();
+  try_complete(b);
+  return (b.phases & 1) != parity;
+}
+inline void arrive(Mbar& b) {
+  if (--b.pending < 0) fail("more mbarrier arrivals than its count");
+  try_complete(b);
+}
+
+inline WarpGroup& my_warpgroup() {
+  const size_t i = tIdx.x / 128;
+  if (i >= warpgroups.size()) fail("a wgmma outside a whole warpgroup");
+  return *warpgroups[i];
+}
+// Element (mn, k) of a wgmma operand through its descriptor: start, LBO
+// and SBO in 16-byte units; K-major at start + (mn / 8) SBO + (mn % 8) 128
+// + 2 k, MN-major at start + (mn / 64) LBO + (k / 8) SBO + (k % 8) 128 +
+// 2 (mn % 64); then the 128-byte swizzle of the shared address.
+inline float wg_elem(uint64_t desc, bool mn_major, int mn, int k) {
+  if (desc >> 62 != 1 || (desc >> 49 & 7) != 0)
+    fail("a wgmma descriptor without the 128-byte swizzle at offset 0");
+  const uint32_t start = (uint32_t)(desc & 0x3FFF) << 4;
+  const uint32_t lbo = (uint32_t)(desc >> 16 & 0x3FFF) << 4;
+  const uint32_t sbo = (uint32_t)(desc >> 32 & 0x3FFF) << 4;
+  uint32_t a = mn_major ? start + (mn / 64) * lbo + (k / 8) * sbo +
+                              (k % 8) * 128 + (mn % 64) * 2
+                        : start + (mn / 8) * sbo + (mn % 8) * 128 + k * 2;
+  a ^= ((a >> 7) & 7) << 4;
+  return tc::half_of(tc::ld16(smem_base + a), 0);
+}
+// This thread's part of a retired wgmma: its accumulator registers
+// 4 j + 2 i + q, (row 16 w + g + 8 i, column 8 j + 2 t + q).
+inline void wg_run(const WgOp& op) {
+  const int l = tIdx.x % 128, w = l / 32, g = (l % 32) / 4, t = l % 4;
+  for (int j = 0; j < op.n / 8; ++j)
+    for (int i = 0; i < 2; ++i)
+      for (int q = 0; q < 2; ++q) {
+        const int row = 16 * w + g + 8 * i, col = 8 * j + 2 * t + q;
+        float acc = op.d[4 * j + 2 * i + q];
+        for (int k = 0; k < 16; ++k)
+          acc += wg_elem(op.a, op.ta, row, k) * wg_elem(op.b, op.tb, col, k);
+        op.d[4 * j + 2 * i + q] = acc;
+      }
+}
+inline void wg_issue(float* d, int n, int ta, int tb, uint64_t a,
+                     uint64_t b) {
+  WarpGroup& g = my_warpgroup();
+  const int l = tIdx.x % 128;
+  g.a[l] = a;
+  g.b[l] = b;
+  g.bar.arrive_and_wait();
+  bool same = true;
+  for (int i = 0; i < 128; ++i) same = same && g.a[i] == a && g.b[i] == b;
+  g.bar.arrive_and_wait();
+  if (!same) fail("a wgmma's descriptors differ across its warpgroup");
+  wg_cur.push_back({d, n, ta, tb, a, b});
+}
+}  // namespace emu
+
+namespace wg {
+inline void fence() {}
+inline void commit_group() {
+  emu::wg_groups.push_back(std::move(emu::wg_cur));
+  emu::wg_cur.clear();
+}
+// Retire groups until N remain, then wait for the whole warpgroup: a
+// group is the warpgroup's, complete for all its threads at once.
+template <int N>
+inline void wait_group() {
+  while ((int)emu::wg_groups.size() > N) {
+    for (const emu::WgOp& op : emu::wg_groups.front()) emu::wg_run(op);
+    emu::wg_groups.erase(emu::wg_groups.begin());
+  }
+  emu::my_warpgroup().bar.arrive_and_wait();
+}
+template <int TA, int TB>
+inline void mma_n64(float (&d)[32], uint64_t a, uint64_t b) {
+  emu::wg_issue(d, 64, TA, TB, a, b);
+}
+template <int TA, int TB>
+inline void mma_n128(float (&d)[64], uint64_t a, uint64_t b) {
+  emu::wg_issue(d, 128, TA, TB, a, b);
+}
+template <int TA, int TB>
+inline void mma_n256(float (&d)[128], uint64_t a, uint64_t b) {
+  emu::wg_issue(d, 256, TA, TB, a, b);
+}
+inline void mbar_init(uint64_t* bar, uint32_t count) {
+  std::lock_guard<std::mutex> lock(emu::mbar_mu);
+  emu::Mbar& b = emu::mbars[bar];
+  b = emu::Mbar();
+  b.count = b.pending = (int)count;
+}
+inline void fence_barrier_init() {}
+inline void fence_proxy_async() {}
+inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  std::lock_guard<std::mutex> lock(emu::mbar_mu);
+  emu::Mbar& b = emu::mbar(bar);
+  b.tx += bytes;
+  emu::arrive(b);
+}
+inline void mbar_arrive(uint64_t* bar) {
+  std::lock_guard<std::mutex> lock(emu::mbar_mu);
+  emu::arrive(emu::mbar(bar));
+}
+// try_wait until the phase completes (each try lands the barrier's loads);
+// blocks between tries, and a minute without the phase is a deadlock.
+inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  std::unique_lock<std::mutex> lock(emu::mbar_mu);
+  const auto until =
+      std::chrono::steady_clock::now() + std::chrono::seconds(60);
+  while (!emu::observe(emu::mbar(bar), parity))
+    if (emu::mbar_cv.wait_until(lock, until) == std::cv_status::timeout)
+      emu::fail("an mbarrier wait never ended");
+}
+inline void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                        int c0, int c1, int c2) {
+  std::lock_guard<std::mutex> lock(emu::mbar_mu);
+  emu::mbar(bar).loads.push_back(
+      {static_cast<unsigned char*>(dst), *map, {c0, c1, c2}});
+  emu::mbar_cv.notify_all();
+}
+inline void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                         int c1, int c2) {
+  emu::bulk_cur.push_back(
+      {static_cast<const unsigned char*>(src), *map, {c0, c1, c2}});
+}
+inline void bulk_commit() {
+  emu::bulk_groups.push_back(std::move(emu::bulk_cur));
+  emu::bulk_cur.clear();
+}
+template <int N>
+inline void bulk_wait_read() {
+  while ((int)emu::bulk_groups.size() > N) {
+    for (const emu::TmaStore& t : emu::bulk_groups.front()) emu::store(t);
+    emu::bulk_groups.erase(emu::bulk_groups.begin());
+  }
+}
+inline void warpgroup_sync(int) { emu::my_warpgroup().bar.arrive_and_wait(); }
+template <int R>
+inline void setmaxnreg_dec() {}
+template <int R>
+inline void setmaxnreg_inc() {}
+}  // namespace wg

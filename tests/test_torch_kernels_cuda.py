@@ -560,9 +560,6 @@ def test_cuda_moe_gmm_matches_plain(cuda_device, e, m, d, ff, act, dtype):
 # shapes and a small one.  h rounded once to bf16 fails them.
 GMM_COMMON = [(32, 320, 1024, 512), (32, 8, 1024, 512),
               (16, 160, 4096, 6400), (16, 2, 4096, 6400), (2, 24, 64, 128)]
-# moe_gmm.cu's down kernel without the product of h's low bf16 part
-GMM_FAULT = ("tc::mma_bf16(acc[mt][2 * np + j], alo[mt], b[2 * j], "
-             "b[2 * j + 1]);", "")
 
 
 def _gmm_common_errors(GO, GR, e, m, d, ff, device):
@@ -601,7 +598,7 @@ def test_cuda_moe_gmm_checks_catch_h_rounded_once(cuda_device, tmp_path,
     from repro_torch.kernels import _build
     from repro_torch.kernels.moe_gmm import ops as GO
     from repro_torch.kernels.moe_gmm import ref as GR
-    old, new = GMM_FAULT
+    old, new = GR.FWD_ROUND_FAULT
     source = GO._SOURCE.read_text()
     assert source.count(old) == 1
     mutant = tmp_path / "moe_gmm.cu"
@@ -654,12 +651,16 @@ def test_cuda_moe_gmm_model_layout_and_refusals(cuda_device):
 
 def _gmm_grads(GO, x, w1, w2, w3, dy, act):
     """(dx, dw1, dw2, dw3) through the wrapper's autograd route: one
-    forward and one backward call of the kernels."""
+    forward and one backward call of the kernels, the backward through
+    the design ``GO.bwd_design`` names."""
     leaves = [t.clone().requires_grad_() for t in (x, w1, w2, w3)]
-    before = (GO.launches, GO.bwd_launches)
+    e, m, d = x.shape
+    design = GO.bwd_design(e, m, d, w1.shape[-1], x.dtype)
+    before = (GO.launches, GO.bwd_launches, GO.bwd_design_launches[design])
     y = GO.expert_ffn_kernel_layout(*leaves, act=act)
     grads = torch.autograd.grad(y, leaves, dy, allow_unused=True)
-    assert (GO.launches, GO.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert (GO.launches, GO.bwd_launches,
+            GO.bwd_design_launches[design]) == tuple(n + 1 for n in before)
     return grads
 
 
@@ -674,8 +675,9 @@ def _gmm_grads_ok(got, ref, dtype):
     # granite's training shape (8 groups x capacity 160), a ragged M, gelu
     (32, 1280, 1024, 512, "silu"), (32, 100, 1024, 512, "silu"),
     (4, 256, 64, 256, "gelu"),
-    # unaligned d and ff (element loads), ragged tiles
+    # unaligned d and ff (mma.sync, element loads), ragged tiles (wgmma)
     (2, 33, 130, 70, "gelu"), (3, 40, 1000, 200, "silu"),
+    (2, 33, 72, 70, "gelu"), (1, 17, 130, 64, "silu"),
     # phi3.5-moe's prefill shape (ff 6400, d 4096)
     (16, 160, 4096, 6400, "silu")])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -706,6 +708,27 @@ def test_cuda_moe_gmm_bwd_is_deterministic(cuda_device):
     first = GO._launch_bwd(x, w1, w2, w3, dy, "silu")
     second = GO._launch_bwd(x, w1, w2, w3, dy, "silu")
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_cuda_moe_gmm_bwd_takes_mma_sync_off_16_bytes(cuda_device):
+    """x 2 bytes off 16-byte alignment (contiguous, so the wrapper takes
+    it as it lies) is what TMA cannot describe: the call goes through the
+    mma.sync design and agrees with the plain version."""
+    from repro_torch.kernels.moe_gmm import ops as GO
+    from repro_torch.kernels.moe_gmm import ref as GR
+    x, w1, w2, w3 = _gmm_inputs(2, 40, 64, 96, "bfloat16", cuda_device, 9)
+    dy = torch.randn_like(x)
+    off = torch.empty(x.numel() + 1, dtype=x.dtype,
+                      device=cuda_device)[1:].view(x.shape)
+    off.copy_(x)
+    assert off.data_ptr() % 16 != 0 and off.is_contiguous()
+    before = dict(GO.bwd_design_launches)
+    got = GO._launch_bwd(off, w1, w2, w3, dy, "silu")
+    assert GO.bwd_design_launches["mma.sync"] == before["mma.sync"] + 1
+    ref = GR.expert_ffn_grads_ref(x, w1, w2, w3, dy)
+    torch.cuda.synchronize()
+    assert all(_gmm_grads_ok(got, ref, "bfloat16"))
 
 
 # The backward's common-part cases (ref.common_part_inputs with

@@ -34,16 +34,18 @@ from repro_torch.kernels.moe_gmm import ref as GR
 torch.set_num_threads(2)   # several test workers share the cores
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
-# the primitives mma_bf16.cuh writes in inline PTX; emu.h defines them
+# the primitives mma_bf16.cuh and wgmma_bf16.cuh write in inline PTX (and
+# mbar_wait, a loop over one); emu.h defines them
 PTX_FNS = {"smem_u32", "cp_async16", "cp_async4", "cp_async_commit",
-           "cp_async_wait", "ldmatrix_x4", "ldmatrix_x4_trans", "mma_bf16"}
+           "cp_async_wait", "ldmatrix_x4", "ldmatrix_x4_trans", "mma_bf16",
+           "fence", "commit_group", "wait_group", "mma_n64", "mma_n128",
+           "mma_n256", "mbar_init", "fence_barrier_init", "fence_proxy_async",
+           "mbar_expect_tx", "mbar_arrive", "mbar_try_wait", "mbar_wait",
+           "tma_load_3d", "tma_store_3d", "bulk_commit", "bulk_wait_read",
+           "warpgroup_sync", "setmaxnreg_dec", "setmaxnreg_inc"}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# moe_gmm's down kernel without the product of h's low bf16 part: h
-# rounded once to bf16 (the fault the card test plants too)
-GMM_FAULT = ("tc::mma_bf16(acc[mt][2 * np + j], alo[mt], b[2 * j], "
-             "b[2 * j + 1]);", "")
 # mlstm's h pass without the product of C's low bf16 part, and
 # mamba_scan's y with only that of the state S's first part: each rounded
 # once (the faults the card tests plant too)
@@ -58,7 +60,7 @@ SCAN_ROUND_FAULT = (
 
 def _drop_ptx(text: str) -> str:
     """``text`` without the definitions of the PTX_FNS functions."""
-    pat = re.compile(r"(template <int N>\n)?__device__ __forceinline__ "
+    pat = re.compile(r"(template <[^<>\n]*>\n)?__device__ __forceinline__ "
                      r"[\w ]+? (\w+)\(")
     out, i = [], 0
     for m in pat.finditer(text):
@@ -77,14 +79,22 @@ def _drop_ptx(text: str) -> str:
 
 def translate(source: str, include_dir: Path) -> str:
     """A kernel source as C++ over emu.h; its ``#include "..."`` found
-    beside it (``include_dir``) or in the build's shared include dir."""
+    beside it (``include_dir``) or in the build's shared include dir,
+    each header inlined once (its own includes too)."""
+    seen = set()
+
     def inline(m):
+        if m.group(1) in seen:
+            return ""
+        seen.add(m.group(1))
         for where in (include_dir, _build.INCLUDE_DIR):
             if (where / m.group(1)).exists():
-                return _drop_ptx((where / m.group(1)).read_text())
+                return re.sub(r'#include "([\w.]+)"', inline, _drop_ptx(
+                    (where / m.group(1)).read_text()))
         raise FileNotFoundError(m.group(1))
     text = re.sub(r'#include "([\w.]+)"', inline, source)
-    text = re.sub(r"#include <cuda_(bf16|runtime)\.h>|#pragma once", "", text)
+    text = re.sub(r"#include <cuda(_bf16|_runtime)?\.h>|#pragma once", "",
+                  text)
     text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) "
                   r"(\w+)\[\];", r"\1* \2 = (\1*)emu::smem();", text)
     text = re.sub(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\((.*?)\);",
@@ -304,7 +314,7 @@ def test_emulated_moe_gmm_keeps_h_precision(libs, e, m, d, ff):
 def test_emulated_moe_gmm_checks_catch_h_rounded_once(libs):
     """moe_gmm.cu without the h_lo product (h rounded once to bf16 before
     h w2) fails the common-part cases."""
-    old, new = GMM_FAULT
+    old, new = GR.FWD_ROUND_FAULT
     source = GO._SOURCE.read_text()
     assert source.count(old) == 1
     lib = build(source.replace(old, new), GO._SOURCE.parent, libs["out"],
@@ -319,18 +329,20 @@ def test_emulated_moe_gmm_checks_catch_h_rounded_once(libs):
 
 
 def _gmm_bwd(lib, x, w1, w2, w3, dy, act):
-    """(dx, dw1, dw2, dw3) from the emulated mg_ffn_bwd."""
+    """(dx, dw1, dw2, dw3) from the emulated mg_ffn_bwd, through the
+    design ``GO.bwd_design`` names."""
     e, m, d = x.shape
     ff = w1.shape[-1]
     dx, dw1, dw2 = (torch.empty_like(t) for t in (x, w1, w2))
     dw3 = torch.empty_like(w3) if act == "silu" else torch.zeros_like(w3)
     ws = torch.empty(GO.bwd_workspace_shape(e, m, ff, x.dtype),
                      dtype=x.dtype)
-    err = lib.mg_ffn_bwd(x.data_ptr(), w1.data_ptr(), w3.data_ptr(),
-                         w2.data_ptr(), dy.data_ptr(), ws.data_ptr(),
-                         dx.data_ptr(), dw1.data_ptr(), dw3.data_ptr(),
-                         dw2.data_ptr(), e, m, d, ff, GO.ACTS.index(act),
-                         GO._DTYPES[x.dtype], None)
+    ptrs = [t.data_ptr() for t in (x, w1, w3, w2, dy, ws, dx, dw1, dw3, dw2)]
+    design = GO.bwd_design(e, m, d, ff, x.dtype,
+                           all(p % 16 == 0 for p in ptrs))
+    err = lib.mg_ffn_bwd(*ptrs, e, m, d, ff, GO.ACTS.index(act),
+                         GO._DTYPES[x.dtype], GO.BWD_DESIGNS.index(design),
+                         None)
     assert err == 0
     return dx, dw1, dw2, dw3
 
@@ -340,22 +352,37 @@ def _grads_close(got, ref, dtype):
     return GR.grads_close(got, ref, GMM_TOL[dtype])
 
 
-@pytest.mark.parametrize("e,m,d,ff,act,dtype", [
-    # bf16 on the tensor cores: ragged M (40 of a 64-row tile) and ff
-    # (96 -> workspace rows of 128)
-    (2, 40, 64, 96, "silu", torch.bfloat16),
-    # M over two tiles, ff 200 ragged in its last tile, d over two tiles
-    (2, 100, 128, 200, "silu", torch.bfloat16),
-    # ff not a multiple of 8 (element loads), gelu (dw3 = 0)
-    (2, 33, 72, 70, "gelu", torch.bfloat16),
+# (E, M, d, ff, act, dtype) -> the design ops.bwd_design must name
+GMM_BWD_DESIGN = {
+    # bf16 through wgmma and TMA: ragged M (40 of a 128-row tile) and ff
+    # (96 -> workspace rows of 128: two gate-up tiles, one dw tile)
+    (2, 40, 64, 96, "silu", torch.bfloat16): "wgmma",
+    # M ragged in its tile, ff 200 over four gate-up tiles and two dw
+    # tiles, the second ragged; d of one dx tile
+    (2, 100, 128, 200, "silu", torch.bfloat16): "wgmma",
+    # bf16 that TMA cannot describe, through mma.sync: ff not a multiple
+    # of 8, gelu (dw3 = 0)
+    (2, 33, 72, 70, "gelu", torch.bfloat16): "mma.sync",
     # d not a multiple of 8
-    (1, 17, 130, 64, "silu", torch.bfloat16),
+    (1, 17, 130, 64, "silu", torch.bfloat16): "mma.sync",
     # f32 on the CUDA cores
-    (2, 40, 64, 96, "silu", torch.float32),
-    (2, 33, 72, 70, "gelu", torch.float32),
-    (1, 70, 130, 66, "silu", torch.float32)])
+    (2, 40, 64, 96, "silu", torch.float32): "fma",
+    (2, 33, 72, 70, "gelu", torch.float32): "fma",
+    (1, 70, 130, 66, "silu", torch.float32): "fma",
+    # wgmma: gelu (dw3 = 0), d over two dw tiles, ff 192 over three
+    # gate-up tiles and two dw tiles (the second's last box past ldh)
+    (2, 100, 256, 192, "gelu", torch.bfloat16): "wgmma",
+    # M over two tiles and three k-steps of the dw sums (the last ragged)
+    (1, 130, 128, 128, "silu", torch.bfloat16): "wgmma",
+    # d 192 and ldh 192: boxes wholly past d or ldh are not loaded
+    (2, 70, 192, 136, "silu", torch.bfloat16): "wgmma"}
+
+
+@pytest.mark.parametrize("e,m,d,ff,act,dtype", list(GMM_BWD_DESIGN))
 def test_emulated_moe_gmm_bwd_matches_autograd_of_plain(libs, e, m, d, ff,
                                                         act, dtype):
+    assert GO.bwd_design(e, m, d, ff, dtype) == \
+        GMM_BWD_DESIGN[(e, m, d, ff, act, dtype)]
     gen = torch.Generator().manual_seed(d + ff)
     x = (torch.randn((e, m, d), generator=gen) * 0.5).to(dtype)
     w1, w3 = ((torch.randn((e, d, ff), generator=gen) * 0.05).to(dtype)
@@ -372,10 +399,27 @@ def test_emulated_moe_gmm_bwd_matches_autograd_of_plain(libs, e, m, d, ff,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-# (E, M, d, ff) of the backward's common-part cases: shapes at which one
-# bf16 rounding of h fails dw2 by 1.5-2x its tolerance (a float64 model of
-# the sums; at granite's training shape 3x)
+def test_emulated_moe_gmm_bwd_refuses_another_design(libs):
+    """The C entry takes ``bwd_design``'s rule and refuses a call that
+    names another design."""
+    ts = [torch.zeros(s, dtype=torch.bfloat16) for s in (
+        (1, 8, 64), (1, 64, 64), (1, 64, 64), (1, 64, 64), (1, 8, 64),
+        GO.bwd_workspace_shape(1, 8, 64), (1, 8, 64), (1, 64, 64),
+        (1, 64, 64), (1, 64, 64))]
+    assert GO.bwd_design(1, 8, 64, 64, torch.bfloat16) == "wgmma"
+    for design in ("mma.sync", "fma"):
+        assert libs["gmm_bwd"].mg_ffn_bwd(
+            *(t.data_ptr() for t in ts), 1, 8, 64, 64, 0, 1,
+            GO.BWD_DESIGNS.index(design), None) != 0
+
+
+# (E, M, d, ff) of the backward's common-part cases, both through wgmma:
+# shapes at which one bf16 rounding of h fails dw2 by 1.5-2x its
+# tolerance (a float64 model of the sums; at granite's training shape 3x)
 GMM_BWD_COMMON = [(1, 64, 256, 64), (1, 100, 256, 128)]
+# The wgmma design without one consumer's wait on a stage's full barrier:
+# its products read the stage before its TMA boxes land.
+BWD_WAIT_FAULT = ("    wg::mbar_wait(full + ring.stage, ring.phase);\n", "")
 
 
 def _bwd_common(e, m, d, ff):
@@ -388,25 +432,42 @@ def _bwd_common(e, m, d, ff):
 def test_emulated_moe_gmm_bwd_keeps_h_precision(libs, e, m, d, ff):
     """bf16 inputs whose h has a large common part and a dy whose columns
     sum to zero over M: dw2 from h's hi + lo pair passes, and dg and du,
-    rounded once, pass dx, dw1 and dw3."""
+    rounded once, pass dx, dw1 and dw3; a rerun is bit-equal."""
+    assert GO.bwd_design(e, m, d, ff, torch.bfloat16) == "wgmma"
     ins, dy, ref = _bwd_common(e, m, d, ff)
     got = _gmm_bwd(libs["gmm_bwd"], *ins, dy, "silu")
     assert all(_grads_close(got, ref, torch.bfloat16))
+    again = _gmm_bwd(libs["gmm_bwd"], *ins, dy, "silu")
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _bwd_fault_lib(libs, fault, name):
+    old, new = fault
+    source = GO._BWD_SOURCE.read_text()
+    assert source.count(old) == 1
+    return build(source.replace(old, new), GO._SOURCE.parent, libs["out"],
+                 name, GO._BWD_SIG)
 
 
 def test_emulated_moe_gmm_bwd_checks_catch_h_rounded_once(libs):
-    """moe_gmm_bwd.cu without the h_lo product (h rounded once to bf16 in
+    """moe_gmm_bwd.cu without the h_lo wgmma (h rounded once to bf16 in
     dw2) fails dw2 in the common-part cases, and only dw2."""
-    old, new = GR.BWD_ROUND_FAULT
-    source = GO._BWD_SOURCE.read_text()
-    assert source.count(old) == 1
-    lib = build(source.replace(old, new), GO._SOURCE.parent, libs["out"],
-                "gmm_bwd_fault", GO._BWD_SIG)
+    lib = _bwd_fault_lib(libs, GR.BWD_ROUND_FAULT, "gmm_bwd_fault")
     for e, m, d, ff in GMM_BWD_COMMON:
         ins, dy, ref = _bwd_common(e, m, d, ff)
         got = _gmm_bwd(lib, *ins, dy, "silu")
         assert _grads_close(got, ref, torch.bfloat16) == [True, True, False,
                                                           True]
+
+
+def test_emulated_moe_gmm_bwd_checks_catch_a_missing_wait(libs):
+    """moe_gmm_bwd.cu whose consumers do not wait for a stage's TMA boxes
+    fails: its products read the stage before the boxes land."""
+    lib = _bwd_fault_lib(libs, BWD_WAIT_FAULT, "gmm_bwd_wait_fault")
+    for e, m, d, ff in GMM_BWD_COMMON:
+        ins, dy, ref = _bwd_common(e, m, d, ff)
+        got = _gmm_bwd(lib, *ins, dy, "silu")
+        assert not any(_grads_close(got, ref, torch.bfloat16))
 
 
 def test_emulated_checks_catch_a_missing_rescale(libs):

@@ -144,5 +144,34 @@ def test_launch_grid_refuses_what_the_grid_cannot_hold(e, m, d, ff, match):
         TO.launch_grid(e, m, d, ff, torch.float32)
 
 
+@pytest.mark.parametrize("e,m,d,ff,dtype,aligned,design", [
+    # granite's training shape and phi3.5-moe's prefill shape
+    (32, 1280, 1024, 512, torch.bfloat16, True, "wgmma"),
+    (16, 160, 4096, 6400, torch.bfloat16, True, "wgmma"),
+    # ragged M, d and ff that are whole 16-byte rows still take TMA
+    (2, 100, 1000, 200, torch.bfloat16, True, "wgmma"),
+    (4, 1, 8, 8, torch.bfloat16, True, "wgmma"),
+    # what TMA cannot describe: d or ff not a multiple of 8, or a pointer
+    # off 16 bytes
+    (2, 33, 72, 70, torch.bfloat16, True, "mma.sync"),
+    (1, 17, 130, 64, torch.bfloat16, True, "mma.sync"),
+    (32, 1280, 1024, 512, torch.bfloat16, False, "mma.sync"),
+    # f32 stays on the CUDA cores, aligned or not
+    (32, 1280, 1024, 512, torch.float32, True, "fma"),
+    (2, 33, 72, 70, torch.float32, False, "fma")])
+def test_bwd_design_is_a_shape_rule(e, m, d, ff, dtype, aligned, design):
+    """The backward's design, computed without a card from the shape, the
+    dtype and the pointers' 16-byte alignment alone."""
+    assert TO.bwd_design(e, m, d, ff, dtype, aligned) == design
+    assert design in TO.BWD_DESIGNS
+
+
+def test_bwd_design_refuses_what_no_design_takes():
+    with pytest.raises(ValueError, match="all > 0"):
+        TO.bwd_design(2, 0, 64, 64, torch.bfloat16)
+    with pytest.raises(TypeError, match="dtype"):
+        TO.bwd_design(2, 8, 64, 64, torch.float16)
+
+
 def test_jax_is_on_the_cpu():
     assert jax.default_backend() == "cpu"
