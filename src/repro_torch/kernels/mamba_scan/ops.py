@@ -1,15 +1,19 @@
 """Wrapper of the mamba_scan kernel: the Mamba2 SSD chunked scan in the
-model's call signature (PyTorch port of ``repro.kernels.mamba_scan.ops``).
+model's call signature (PyTorch port of ``repro.kernels.mamba_scan.ops``),
+and its backward.
 
 ``ssd`` takes the model layout (x (B,L,H,P), dt (B,L,H), a (H,), b/c
 (B,L,N)) and returns y (B,L,H,P) and the final state (B,H,P,N) f32, like
 ``models.ssm.ssd_chunked``.  The kernel reads and writes that layout
 itself, so no transpose is made.  A CUDA tensor goes to the hand-written
 kernel (``csrc/mamba_scan.cu``) or the call raises; a CPU tensor goes to
-the plain version (``ref.ssd_chunked``).  There is no fallback from one to
-the other.  The kernel has no backward yet, so on CUDA the wrapper refuses
-inputs that want a gradient.  ``launches`` counts kernel launches (one per
-call: bf16's two passes run in one C call).
+the plain version (``ref.ssd_chunked``, under autograd where an input
+wants a gradient).  There is no fallback from one to the other.  Where an
+input wants a gradient on CUDA, the call goes through ``_SSD``, whose
+backward is the kernel ``csrc/mamba_scan_bwd.cu`` (P <= 64).
+``launches`` counts forward kernel launches (one per call: bf16's two
+passes run in one C call), ``bwd_launches`` backward ones (one per call:
+its two passes run in one C call).
 """
 from __future__ import annotations
 
@@ -20,25 +24,37 @@ import torch
 
 from repro_torch.kernels.mamba_scan.ref import chunk_len, ssd_chunked
 
-launches = 0            # kernel launches since the last reset
+launches = 0            # forward kernel launches since the last reset
+bwd_launches = 0        # backward kernel launches since the last reset
 
 MAX_CHUNK = 64          # longest chunk a block's shared tiles hold
 MAX_STATE = 64          # largest state dimension N
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_BWD_HEAD = 64       # largest P the backward's tiles hold
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
+_BWD_SOURCE = _SOURCE.with_name("mamba_scan_bwd.cu")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, dt, a, b, c, y, s_fin, scratch; B, L, H, P, N, chunk; dtype, stream
 _SIG = {"ms_ssd": [_P] * 8 + [_I] * 6 + [_I, _P]}
+# x, dt, a, b, c, dy, ds_fin, dx, ddt, da, db, dc, scratch; B, L, H, P, N,
+# chunk; dtype, stream
+_BWD_SIG = {"msb_ssd_bwd": [_P] * 13 + [_I] * 6 + [_I, _P]}
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, bwd_launches
     launches = 0
+    bwd_launches = 0
 
 
 def lib():
     from repro_torch.kernels import _build
     return _build.load("mamba_scan", _SOURCE, _SIG)
+
+
+def bwd_lib():
+    from repro_torch.kernels import _build
+    return _build.load("mamba_scan_bwd", _BWD_SOURCE, _BWD_SIG)
 
 
 def _check_shapes(x, dt, a, b, c):
@@ -80,10 +96,35 @@ def call(handle, x, dt, a, b, c, q: int, stream):
     return err, y, s_fin
 
 
-def _launch(x, dt, a, b, c, chunk: int):
-    """The kernel on contiguous CUDA tensors in the model layout."""
-    global launches
-    _check_shapes(x, dt, a, b, c)
+def bwd_scratch_floats(bs: int, length: int, h: int, p: int, n: int,
+                       q: int) -> int:
+    """f32 scratch of the backward (``csrc/mamba_scan_bwd.cu``): the state
+    entering each chunk (B, H, L/q, P, N), each head's db and dc (B, H, L,
+    N) and each batch row's da (B, H)."""
+    return bs * h * ((length // q) * p * n + 2 * length * n + 1)
+
+
+def call_bwd(handle, x, dt, a, b, c, dy, ds_fin, q: int, stream):
+    """``handle.msb_ssd_bwd`` on checked, contiguous tensors of one device
+    (``ds_fin`` may be None: a zero gradient of the final state), with the
+    gradients and the scratch allocated there: (its return code, (dx,
+    ddt, da, db, dc))."""
+    bs, length, h, p = x.shape
+    n = b.shape[-1]
+    dx, db, dc = (torch.empty_like(t) for t in (x, b, c))
+    ddt, da = torch.empty_like(dt), torch.empty_like(a)
+    scratch = torch.empty(bwd_scratch_floats(bs, length, h, p, n, q),
+                          dtype=torch.float32, device=x.device)
+    err = handle.msb_ssd_bwd(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+        c.data_ptr(), dy.data_ptr(),
+        None if ds_fin is None else ds_fin.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+        scratch.data_ptr(), bs, length, h, p, n, q, _DTYPES[x.dtype], stream)
+    return err, (dx, ddt, da, db, dc)
+
+
+def _check_cuda(x, dt, a, b, c):
     ts = (x, dt, a, b, c)
     if not all(t.is_cuda and t.device == x.device for t in ts):
         raise TypeError("mamba_scan: x, dt, a, b and c must be on one CUDA "
@@ -95,10 +136,13 @@ def _launch(x, dt, a, b, c, chunk: int):
                         "float32")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("mamba_scan: x, dt, a, b and c must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            "mamba_scan: the kernel has no backward yet (ROADMAP, 'The "
-            "port: slices': training of the MoE and hybrid families)")
+
+
+def _launch(x, dt, a, b, c, chunk: int):
+    """The kernel on contiguous CUDA tensors in the model layout."""
+    global launches
+    _check_shapes(x, dt, a, b, c)
+    _check_cuda(x, dt, a, b, c)
     bs, length, h, p = x.shape
     n = b.shape[-1]
     q = chunk_len(length, chunk)
@@ -117,15 +161,77 @@ def _launch(x, dt, a, b, c, chunk: int):
     return y, s_fin
 
 
+def _launch_bwd(x, dt, a, b, c, dy, ds_fin, chunk: int):
+    """The backward kernel on contiguous CUDA tensors in the model layout:
+    (dx, ddt, da, db, dc) given dy (x's dtype) and ds_fin ((B,H,P,N) f32,
+    or None for 0)."""
+    global bwd_launches
+    _check_shapes(x, dt, a, b, c)
+    _check_cuda(x, dt, a, b, c)
+    bs, length, h, p = x.shape
+    n = b.shape[-1]
+    q = chunk_len(length, chunk)
+    if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
+        raise ValueError(f"mamba_scan: dy {tuple(dy.shape)} {dy.dtype}; "
+                         f"need x's shape and dtype, contiguous")
+    if ds_fin is not None and (ds_fin.shape != (bs, h, p, n)
+                               or ds_fin.dtype != torch.float32
+                               or not ds_fin.is_contiguous()):
+        raise ValueError(f"mamba_scan: ds_fin {tuple(ds_fin.shape)} "
+                         f"{ds_fin.dtype}; need ({bs}, {h}, {p}, {n}) "
+                         "float32, contiguous")
+    if not (0 < p <= MAX_BWD_HEAD and 0 < n <= MAX_STATE
+            and q <= MAX_CHUNK):
+        raise ValueError(f"mamba_scan: backward of P {p}, N {n}, chunk {q}; "
+                         f"need P <= {MAX_BWD_HEAD}, N <= {MAX_STATE} and "
+                         f"chunk <= {MAX_CHUNK}")
+    handle = bwd_lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err, grads = call_bwd(handle, x, dt, a, b, c, dy, ds_fin, q, stream)
+    if err != 0:
+        raise RuntimeError(f"mamba_scan: CUDA error {err} at backward "
+                           "launch")
+    bwd_launches += 1
+    return grads
+
+
+class _SSD(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient.
+    Nothing beyond the inputs is kept: the backward rebuilds the states
+    entering the chunks.  A gradient that does not reach the final state
+    arrives as None (``set_materialize_grads(False)``) and is 0."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, chunk):
+        ctx.save_for_backward(x, dt, a, b, c)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return _launch(x, dt, a, b, c, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, ds_fin):
+        x, dt, a, b, c = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = _launch_bwd(x, dt, a, b, c, dy.contiguous(),
+                            None if ds_fin is None else ds_fin.contiguous(),
+                            ctx.chunk)
+        return (*grads, None)
+
+
 def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         c: torch.Tensor, *, chunk: int = 64):
     """Model layout: x (B,L,H,P), dt (B,L,H), a (H,), b/c (B,L,N).
 
     Returns y (B,L,H,P) in x's dtype and the final state (B,H,P,N) f32:
-    the kernel on CUDA tensors, the plain version on CPU ones."""
+    the kernel on CUDA tensors (with the backward kernel as its gradient
+    where an input wants one), the plain version on CPU ones."""
     _check_shapes(x, dt, a, b, c)
     if x.is_cuda:
-        return _launch(x.contiguous(), dt.float().contiguous(),
-                       a.float().contiguous(), b.contiguous(),
-                       c.contiguous(), chunk)
+        ts = (x.contiguous(), dt.float().contiguous(),
+              a.float().contiguous(), b.contiguous(), c.contiguous())
+        if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+            return _SSD.apply(*ts, chunk)
+        return _launch(*ts, chunk)
     return ssd_chunked(x, dt, a, b, c, chunk)

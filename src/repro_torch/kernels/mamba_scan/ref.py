@@ -1,6 +1,8 @@
 """Plain PyTorch version of the mamba_scan kernel: the Mamba2 SSD chunked
 scan (the kernel's oracle, what the wrapper computes for a tensor on the
-CPU, and ``models.ssm.ssd_chunked``).
+CPU, and ``models.ssm.ssd_chunked``), and its gradients by autograd (the
+backward kernel's oracle, ``ssd_chunked_grads``), with the inputs the
+kernels' checks share (``scan_inputs``).
 
 The JAX package's kernel (``kernel.py:28-74``) and its model path
 (``models/ssm.py:70-121``) compute the same chunked algorithm; this is one
@@ -75,3 +77,68 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                            torch.exp(cum))
     y = (y_intra + y_inter).reshape(bs, length, h, p)
     return y.to(x.dtype), s
+
+
+def ssd_chunked_grads(x, dt, a, b, c, chunk: int, dy, ds_fin=None):
+    """The gradients (dx, ddt, da, db, dc) of ``ssd_chunked`` at (x, dt,
+    a, b, c), given dy (y's gradient, y's shape) and ``ds_fin`` (the final
+    state's, (B,H,P,N) f32, or None for 0): autograd of the plain version.
+    Each gradient has its input's dtype (dt and a f32)."""
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dt, a, b, c)]
+    with torch.enable_grad():
+        y, s = ssd_chunked(*leaves, chunk)
+        outs, grads = [y], [dy]
+        if ds_fin is not None:
+            outs.append(s)
+            grads.append(ds_fin)
+        return torch.autograd.grad(outs, leaves, grads)
+
+
+# A planted fault of the backward kernel (csrc/mamba_scan_bwd.cu) that its
+# checks must catch: the reverse walk drops the carry of dS from one chunk
+# into the one before it (each chunk's dS_in then holds only its own
+# outputs' part), which the slow gates' rows see.
+BWD_CARRY_FAULT = ("        dS[o] = g * dS[o] + acc[r][cc];\n",
+                   "        dS[o] = acc[r][cc];\n")
+
+# The scan's gates for the checks: "jax" draws dt = softplus(N(0, 1)) and
+# a = -exp(N(0, 0.3)), as the JAX kernel tests do (about 0.8 a token:
+# nothing outlives a chunk); "model" the same dt with a = -(1..H), the
+# model's init (a 64-token chunk decays by e^-45 or more); "slow" draws
+# dt = softplus(N(-4.6, 0.1)), about 0.01 (trained Mamba2's dt range is
+# [1e-3, 0.1]), with a = -exp(N(0, 0.3)), so the state and its gradient
+# carry over several chunks.
+SCAN_GATES = {"jax": (0.0, 1.0), "model": (0.0, 1.0), "slow": (-4.6, 0.1)}
+
+
+def scan_inputs(bs, length, h, p, n, *, gates="slow", dtype=torch.float32,
+                seed=0, device="cpu"):
+    """(x, dt, a, b, c, dy) for a check of the scan's gradient, drawn from
+    ``seed``: x, b, c ~ N(0, 0.25), dy ~ N(0, 1), the gates of
+    SCAN_GATES."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    x = randn(bs, length, h, p) * 0.5
+    mean, std = SCAN_GATES[gates]
+    dt = torch.nn.functional.softplus(randn(bs, length, h) * std + mean)
+    if gates == "model":
+        a = -torch.arange(1, h + 1, dtype=torch.float32, device=device)
+    else:
+        a = -torch.exp(randn(h) * 0.3)
+    bb, cc = randn(bs, length, n) * 0.5, randn(bs, length, n) * 0.5
+    dy = randn(bs, length, h, p)
+    return (x.to(dtype), dt, a, bb.to(dtype), cc.to(dtype), dy.to(dtype))
+
+
+def carry_share(x, dt, a, b, c, chunk: int, s_fin) -> float:
+    """How much of the final state the chunks before the last carry into
+    it: max |S - S'| / max |S|, where S' is the final state from the last
+    chunk alone (zero state)."""
+    lo = x.shape[1] - min(chunk, x.shape[1])
+    if lo == 0:
+        return 0.0
+    _, s1 = ssd_chunked(x[:, lo:], dt[:, lo:], a, b[:, lo:], c[:, lo:],
+                        chunk)
+    return ((s_fin - s1).abs().max() / s_fin.abs().max()).item()

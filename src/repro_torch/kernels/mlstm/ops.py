@@ -9,10 +9,16 @@ takes the initial state and a length that is not a multiple of the chunk.
 The kernel reads and writes that layout itself, so no transpose is made.
 A CUDA tensor goes to the hand-written kernel (``csrc/mlstm.cu``) or the
 call raises; a CPU tensor goes to the plain version
-(``ref.mlstm_chunked``).  There is no fallback from one to the other.
-The kernel has no backward, so on CUDA the wrapper refuses inputs that
-want a gradient.  ``launches`` counts kernel launches (one per call: the
-kernel's passes, four for float32 and five for bfloat16, run in one C
+(``ref.mlstm_chunked``, under autograd where an input wants a gradient).
+There is no fallback from one to the other.  Where an input wants a
+gradient on CUDA, the call goes through ``_MLSTM``, whose backward is the
+kernel ``csrc/mlstm_bwd.cu``: from the zero state, with the final
+state's gradient 0, as training calls it.  A gradient through an initial
+state, or one that reaches the final (c, n, m), raises
+``NotImplementedError`` (ROADMAP, queue 1) rather than come out wrong.
+``launches`` counts forward kernel launches (one per call: the kernel's
+passes, four for float32 and five for bfloat16, run in one C call),
+``bwd_launches`` backward ones (one per call: its passes run in one C
 call).
 """
 from __future__ import annotations
@@ -24,7 +30,8 @@ import torch
 
 from repro_torch.kernels.mlstm.ref import mlstm_chunked
 
-launches = 0            # kernel launches since the last reset
+launches = 0            # forward kernel launches since the last reset
+bwd_launches = 0        # backward kernel launches since the last reset
 
 MAX_CHUNK = 128         # longest chunk the kernel's shared tiles hold
 MAX_HEAD_DIM = 1024     # widest head a block's C tile holds
@@ -34,16 +41,32 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # q, k, v, logi, logf, c0, n0, m0, h, c, n, m, gvec, gscal, carry, nin,
 # st, cin, den; B, L, H, D, chunk, dtype; stream
 _SIG = {"ml_mlstm": [_P] * 19 + [_I] * 6 + [_P]}
+_BWD_SOURCE = _SOURCE.with_name("mlstm_bwd.cu")
+# q, k, v, logi, logf, dh, dq, dk, dv, dlogi, dlogf, binds, scratch; B, L,
+# H, D, chunk, dtype; stream
+_BWD_SIG = {"ml_mlstm_bwd": [_P] * 13 + [_I] * 6 + [_P],
+            "ml_bwd_scratch_floats": [_I] * 5 + [_P]}
+_STATE_GRAD = ("mlstm: the backward kernel runs from the zero state with "
+               "a zero gradient of the final state, as training calls it; "
+               "a gradient through an initial state or into the final "
+               "(c, n, m) is not ported (ROADMAP, queue 1: the mLSTM "
+               "state's gradient)")
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, bwd_launches
     launches = 0
+    bwd_launches = 0
 
 
 def lib():
     from repro_torch.kernels import _build
     return _build.load("mlstm", _SOURCE, _SIG)
+
+
+def bwd_lib():
+    from repro_torch.kernels import _build
+    return _build.load("mlstm_bwd", _BWD_SOURCE, _BWD_SIG)
 
 
 def _check_shapes(q, k, v, logi, logf, state):
@@ -102,9 +125,9 @@ def call(handle, q, k, v, logi, logf, state, qc: int, stream):
     return err, out, (c, n, m)
 
 
-def _launch(q, k, v, logi, logf, state, chunk: int):
-    """The kernel on contiguous CUDA tensors in the model layout."""
-    global launches
+def _check_cuda(q, k, v, logi, logf, state, chunk: int) -> int:
+    """Raise unless the inputs are contiguous CUDA tensors of one device
+    and of the kernel's dtypes and sizes; the chunk the call uses."""
     _check_shapes(q, k, v, logi, logf, state)
     ts = (q, k, v, logi, logf) + tuple(state or ())
     if not all(t.is_cuda and t.device == q.device for t in ts):
@@ -117,10 +140,6 @@ def _launch(q, k, v, logi, logf, state, chunk: int):
                         "state float32")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("mlstm: inputs must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            "mlstm: the kernel has no backward yet (ROADMAP, 'The port: "
-            "slices': training of the MoE, hybrid and xLSTM families)")
     bs, length, h, hd = q.shape
     qc = min(chunk, length)
     if not (bs > 0 and h > 0 and 0 < hd <= MAX_HEAD_DIM and hd % 4 == 0
@@ -128,6 +147,13 @@ def _launch(q, k, v, logi, logf, state, chunk: int):
         raise ValueError(f"mlstm: B {bs}, L {length}, H {h}, head dim {hd}, "
                          f"chunk {qc}; need head dim <= {MAX_HEAD_DIM} and "
                          f"a multiple of 4, 0 < chunk <= {MAX_CHUNK}")
+    return qc
+
+
+def _launch(q, k, v, logi, logf, state, chunk: int):
+    """The kernel on contiguous CUDA tensors in the model layout."""
+    global launches
+    qc = _check_cuda(q, k, v, logi, logf, state, chunk)
     dev = q.device
     handle = lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -140,6 +166,74 @@ def _launch(q, k, v, logi, logf, state, chunk: int):
     return out, state
 
 
+def call_bwd(handle, q, k, v, logi, logf, dh, qc: int, stream, binds=None):
+    """``handle.ml_mlstm_bwd`` on checked, contiguous tensors of one
+    device, with the gradients and the scratch allocated there (``binds``:
+    a (B,H,L) f32 tensor that gets 1 where a row's floor binds, or None):
+    (its return code, (dq, dk, dv, dlogi, dlogf))."""
+    bs, length, h, hd = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dlogi, dlogf = torch.empty_like(logi), torch.empty_like(logf)
+    floats = ctypes.c_longlong()
+    handle.ml_bwd_scratch_floats(bs, length, h, hd, qc,
+                                 ctypes.addressof(floats))
+    scratch = torch.empty(floats.value, dtype=torch.float32,
+                          device=q.device)
+    err = handle.ml_mlstm_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
+        logf.data_ptr(), dh.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dlogi.data_ptr(), dlogf.data_ptr(),
+        None if binds is None else binds.data_ptr(), scratch.data_ptr(), bs,
+        length, h, hd, qc, _DTYPES[q.dtype], stream)
+    return err, (dq, dk, dv, dlogi, dlogf)
+
+
+def _launch_bwd(q, k, v, logi, logf, dh, chunk: int, binds=None):
+    """The backward kernel on contiguous CUDA tensors in the model layout,
+    from the zero state: (dq, dk, dv, dlogi, dlogf) given dh (q's shape
+    and dtype)."""
+    global bwd_launches
+    qc = _check_cuda(q, k, v, logi, logf, None, chunk)
+    if dh.shape != q.shape or dh.dtype != q.dtype or not dh.is_contiguous():
+        raise ValueError(f"mlstm: dh {tuple(dh.shape)} {dh.dtype}; need "
+                         "q's shape and dtype, contiguous")
+    handle = bwd_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err, grads = call_bwd(handle, q, k, v, logi, logf, dh, qc, stream,
+                              binds)
+    if err != 0:
+        raise RuntimeError(f"mlstm: CUDA error {err} at backward launch")
+    bwd_launches += 1
+    return grads
+
+
+class _MLSTM(torch.autograd.Function):
+    """The forward kernel from the zero state, with the backward kernel as
+    its gradient.  Nothing beyond the inputs is kept: the backward
+    rebuilds the gates and the states entering the chunks.  The final
+    state's gradients arrive as None (``set_materialize_grads(False)``)
+    unless something read the final state; then it raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, logi, logf, chunk):
+        ctx.save_for_backward(q, k, v, logi, logf)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        out, (c, n, m) = _launch(q, k, v, logi, logf, None, chunk)
+        return out, c, n, m
+
+    @staticmethod
+    def backward(ctx, dh, dc, dn, dm):
+        if any(g is not None for g in (dc, dn, dm)):
+            raise NotImplementedError(_STATE_GRAD)
+        q, k, v, logi, logf = ctx.saved_tensors
+        if dh is None:
+            dh = torch.zeros_like(q)
+        grads = _launch_bwd(q, k, v, logi, logf, dh.contiguous(), ctx.chunk)
+        return (*grads, None)
+
+
 def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           logi: torch.Tensor, logf: torch.Tensor, state=None, *,
           chunk: int = 128):
@@ -147,12 +241,20 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,H,hd,hd), n (B,H,hd), m (B,H)) or None for the zero state.
 
     Returns h (B,L,H,hd) in q's dtype and the final state (c, n, m) f32:
-    the kernel on CUDA tensors, the plain version on CPU ones."""
+    the kernel on CUDA tensors (with the backward kernel as its gradient
+    where an input wants one, from the zero state only), the plain version
+    on CPU ones."""
     _check_shapes(q, k, v, logi, logf, state)
     if q.is_cuda:
         if state is not None:
             state = tuple(t.float().contiguous() for t in state)
-        return _launch(q.contiguous(), k.contiguous(), v.contiguous(),
-                       logi.float().contiguous(), logf.float().contiguous(),
-                       state, chunk)
+        ts = (q.contiguous(), k.contiguous(), v.contiguous(),
+              logi.float().contiguous(), logf.float().contiguous())
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in ts + tuple(state or ())):
+            if state is not None:
+                raise NotImplementedError(_STATE_GRAD)
+            out, c, n, m = _MLSTM.apply(*ts, chunk)
+            return out, (c, n, m)
+        return _launch(*ts, state, chunk)
     return mlstm_chunked(q, k, v, logi, logf, state, chunk)

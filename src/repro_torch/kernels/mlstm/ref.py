@@ -1,6 +1,8 @@
 """Plain PyTorch version of the mlstm kernel: the stabilised chunkwise mLSTM
 (the kernel's oracle, what the wrapper computes for a tensor on the CPU,
-and ``models.xlstm.mlstm_chunked``).
+and ``models.xlstm.mlstm_chunked``), and its gradients by autograd (the
+backward kernel's oracle, ``mlstm_chunked_grads``), with the inputs the
+kernels' checks share (``grad_inputs``).
 
 The JAX package's kernel (``kernel.py:23-89``) and its model path
 (``models/xlstm.py:80-160``: ``mlstm_chunk_body`` and ``mlstm_chunked``)
@@ -28,11 +30,13 @@ def zero_state(bs: int, h: int, hd: int, device):
             torch.full((bs, h), NEG, dtype=torch.float32, device=device))
 
 
-def mlstm_chunk_body(q, k, v, logi, logf, state):
+def mlstm_chunk_body(q, k, v, logi, logf, state, binds=None):
     """One stabilised chunk.  q, k, v: (B,q,H,hd) f32; logi/logf: (B,q,H).
 
     state: (c (B,H,hdv,hdk), n (B,H,hdk), m (B,H)).  Returns (h, new
-    state).  Exactly equivalent to the per-token recurrence."""
+    state).  Exactly equivalent to the per-token recurrence.  A list
+    ``binds`` gets the chunk's (B,q,H) mask of the rows whose
+    denominator takes the floor exp(-m_comb)."""
     qq, hd = q.shape[1], q.shape[3]
     scale = hd ** -0.5
     c_in, n_in, m_in = state
@@ -59,6 +63,8 @@ def mlstm_chunk_body(q, k, v, logi, logf, state):
         "bhde,bihe->bihd", c_in, q) * scale
     den = s.sum(dim=2) + inter_scale * torch.einsum(
         "bhe,bihe->bih", n_in, q) * scale
+    if binds is not None:
+        binds.append(den.abs() < torch.exp(-m_comb))
     den = torch.maximum(den.abs(), torch.exp(-m_comb))
     ht = num / den[..., None]
 
@@ -74,14 +80,16 @@ def mlstm_chunk_body(q, k, v, logi, logf, state):
     return ht, (c_out, n_out, m_out)
 
 
-def mlstm_chunked(q, k, v, logi, logf, state=None, chunk: int = CHUNK):
+def mlstm_chunked(q, k, v, logi, logf, state=None, chunk: int = CHUNK,
+                  binds=None):
     """Full-sequence chunkwise mLSTM.  q, k, v: (B,L,H,hd) in the model
     dtype; logi/logf: (B,L,H) f32; ``state`` as ``mlstm_chunk_body``'s, or
     None for the zero state.
 
     Returns h (B,L,H,hd) in q's dtype and the final state in f32.  The
     sequence runs in chunks of ``min(chunk, L)`` tokens; the last chunk
-    may be shorter."""
+    may be shorter.  ``binds`` as ``mlstm_chunk_body``'s, a mask a
+    chunk."""
     bs, length, h, hd = q.shape
     chunk = min(chunk, length)
     if chunk <= 0:
@@ -95,6 +103,70 @@ def mlstm_chunked(q, k, v, logi, logf, state=None, chunk: int = CHUNK):
     for i in range(0, length, chunk):
         j = min(i + chunk, length)
         ht, state = mlstm_chunk_body(qf[:, i:j], kf[:, i:j], vf[:, i:j],
-                                     logi[:, i:j], logf[:, i:j], state)
+                                     logi[:, i:j], logf[:, i:j], state,
+                                     binds)
         outs.append(ht)
     return torch.cat(outs, dim=1).to(q.dtype), state
+
+
+def mlstm_chunked_grads(q, k, v, logi, logf, chunk: int, dh):
+    """The gradients (dq, dk, dv, dlogi, dlogf) of ``mlstm_chunked`` from
+    the zero state, given dh (h's gradient; the final state's is 0):
+    autograd of the plain version.  Each has its input's dtype."""
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (q, k, v, logi, logf)]
+    with torch.enable_grad():
+        h, _ = mlstm_chunked(*leaves, None, chunk)
+        return torch.autograd.grad(h, leaves, dh)
+
+
+def floor_share(q, k, v, logi, logf, chunk: int) -> float:
+    """The share of rows (b, t, h) whose denominator takes the floor
+    exp(-m_comb) in the plain version from the zero state: there no
+    gradient flows through the denominator."""
+    binds = []
+    with torch.no_grad():
+        mlstm_chunked(q, k, v, logi, logf, None, chunk, binds)
+    return torch.cat(binds, dim=1).float().mean().item()
+
+
+# Planted faults of the backward kernel (csrc/mlstm_bwd.cu) that its checks
+# must catch: the reverse walk drops the carry of (dC, dn) into the chunk
+# before (which the slow forget gates' rows see); and the floor's branch
+# ignored, the gradient sent through den on every row (which the inputs
+# whose floor binds on most rows see).
+BWD_CARRY_FAULT = ("      prev = cr[c] * prev + own;\n",
+                   "      prev = REVERSE ? own : cr[c] * prev + own;\n")
+BWD_FLOOR_FAULT = (
+    "    const float dden = bind ? 0.f : -sgn * ndh * rinv * rinv;\n",
+    "    const float dden = -sgn * ndh * rinv * rinv;\n")
+
+# The checks' gates.  logf: "jax" draws -softplus(N(0, 1)) as the JAX kernel
+# test does (about -0.8 a token: nothing outlives a 128-token chunk);
+# "model" log sigmoid(N(3, 1)), the model's forget bias of 3; "slow" log
+# sigmoid(N(4.6, 0.1)), about -0.01, so that C and n and their gradients
+# carry over several chunks.  logi: N(-1, 1) ("random"), shifted by -6 for
+# inputs whose floor binds on most rows ("floor": every den is small
+# against exp(-m_comb)).
+MLSTM_GATES = {"jax": (-1.0, 0.0, 1.0), "model": (1.0, 3.0, 1.0),
+               "slow": (1.0, 4.6, 0.1)}
+LOGI_SHIFT = {"random": 0.0, "floor": -6.0}
+
+
+def grad_inputs(bs, length, h, hd, *, gates="slow", inputs="random",
+                dtype=torch.float32, seed=0, device="cpu"):
+    """(q, k, v, logi, logf, dh) for a check of the mLSTM and its gradient,
+    drawn from ``seed``: q, k, v, dh ~ N(0, 1), logi ~ N(-1, 1) + the
+    LOGI_SHIFT of ``inputs``, logf of MLSTM_GATES[gates]."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    q, k, v = (randn(bs, length, h, hd) for _ in range(3))
+    li = randn(bs, length, h) - 1 + LOGI_SHIFT[inputs]
+    sign, mean, std = MLSTM_GATES[gates]
+    x = randn(bs, length, h) * std + mean
+    lf = (-torch.nn.functional.softplus(x) if sign < 0
+          else torch.nn.functional.logsigmoid(x))
+    dh = randn(bs, length, h, hd)
+    return (q.to(dtype), k.to(dtype), v.to(dtype), li, lf, dh.to(dtype))

@@ -21,11 +21,12 @@ or an ``ElasticPolicy``) regrows it on the shared fabric, as the JAX
 runtime does.  The deterministic (seed, step)-keyed batches make the
 recovered run repeat the lost steps.
 
-The audio and VLM families train with their batches' extras (encoder
-frames, image tokens; ``extra_batch_specs``), the MoE family through the
-moe_gmm kernel's backward.  Not ported yet, and refused with
-``NotImplementedError`` rather than ignored: training the hybrid and
-xLSTM families (mamba_scan and mlstm have no backward yet).
+Every family the JAX runtime trains trains here: the audio and VLM
+families with their batches' extras (encoder frames, image tokens;
+``extra_batch_specs``), the MoE family through the moe_gmm kernel's
+backward, the hybrid family through mamba_scan's and the xLSTM family
+through mlstm's (its sLSTM through autograd of the plain per-token loop,
+as the JAX package's ``lax.scan``).
 """
 from __future__ import annotations
 
@@ -46,11 +47,6 @@ from repro_torch.data import pipeline as dp
 from repro_torch.models import model as model_mod
 from repro_torch.optim import adamw
 from repro_torch.weights import tree_leaves
-
-_TRAIN_SCANS = {"hybrid": "item 2c: training of the hybrid family, "
-                          "gradients through mamba_scan",
-                "ssm": "item 2d: training of xLSTM, gradients through mlstm"}
-
 
 @dataclasses.dataclass
 class RuntimeConfig:
@@ -80,15 +76,6 @@ class RuntimeConfig:
     # trace job kind of this gang (mpi-compute/mpi-network/omp); routes
     # the per-kind beta of the shared CostModel into elastic grow probes
     job_kind: Optional[str] = None
-
-
-def _refuse_unported(cfg: ArchConfig) -> None:
-    """Raise for a family whose training is not ported yet."""
-    later = _TRAIN_SCANS.get(cfg.family)
-    if later is not None:
-        raise NotImplementedError(
-            f"training the {cfg.family} family ({cfg.name}) is not ported to "
-            f"repro_torch yet (ROADMAP, 'The port: slices', {later})")
 
 
 def extra_batch_specs(cfg: ArchConfig, global_batch: int
@@ -180,7 +167,6 @@ class FaabricTrainRuntime:
                  fabric: Optional[Fabric] = None,
                  devices: Optional[Sequence[Any]] = None,
                  priority: int = 0):
-        _refuse_unported(cfg)
         if rt.sync_mode not in coll.MODES + ("auto",):
             raise ValueError(f"sync_mode {rt.sync_mode!r} not in "
                              f"{coll.MODES + ('auto',)}")

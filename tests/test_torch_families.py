@@ -230,18 +230,15 @@ def test_zamba2_remat_forward_and_gradient_take_the_shared_block():
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_training_runtime_refuses_the_family(arch, tmp_path):
-    """The runtime takes the MoE, audio and VLM families, and reduced steps
-    on one batch (with its extras) lower the loss; the hybrid family is
-    still refused (its mamba_scan kernel has no backward)."""
+    """The runtime takes every family here, the hybrid one too (its
+    mamba_scan kernel has a backward; the name is the test's from when the
+    runtime refused it), and reduced steps on one batch (with its extras)
+    lower the loss."""
     cfg = treg.reduced_config(arch)
     data = tdp.DataConfig(seq_len=16, global_batch=2, vocab=cfg.vocab)
     rt = TL.RuntimeConfig(total_steps=4, checkpoint_every=0,
                           ckpt_dir=str(tmp_path))
     ocfg = tadamw.AdamWConfig(lr=5e-3, warmup_steps=1, total_steps=10)
-    if cfg.family == "hybrid":
-        with pytest.raises(NotImplementedError, match="item 2c"):
-            TL.FaabricTrainRuntime(cfg, ocfg, data, rt, device="cpu")
-        return
     runtime = TL.FaabricTrainRuntime(cfg, ocfg, data, rt, device="cpu")
     one = tdp.make_batch(data, 0, TL.extra_batch_specs(cfg, 2))
     _, out = runtime.run(seed=0, batch_fn=lambda d, s: one)

@@ -822,18 +822,6 @@ def _scan_inputs(b, length, h, p, n, dtype, device, seed, gates="jax",
     return x, dtt, a, bb.to(dt), cc.to(dt)
 
 
-def _scan_carry_share(SR, x, dtt, a, bb, cc, chunk, s):
-    """max |S - S'| / max |S|, where S' is the plain version's final state
-    from the last chunk alone (zero state): how much the earlier chunks
-    carry into the final state."""
-    lo = x.shape[1] - min(chunk, x.shape[1])
-    if lo == 0:
-        return 0.0
-    _, s1 = SR.ssd_chunked(*(t[:, lo:] for t in (x, dtt)), a,
-                           *(t[:, lo:] for t in (bb, cc)), chunk)
-    return ((s - s1).abs().max() / s.abs().max()).item()
-
-
 def _scan_errors(SO, SR, case, dtype, device, common=False):
     """One case through the kernel and the plain version: the checks'
     readings (max errors, whether y and the state pass SCAN_TOL, the
@@ -855,7 +843,7 @@ def _scan_errors(SO, SR, case, dtype, device, common=False):
                                    rtol=tol["y"][1]),
             "state_ok": torch.allclose(s, sr, atol=tol["state"][0],
                                        rtol=tol["state"][1]),
-            "carry_share": _scan_carry_share(SR, *ins, chunk, sr)}
+            "carry_share": SR.carry_share(*ins, chunk, sr)}
 
 
 @pytest.mark.cuda
@@ -968,8 +956,22 @@ def test_cuda_mamba_scan_refusals(cuda_device):
         SO.ssd(x, dtt, a, bb, cc, chunk=96)
     with pytest.raises(TypeError, match="dtypes"):
         SO.ssd(x, dtt, a, bb.bfloat16(), cc, chunk=32)
-    with pytest.raises(NotImplementedError, match="backward"):
-        SO.ssd(x.requires_grad_(), dtt, a, bb, cc, chunk=32)
+    # a gradient goes through the backward kernel (since its slice; the
+    # wrapper refused it before), once a call, and matches the kernel's
+    # own launch; P past the backward's tiles is refused
+    before = (SO.launches, SO.bwd_launches)
+    leaves = [t.clone().requires_grad_() for t in (x, dtt, a, bb, cc)]
+    y, _ = SO.ssd(*leaves, chunk=32)
+    dy = torch.randn_like(y)
+    grads = torch.autograd.grad(y, leaves, dy)
+    assert (SO.launches, SO.bwd_launches) == (before[0] + 1, before[1] + 1)
+    for g, r in zip(grads, SO._launch_bwd(x, dtt, a, bb, cc, dy, None, 32)):
+        assert torch.equal(g, r)
+    wide = torch.zeros((1, 64, 1, 72), device=cuda_device)
+    with pytest.raises(ValueError, match="backward"):
+        SO._launch_bwd(wide, dtt[:, :64, :1].contiguous(), a[:1].contiguous(),
+                       bb[:, :64].contiguous(), cc[:, :64].contiguous(),
+                       wide, None, 32)
 
 
 # mlstm: f32 sums over hd_k (up to 1024 terms) in another order than the
@@ -1178,5 +1180,197 @@ def test_cuda_mlstm_refusals(cuda_device):
         MO.mlstm(q, k.bfloat16(), v, li, lf)
     with pytest.raises(TypeError, match="one CUDA device"):
         MO.mlstm(q, k, v, li, lf, tuple(t.cpu() for t in st))
-    with pytest.raises(NotImplementedError, match="backward"):
-        MO.mlstm(q.requires_grad_(), k, v, li, lf)
+    # a gradient from the zero state goes through the backward kernel
+    # (since its slice; the wrapper refused it before), once a call, and
+    # matches the kernel's own launch
+    before = (MO.launches, MO.bwd_launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, li, lf)]
+    out, _ = MO.mlstm(*leaves)
+    dh = torch.randn_like(out)
+    grads = torch.autograd.grad(out, leaves, dh)
+    assert (MO.launches, MO.bwd_launches) == (before[0] + 1, before[1] + 1)
+    for g, r in zip(grads, MO._launch_bwd(q, k, v, li, lf, dh, 128)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_cuda_mlstm_refuses_state_gradients(cuda_device):
+    """The backward kernel runs from the zero state with the final state's
+    gradient 0, as training calls it: a gradient through an initial state,
+    or one that reaches the final (c, n, m), raises naming ROADMAP rather
+    than come out wrong; without a gradient the initial state is taken."""
+    from repro_torch.kernels.mlstm import ops as MO
+    (q, k, v, li, lf), st = _mlstm_inputs(1, 64, 2, 16, "float32",
+                                          cuda_device, 0, state=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MO.mlstm(q.clone().requires_grad_(), k, v, li, lf, st)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MO.mlstm(q, k, v, li, lf, (st[0].clone().requires_grad_(), *st[1:]))
+    qg = q.clone().requires_grad_()
+    out, (c, n, m) = MO.mlstm(qg, k, v, li, lf)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        torch.autograd.grad(out.sum() + c.sum(), qg)
+    out, _ = MO.mlstm(q, k, v, li, lf, st)        # no gradient: taken
+    assert bool(torch.isfinite(out).all())
+
+
+def _mutant_bwd_lib(ops, tmp_path, monkeypatch, name, old, new):
+    """A copy of ``ops``'s backward source with ``old`` (found once)
+    replaced by ``new``, built into ``tmp_path`` and bound in place of
+    ``ops.bwd_lib``."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    source = ops._BWD_SOURCE.read_text()
+    assert source.count(old) == 1
+    mutant = tmp_path / ops._BWD_SOURCE.name
+    mutant.write_text(source.replace(old, new))
+    so = tmp_path / f"lib{name}.so"
+    _build.compile_to(name, mutant, so)
+    lib = _build.bind(ctypes.CDLL(str(so)), ops._BWD_SIG)
+    monkeypatch.setattr(ops, "bwd_lib", lambda: lib)
+
+
+def _grads_ok(got, ref, tol):
+    """Each gradient finite and within rtol ``tol`` and an atol of ``tol``
+    times its largest magnitude of autograd of the plain version."""
+    return [bool(torch.isfinite(g.float()).all()) and torch.allclose(
+        g.float(), r.float(), rtol=tol,
+        atol=tol * max(1.0, r.abs().max().item())) for g, r in zip(got, ref)]
+
+
+# mamba_scan's backward: f32 sums of up to chunk x H terms in another order
+# (the tolerance scales with each gradient's largest magnitude); bf16 adds
+# one rounding of dx, db and dc.  zamba2's training shape (rank batch 2 x
+# 1024, H 80, P 64, N 64, chunk 64) with the model's gates and slow ones,
+# and small shapes.
+SCAN_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+SCAN_BWD_CASES = [(2, 1024, 80, 64, 64, 64, "model", False),
+                  (2, 1024, 80, 64, 64, 64, "slow", False),
+                  (1, 256, 4, 32, 16, 32, "slow", True),
+                  (2, 128, 3, 24, 12, 32, "slow", True)]
+
+
+def _scan_bwd_ok(SO, SR, case, dtype, device):
+    b, length, h, p, n, chunk, gates, with_ds = case
+    x, dtt, a, bb, cc, dy = SR.scan_inputs(
+        b, length, h, p, n, gates=gates, dtype=getattr(torch, dtype),
+        seed=length + h, device=device)
+    ds = (torch.randn((b, h, p, n), device=device) if with_ds else None)
+    got = SO._launch_bwd(x, dtt, a, bb, cc, dy, ds, chunk)
+    ref = SR.ssd_chunked_grads(x, dtt, a, bb, cc, chunk, dy, ds)
+    torch.cuda.synchronize()
+    _, s = SR.ssd_chunked(x, dtt, a, bb, cc, chunk)
+    return (_grads_ok(got, ref, SCAN_BWD_TOL[dtype]),
+            SR.carry_share(x, dtt, a, bb, cc, chunk, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCAN_BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mamba_scan_bwd_matches_autograd_of_plain(cuda_device, case,
+                                                       dtype):
+    from repro_torch.kernels.mamba_scan import ops as SO
+    from repro_torch.kernels.mamba_scan import ref as SR
+    ok, share = _scan_bwd_ok(SO, SR, case, dtype, cuda_device)
+    assert all(ok), ok
+    if case[6] == "slow":
+        assert share > 0.1, share
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_bwd_is_deterministic(cuda_device):
+    from repro_torch.kernels.mamba_scan import ops as SO
+    from repro_torch.kernels.mamba_scan import ref as SR
+    ins = SR.scan_inputs(2, 1024, 80, 64, 64, dtype=torch.bfloat16,
+                         device=cuda_device)
+    one = SO._launch_bwd(*ins, None, 64)
+    two = SO._launch_bwd(*ins, None, 64)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_bwd_checks_catch_a_dropped_carry(
+        cuda_device, tmp_path, monkeypatch):
+    """A copy of mamba_scan_bwd.cu whose reverse walk drops the carry of dS
+    into the chunk before (ref.BWD_CARRY_FAULT) fails the slow-gate
+    cases, in both dtypes."""
+    from repro_torch.kernels.mamba_scan import ops as SO
+    from repro_torch.kernels.mamba_scan import ref as SR
+    _mutant_bwd_lib(SO, tmp_path, monkeypatch, "mamba_scan_bwd_fault",
+                    *SR.BWD_CARRY_FAULT)
+    for dtype in ("float32", "bfloat16"):
+        for case in SCAN_BWD_CASES[1:3]:
+            ok, _ = _scan_bwd_ok(SO, SR, case, dtype, cuda_device)
+            assert not all(ok), (case, dtype, ok)
+
+
+# mlstm's backward: f32 sums over hd or the chunk in another order (the
+# tolerance scales with each gradient's largest magnitude); bf16 adds one
+# rounding of dq, dk and dv.  xlstm-1.3b's training shape (rank batch 2 x
+# 512, 4 heads of hd 1024, chunk 128) with slow forget gates, inputs whose
+# floor binds on few rows and on most (ref.grad_inputs), a ragged tail.
+MLSTM_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+MLSTM_BWD_CASES = [(2, 512, 4, 1024, 128, "slow", "random"),
+                   (2, 512, 4, 1024, 128, "slow", "floor"),
+                   (2, 512, 4, 1024, 128, "model", "random"),
+                   (1, 300, 2, 64, 128, "slow", "random"),
+                   (2, 100, 2, 48, 32, "jax", "random")]
+
+
+def _mlstm_bwd_ok(MO, MR, case, dtype, device):
+    b, length, h, hd, chunk, gates, inputs = case
+    q, k, v, li, lf, dh = MR.grad_inputs(
+        b, length, h, hd, gates=gates, inputs=inputs,
+        dtype=getattr(torch, dtype), seed=length + hd, device=device)
+    got = MO._launch_bwd(q, k, v, li, lf, dh, chunk)
+    ref = MR.mlstm_chunked_grads(q, k, v, li, lf, chunk, dh)
+    torch.cuda.synchronize()
+    return (_grads_ok(got, ref, MLSTM_BWD_TOL[dtype]),
+            MR.floor_share(q, k, v, li, lf, chunk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MLSTM_BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mlstm_bwd_matches_autograd_of_plain(cuda_device, case, dtype):
+    from repro_torch.kernels.mlstm import ops as MO
+    from repro_torch.kernels.mlstm import ref as MR
+    ok, share = _mlstm_bwd_ok(MO, MR, case, dtype, cuda_device)
+    assert all(ok), ok
+    if case[6] == "floor":
+        assert share > 0.5, share
+
+
+@pytest.mark.cuda
+def test_cuda_mlstm_bwd_is_deterministic(cuda_device):
+    from repro_torch.kernels.mlstm import ops as MO
+    from repro_torch.kernels.mlstm import ref as MR
+    ins = MR.grad_inputs(2, 512, 4, 1024, dtype=torch.bfloat16,
+                         device=cuda_device)
+    one = MO._launch_bwd(*ins, 128)
+    two = MO._launch_bwd(*ins, 128)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault,cases", [("carry", (0, 3)),
+                                         ("floor", (1,))])
+def test_cuda_mlstm_bwd_checks_catch_planted_faults(cuda_device, tmp_path,
+                                                    monkeypatch, fault,
+                                                    cases):
+    """A copy of mlstm_bwd.cu whose reverse walk drops the carry of (dC,
+    dn) (ref.BWD_CARRY_FAULT) fails the slow-gate cases; one that ignores
+    the floor's branch (ref.BWD_FLOOR_FAULT) fails the case whose floor
+    binds on most rows; both dtypes."""
+    from repro_torch.kernels.mlstm import ops as MO
+    from repro_torch.kernels.mlstm import ref as MR
+    old, new = {"carry": MR.BWD_CARRY_FAULT,
+                "floor": MR.BWD_FLOOR_FAULT}[fault]
+    _mutant_bwd_lib(MO, tmp_path, monkeypatch, f"mlstm_bwd_{fault}", old,
+                    new)
+    for dtype in ("float32", "bfloat16"):
+        for i in cases:
+            ok, _ = _mlstm_bwd_ok(MO, MR, MLSTM_BWD_CASES[i], dtype,
+                                  cuda_device)
+            assert not all(ok), (MLSTM_BWD_CASES[i], dtype, ok)

@@ -141,6 +141,10 @@ def libs(tmp_path_factory):
                        "mlstm", MO._SIG),
         "scan": build(SO._SOURCE.read_text(), SO._SOURCE.parent, out,
                       "scan", SO._SIG),
+        "scan_bwd": build(SO._BWD_SOURCE.read_text(), SO._SOURCE.parent,
+                          out, "scan_bwd", SO._BWD_SIG),
+        "mlstm_bwd": build(MO._BWD_SOURCE.read_text(), MO._SOURCE.parent,
+                           out, "mlstm_bwd", MO._BWD_SIG),
         "out": out}
 
 
@@ -633,3 +637,131 @@ def test_emulated_mamba_scan_checks_catch_state_rounded_once(libs):
     lib = build(source.replace(old, new), SO._SOURCE.parent, libs["out"],
                 "scan_fault", SO._SIG)
     assert not all(_scan_ok(lib, SCAN_COMMON, common=True).values())
+
+
+# mamba_scan's backward against autograd of the plain version
+# (ref.ssd_chunked_grads).  Each gradient's absolute tolerance scales with
+# its largest magnitude (f32 sums over up to 64 x H terms in another
+# order); bf16 adds one rounding of dx, db and dc.
+SCAN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SCAN_BWD_NAMES = ("dx", "ddt", "da", "db", "dc")
+
+
+def _scan_bwd_ok(lib, case):
+    """Whether each gradient of the emulated backward passes
+    SCAN_BWD_TOL, and the slow-gate carry share."""
+    b, length, h, p, n, chunk, gates, dtype, with_ds = case
+    x, dt, a, bb, cc, dy = SR.scan_inputs(b, length, h, p, n, gates=gates,
+                                          dtype=dtype, seed=length + h)
+    ds = (torch.randn((b, h, p, n), generator=torch.Generator()
+                      .manual_seed(5)) if with_ds else None)
+    q = min(chunk, length)
+    err, got = SO.call_bwd(lib, x, dt, a, bb, cc, dy, ds, q, None)
+    assert err == 0
+    ref = SR.ssd_chunked_grads(x, dt, a, bb, cc, chunk, dy, ds)
+    tol = SCAN_BWD_TOL[dtype]
+    ok = {name: torch.allclose(g.float(), r.float(), rtol=tol,
+                               atol=tol * max(1.0, r.abs().max().item()))
+          for name, g, r in zip(SCAN_BWD_NAMES, got, ref)}
+    _, s = SR.ssd_chunked(x, dt, a, bb, cc, chunk)
+    return ok, SR.carry_share(x, dt, a, bb, cc, chunk, s)
+
+
+SCAN_BWD_CASES = [  # (B, L, H, P, N, chunk, gates, dtype, d s_fin)
+    (1, 256, 2, 64, 64, 64, "slow", torch.float32, False),
+    (2, 128, 3, 32, 16, 32, "slow", torch.float32, True),
+    (2, 128, 3, 32, 16, 32, "model", torch.float32, False),
+    (1, 40, 2, 24, 12, 40, "slow", torch.float32, True),     # one chunk
+    (1, 192, 2, 64, 64, 64, "slow", torch.bfloat16, True),
+    (2, 96, 2, 20, 12, 32, "slow", torch.bfloat16, False),   # ragged tiles
+    (1, 128, 2, 32, 16, 64, "model", torch.bfloat16, False)]
+
+
+@pytest.mark.parametrize("case", SCAN_BWD_CASES)
+def test_emulated_mamba_scan_bwd_matches_autograd_of_plain(libs, case):
+    ok, share = _scan_bwd_ok(libs["scan_bwd"], case)
+    assert all(ok.values()), ok
+    if case[6] == "slow" and case[1] > case[5]:
+        assert share > 0.1, share      # the state carries across chunks
+
+
+def test_emulated_mamba_scan_bwd_checks_catch_a_dropped_carry(libs):
+    """mamba_scan_bwd.cu without the carry of dS into the chunk before
+    (ref.BWD_CARRY_FAULT) fails the slow-gate cases of several chunks, in
+    both dtypes."""
+    old, new = SR.BWD_CARRY_FAULT
+    source = SO._BWD_SOURCE.read_text()
+    assert source.count(old) == 1
+    lib = build(source.replace(old, new), SO._SOURCE.parent, libs["out"],
+                "scan_bwd_fault", SO._BWD_SIG)
+    for case in (SCAN_BWD_CASES[0], SCAN_BWD_CASES[4]):
+        ok, _ = _scan_bwd_ok(lib, case)
+        assert not all(ok.values()), (case, ok)
+
+
+# mlstm's backward against autograd of the plain version
+# (ref.mlstm_chunked_grads), from the zero state.  Each gradient's
+# absolute tolerance scales with its largest magnitude (f32 sums over up
+# to hd or the chunk in another order); bf16 adds one rounding of dq, dk
+# and dv.
+MLSTM_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+MLSTM_BWD_NAMES = ("dq", "dk", "dv", "dlogi", "dlogf")
+
+
+def _mlstm_bwd_ok(lib, case):
+    """Whether each gradient of the emulated backward passes
+    MLSTM_BWD_TOL, and the floor's share of the rows."""
+    b, length, h, hd, chunk, gates, inputs, dtype = case
+    q, k, v, li, lf, dh = MR.grad_inputs(b, length, h, hd, gates=gates,
+                                         inputs=inputs, dtype=dtype,
+                                         seed=length + hd)
+    binds = torch.empty((b, h, length))
+    err, got = MO.call_bwd(lib, q, k, v, li, lf, dh, min(chunk, length),
+                           None, binds)
+    assert err == 0
+    ref = MR.mlstm_chunked_grads(q, k, v, li, lf, chunk, dh)
+    tol = MLSTM_BWD_TOL[dtype]
+    ok = {name: torch.allclose(g.float(), r.float(), rtol=tol,
+                               atol=tol * max(1.0, r.abs().max().item()))
+          for name, g, r in zip(MLSTM_BWD_NAMES, got, ref)}
+    share = MR.floor_share(q, k, v, li, lf, chunk)
+    assert abs(binds.mean().item() - share) < 0.02, (binds.mean(), share)
+    return ok, share
+
+
+MLSTM_BWD_CASES = [  # (B, L, H, hd, chunk, gates, inputs, dtype)
+    (1, 96, 2, 32, 32, "slow", "random", torch.float32),
+    (2, 100, 2, 48, 32, "slow", "random", torch.float32),   # ragged tail
+    (1, 100, 1, 64, 32, "slow", "floor", torch.float32),
+    (1, 64, 2, 16, 16, "jax", "random", torch.float32),
+    (1, 37, 2, 8, 16, "model", "random", torch.float32),
+    (1, 100, 2, 48, 32, "slow", "random", torch.bfloat16),
+    (1, 72, 1, 64, 32, "slow", "floor", torch.bfloat16),
+    (1, 130, 1, 20, 128, "slow", "random", torch.bfloat16)]  # 2 C tiles
+
+
+@pytest.mark.parametrize("case", MLSTM_BWD_CASES)
+def test_emulated_mlstm_bwd_matches_autograd_of_plain(libs, case):
+    ok, share = _mlstm_bwd_ok(libs["mlstm_bwd"], case)
+    assert all(ok.values()), ok
+    if case[6] == "floor":
+        assert share > 0.5, share      # the floor binds on most rows
+
+
+@pytest.mark.parametrize("fault,cases", [
+    ("carry", (MLSTM_BWD_CASES[0], MLSTM_BWD_CASES[5])),
+    ("floor", (MLSTM_BWD_CASES[2], MLSTM_BWD_CASES[6]))])
+def test_emulated_mlstm_bwd_checks_catch_planted_faults(libs, fault, cases):
+    """mlstm_bwd.cu without the carry of (dC, dn) into the chunk before
+    (ref.BWD_CARRY_FAULT) fails the slow-gate cases of several chunks;
+    with the floor's branch ignored (ref.BWD_FLOOR_FAULT) it fails the
+    cases whose floor binds on most rows; both dtypes."""
+    old, new = {"carry": MR.BWD_CARRY_FAULT,
+                "floor": MR.BWD_FLOOR_FAULT}[fault]
+    source = MO._BWD_SOURCE.read_text()
+    assert source.count(old) == 1
+    lib = build(source.replace(old, new), MO._SOURCE.parent, libs["out"],
+                f"mlstm_bwd_{fault}", MO._BWD_SIG)
+    for case in cases:
+        ok, _ = _mlstm_bwd_ok(lib, case)
+        assert not all(ok.values()), (case, ok)

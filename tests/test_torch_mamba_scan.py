@@ -108,3 +108,66 @@ def test_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError, match="shapes"):
         TO.ssd(x, dt, a, bb, cc[..., :4], chunk=32)
     assert jax.default_backend() == "cpu"
+
+
+# Gradients: the backward kernel's oracle (ref.ssd_chunked_grads, autograd
+# of the plain version) and the wrapper's gradient on the CPU against
+# jax.grad of models.ssm.ssd_chunked.  Tolerance: each gradient within
+# rtol 1e-3 and an atol of 1e-4 times its largest magnitude (f32 sums of
+# up to chunk x H terms in another order).
+GRAD_GATES = {"jax": (0.0, 1.0), "slow": (-4.6, 0.1)}
+GRAD_NAMES = ("dx", "ddt", "da", "db", "dc")
+
+
+def _grad_inputs(b, length, h, p, n, seed, gates):
+    """x, dt, a, b, c as ``_inputs`` (the JAX kernel test's gates) or with
+    slow gates (dt about 0.01: the state and its gradient carry over
+    several chunks), and dy and d s_fin ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, length, h, p)).astype(np.float32) * 0.5
+    mean, std = GRAD_GATES[gates]
+    dt = np.log1p(np.exp(rng.standard_normal((b, length, h)) * std
+                         + mean)).astype(np.float32)
+    a = -np.exp(rng.standard_normal(h) * 0.3).astype(np.float32)
+    bb, cc = (rng.standard_normal((b, length, n)).astype(np.float32) * 0.5
+              for _ in range(2))
+    dy = rng.standard_normal((b, length, h, p)).astype(np.float32)
+    ds = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    return (x, dt, a, bb, cc), dy, ds
+
+
+def _grad_close(t, j):
+    j = np.asarray(j)
+    np.testing.assert_allclose(t.detach().numpy(), j, rtol=1e-3,
+                               atol=1e-4 * max(1.0, np.abs(j).max()))
+
+
+@pytest.mark.parametrize("gates", ["jax", "slow"])
+@pytest.mark.parametrize("b,h,length,p,n,chunk,with_ds", [
+    (2, 3, 128, 32, 16, 32, True), (1, 2, 256, 64, 64, 64, False),
+    (1, 2, 40, 16, 8, 64, True)])
+def test_grads_match_jax_grad(b, h, length, p, n, chunk, with_ds, gates):
+    ins, dy, ds = _grad_inputs(b, length, h, p, n, length + h, gates)
+    ds = ds if with_ds else None
+
+    def loss(*args):
+        y, s = JS.ssd_chunked(*args, chunk)
+        out = jnp.sum(y * dy)
+        return out + jnp.sum(s * ds) if ds is not None else out
+    jg = jax.grad(loss, argnums=tuple(range(5)))(*map(jnp.asarray, ins))
+    tins = [torch.from_numpy(v) for v in ins]
+    tdy = torch.from_numpy(dy)
+    tds = None if ds is None else torch.from_numpy(ds)
+    oracle = TR.ssd_chunked_grads(*tins, chunk, tdy, tds)
+    leaves = [t.clone().requires_grad_() for t in tins]
+    y, s = TO.ssd(*leaves, chunk=chunk)
+    wrapper = torch.autograd.grad(
+        [y, s] if tds is not None else [y], leaves,
+        [tdy, tds] if tds is not None else [tdy])
+    for name, o, w, j in zip(GRAD_NAMES, oracle, wrapper, jg):
+        assert o.shape == tuple(j.shape), name
+        _grad_close(o, j)
+        _grad_close(w, j)
+    if gates == "slow" and length > chunk:      # the carry is in the check
+        _, s = TR.ssd_chunked(*tins, chunk)
+        assert TR.carry_share(*tins, chunk, s) > 0.1

@@ -226,3 +226,52 @@ def test_jax_pallas_path_drops_the_state_and_needs_whole_chunks():
     ht, _ = TO.mlstm(*_t((q, k, v, li, lf)), chunk=16)    # the port takes it
     assert ht.shape == q.shape
     assert jax.default_backend() == "cpu"
+
+
+# Gradients: the backward kernel's oracle (ref.mlstm_chunked_grads,
+# autograd of the plain version from the zero state) and the wrapper's
+# gradient on the CPU against jax.grad of models.xlstm.mlstm_chunked.
+# Tolerance: each gradient within rtol 1e-3 and an atol of 1e-4 times its
+# largest magnitude (f32 sums over hd or the chunk in another order).
+GRAD_NAMES = ("dq", "dk", "dv", "dlogi", "dlogf")
+LOGI_SHIFT = {"random": 0.0, "floor": -6.0}    # as ref.grad_inputs
+
+
+def _grad_close(t, j):
+    j = np.asarray(j)
+    np.testing.assert_allclose(t.detach().numpy(), j, rtol=1e-3,
+                               atol=1e-4 * max(1.0, np.abs(j).max()))
+
+
+@pytest.mark.parametrize("gates,inputs", [
+    ("jax", "random"), ("model", "random"), ("slow", "random"),
+    ("slow", "floor")])
+@pytest.mark.parametrize("b,h,length,hd,chunk", [
+    (2, 2, 100, 32, 32), (1, 2, 64, 16, 16)])
+def test_grads_match_jax_grad(b, h, length, hd, chunk, gates, inputs):
+    """Rows on both sides of the floor: with slow gates and logi ~ N(-1,
+    1) the floor binds on few rows, with logi shifted by -6 on most; the
+    first shape has a ragged last chunk."""
+    (q, k, v, li, lf), _ = _inputs(b, length, h, hd, length + hd,
+                                   gates=gates)
+    li = (li + LOGI_SHIFT[inputs]).astype(np.float32)
+    dh = np.random.default_rng(7).standard_normal(q.shape).astype(
+        np.float32)
+    ins = (q, k, v, li, lf)
+
+    def loss(*args):
+        out, _ = JX.mlstm_chunked(*args, None, chunk)
+        return jnp.sum(out * dh)
+    jg = jax.grad(loss, argnums=tuple(range(5)))(*map(jnp.asarray, ins))
+    tins = _t(ins)
+    oracle = TR.mlstm_chunked_grads(*tins, chunk, torch.from_numpy(dh))
+    leaves = [t.clone().requires_grad_() for t in tins]
+    out, _ = TO.mlstm(*leaves, chunk=chunk)
+    wrapper = torch.autograd.grad(out, leaves, torch.from_numpy(dh))
+    for name, o, w, j in zip(GRAD_NAMES, oracle, wrapper, jg):
+        assert o.shape == tuple(j.shape), name
+        _grad_close(o, j)
+        _grad_close(w, j)
+    share = TR.floor_share(*tins, chunk)
+    if gates == "slow":
+        assert share > 0.5 if inputs == "floor" else share < 0.5, share

@@ -6,9 +6,9 @@ counts, and gradient accumulation equal to the full batch's step for the
 families the runtime trains.
 
 On the CPU every kernel wrapper runs its plain version, which autograd
-differentiates, so the hybrid and xLSTM families take train steps here
-too; on the card their mamba_scan and mlstm kernels have no backward yet,
-and the training runtime refuses them (tests/test_torch_train_loop.py)."""
+differentiates; the runtime trains every family (on the card the hybrid
+and xLSTM families through the mamba_scan and mlstm backward kernels), so
+every architecture is in ``TRAINED``."""
 import numpy as np
 import pytest
 import torch
@@ -24,8 +24,7 @@ from repro_torch.weights import tree_leaves, tree_unflatten
 torch.set_num_threads(2)   # several test workers share the cores
 
 B, S = 2, 32
-TRAINED = [a for a in ARCH_IDS
-           if get_config(a).family not in ("hybrid", "ssm")]
+TRAINED = list(ARCH_IDS)
 
 
 def _batch(cfg, seed=1, b=B):

@@ -1,6 +1,10 @@
-"""Training the audio (whisper-small), VLM (llama-3.2-vision-11b) and MoE
-(granite-moe-1b-a400m) families: the port against the JAX package on the
-same weights, reduced configs, f32.
+"""Training the audio (whisper-small), VLM (llama-3.2-vision-11b), MoE
+(granite-moe-1b-a400m), hybrid (zamba2-2.7b) and xLSTM (xlstm-1.3b)
+families: the port against the JAX package on the same weights, reduced
+configs, f32.  The hybrid and xLSTM families' gradients run through the
+plain versions of mamba_scan and mlstm here (autograd), against
+``jax.grad`` of the JAX package's jnp path (``models/ssm.py``,
+``models/xlstm.py``); the sLSTM through autograd of its token loop.
 
 - The loss and every gradient leaf of the port's ``make_grad_fn`` against
   ``jax.value_and_grad`` of the JAX loss, with and without ``remat``, on
@@ -49,7 +53,8 @@ from repro_torch.weights import (params_from_numpy, state_from_numpy,
 
 torch.set_num_threads(2)   # several test workers share the cores
 
-ARCHS = ["whisper-small", "llama-3.2-vision-11b", "granite-moe-1b-a400m"]
+ARCHS = ["whisper-small", "llama-3.2-vision-11b", "granite-moe-1b-a400m",
+         "zamba2-2.7b", "xlstm-1.3b"]
 B, S = 4, 16
 RTOL = 1e-5
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")

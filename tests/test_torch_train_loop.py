@@ -221,20 +221,17 @@ def test_runtime_straggler_migrate_is_recorded_only(tmp_path):
     ("placement_policy", "spread"), ("chips_per_host", 8),
     ("job_kind", "omp")])
 def test_unported_fields_raise(field, value, tmp_path):
-    """Every RuntimeConfig field is ported since the fabric slice: the
-    runtime takes each of these.  What stays unported, whatever the
-    fields, is training the hybrid and xLSTM families."""
+    """Every RuntimeConfig field is ported since the fabric slice, and
+    every family trains since the hybrid and xLSTM families' backward
+    kernels: the runtime takes each of these fields for each of them (the
+    name is the test's from when some stayed unported)."""
     kw = {"checkpoint_every": 0, "ckpt_dir": str(tmp_path), field: value}
     rt = TRL.RuntimeConfig(**kw)
-    runtime = TRL.FaabricTrainRuntime(
-        treg.reduced_config("llama3.2-1b"), TAW.AdamWConfig(),
-        TD.DataConfig(), rt, device="cpu")
-    assert getattr(runtime.rt, field) is value
-    for arch in ("zamba2-2.7b", "xlstm-1.3b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TRL.FaabricTrainRuntime(treg.reduced_config(arch),
-                                    TAW.AdamWConfig(), TD.DataConfig(), rt,
-                                    device="cpu")
+    for arch in ("llama3.2-1b", "zamba2-2.7b", "xlstm-1.3b"):
+        runtime = TRL.FaabricTrainRuntime(
+            treg.reduced_config(arch), TAW.AdamWConfig(), TD.DataConfig(),
+            rt, device="cpu")
+        assert getattr(runtime.rt, field) is value
 
 
 def test_runtime_rejects_bad_gangs():
