@@ -108,7 +108,10 @@ non-zero before printing any result):
    path's formula (flash and moe_gmm forwards twice a step under remat,
    their backwards once, every moe_gmm backward through the wgmma
    design); then one more warm granite step is profiled
-   (``profile train_step_moe``).
+   (``profile train_step_moe``).  Then the hybrid and xLSTM families
+   (slice 13): zamba2-2.7b whole (2 ranks, 4 x 1024) and xlstm-1.3b cut
+   to 16 of its 48 layers (2 ranks, 4 x 512), every mamba_scan and mlstm
+   backward through the tensor-core route, "mma.sync" (slice 14).
 10. Prints the ``kernels`` JSON line and, last, the device JSON line.
 
 Besides the forward kernel, phase 2 builds the flash-attention backward
@@ -142,7 +145,12 @@ large common part) and mlstm at xlstm-1.3b's (``kernel-check mlstm``: a
 1024-token prefill, a ragged 1000, the 4 x 512 batch and an initial
 state, with the model's forget gates and with slow ones that carry C
 over several chunks, one case whose C has a large common part, and the
-JAX tests' small shapes).
+JAX tests' small shapes), and the mamba_scan and mlstm backwards at the
+training shapes (``kernel-check mamba_scan_bwd`` / ``mlstm_bwd``: against
+autograd of the plain versions and an f32 witness, slow gates, both sides
+of mlstm's floor and a common-part row each; planted copies with the
+carry dropped, the floor ignored or a state rounded once must fail; each
+row names the route that ran and the kernels' ptxas registers).
 
 Checkpoints go to ``build/chip_smoke_ckpt`` in the checkout and are
 removed at the end; the phase raises if the disk cannot hold three full
@@ -851,23 +859,54 @@ def _gmm_bwd_fault_source():
                          "moe_gmm_bwd")
 
 
-def _scan_bwd_fault_source():
-    """A copy of mamba_scan_bwd.cu whose reverse walk drops the carry of
-    dS into the chunk before (``ref.BWD_CARRY_FAULT``)."""
+def _scan_bwd_fault_source(fault="carry"):
+    """A copy of mamba_scan_bwd.cu with the planted fault ``fault``:
+    "carry" (the gradient of the state entering a chunk drops the carry
+    from the one leaving it, ``ref.BWD_CARRY_FAULT``) or "round" (the
+    bf16 route's dY S_in with S_in rounded once, ``ref.BWD_ROUND_FAULT``)."""
     from repro_torch.kernels.mamba_scan import ref as sr
     return _fault_source("mamba_scan", "mamba_scan_bwd.cu",
-                         sr.BWD_CARRY_FAULT, "mamba_scan_bwd")
+                         {"carry": sr.BWD_CARRY_FAULT,
+                          "round": sr.BWD_ROUND_FAULT}[fault],
+                         "mamba_scan_bwd" + ("" if fault == "carry"
+                                             else f"_{fault}"))
 
 
 def _mlstm_bwd_fault_source(fault):
     """A copy of mlstm_bwd.cu with the planted fault ``fault``: "carry"
-    (the reverse walk drops the carry of (dC, dn), ``ref.BWD_CARRY_FAULT``)
-    or "floor" (the floor's branch ignored, ``ref.BWD_FLOOR_FAULT``)."""
+    (the reverse walk drops the carry of (dC, dn), ``ref.BWD_CARRY_FAULT``),
+    "floor" (the floor's branch ignored, ``ref.BWD_FLOOR_FAULT``) or
+    "round" (the bf16 route's U = dH C with C rounded once,
+    ``ref.BWD_ROUND_FAULT``)."""
     from repro_torch.kernels.mlstm import ref as mr
     return _fault_source("mlstm", "mlstm_bwd.cu",
                          {"carry": mr.BWD_CARRY_FAULT,
-                          "floor": mr.BWD_FLOOR_FAULT}[fault],
+                          "floor": mr.BWD_FLOOR_FAULT,
+                          "round": mr.BWD_ROUND_FAULT}[fault],
                          f"mlstm_bwd_{fault}")
+
+
+def _ptxas(name):
+    """ptxas's registers and spills for each kernel of the library
+    ``name`` (its last build's log): {kernel: "N registers, S bytes spill
+    stores, L bytes spill loads"}."""
+    from repro_torch.kernels import _build
+
+    out, kern, spill = {}, None, ""
+    for ln in _build.build_logs.get(name, "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?_Z\w*?(m[ls]b_\w+?_kernel)((?:ILb[01]E)?"
+                      r"(?:Lb[01]E)*)", ln)
+        if m:             # a template instance's bools: <1,0>
+            args = ",".join(re.findall(r"Lb([01])E", m.group(2)))
+            kern = m.group(1) + (f"<{args}>" if args else "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"{m.group(1)} bytes spill stores, {m.group(2)} loads"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and kern:
+            out[kern] = f"{m.group(1)} registers, {spill}"
+    return out
 
 
 def build_all(torch):
@@ -903,10 +942,12 @@ def build_all(torch):
             "mamba_scan_bwd": os.path.join(
                 src, "mamba_scan", "csrc", "mamba_scan_bwd.cu"),
             "mamba_scan_bwd_fault": _scan_bwd_fault_source(),
+            "mamba_scan_bwd_round_fault": _scan_bwd_fault_source("round"),
             "mlstm": os.path.join(src, "mlstm", "csrc", "mlstm.cu"),
             "mlstm_bwd": os.path.join(src, "mlstm", "csrc", "mlstm_bwd.cu"),
             "mlstm_bwd_carry_fault": _mlstm_bwd_fault_source("carry"),
-            "mlstm_bwd_floor_fault": _mlstm_bwd_fault_source("floor")}
+            "mlstm_bwd_floor_fault": _mlstm_bwd_fault_source("floor"),
+            "mlstm_bwd_round_fault": _mlstm_bwd_fault_source("round")}
 
     def one(name):
         t0 = time.perf_counter()
@@ -2664,31 +2705,46 @@ def check_mamba_scan_bwd(torch, cfg, b=2, length=1024):
     shape (rank batch ``b`` x ``length``, H 80, P 64, N 64, chunk 64): in
     bf16 with the JAX kernel tests' gates, the model's and slow ones
     (``ref.SCAN_GATES``; a slow row passes only with a ``carry_share``
-    above 0.1), f32 with slow ones, and one slow bf16 row with a gradient
-    of the final state.  Each row: the largest errors, a rerun's
-    bit-equality, the kernel's time, its bound, autograd of the plain
-    version's time; the slow bf16 rows also run the planted copy
-    (``ref.BWD_CARRY_FAULT``), which must fail (``fault_ok`` false)."""
+    above 0.1), f32 with slow ones, one slow bf16 row with a gradient of
+    the final state, and one bf16 row of common-part inputs
+    (``ref.scan_inputs(inputs="common")``: states with a large common
+    part that dY S_in cancels).  Each row: the route that ran
+    (``ops.bwd_design_launches``) and its grid's blocks, the largest
+    errors, a rerun's bit-equality, the kernel's time, its bound, autograd
+    of the plain version's time; the slow bf16 rows also run the planted
+    copy ``ref.BWD_CARRY_FAULT``, the common-part row
+    ``ref.BWD_ROUND_FAULT`` (S_in rounded once), each of which must fail
+    (``fault_ok`` false).  Every bf16 row must run on the tensor-core
+    route ("mma.sync"), f32 on "fma"."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.mamba_scan import ops as so
     from repro_torch.kernels.mamba_scan import ref as sr
     from repro_torch.models import ssm as ssm_mod
 
-    fault_lib = _build.load("mamba_scan_bwd_fault", _scan_bwd_fault_source(),
-                            so._BWD_SIG)
+    faults = {"carry": ("carry dropped", _build.load(
+        "mamba_scan_bwd_fault", _scan_bwd_fault_source(), so._BWD_SIG)),
+        "round": ("S_in rounded once", _build.load(
+            "mamba_scan_bwd_round_fault", _scan_bwd_fault_source("round"),
+            so._BWD_SIG))}
+    ptxas = _ptxas("mamba_scan_bwd")
     _, h = ssm_mod.dims(cfg)
     p, n, chunk = cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk
-    cases = [("bfloat16", "jax", False), ("bfloat16", "model", False),
-             ("bfloat16", "slow", False), ("bfloat16", "slow", True),
-             ("float32", "slow", False)]
+    cases = [("bfloat16", "jax", False, "random"),
+             ("bfloat16", "model", False, "random"),
+             ("bfloat16", "slow", False, "random"),
+             ("bfloat16", "slow", True, "random"),
+             ("bfloat16", "slow", False, "common"),
+             ("float32", "slow", False, "random")]
     rows = []
-    for dname, gates, with_ds in cases:
+    for dname, gates, with_ds, inputs in cases:
         dt_ = getattr(torch, dname)
         x, dt, a, bb, cc, dy = sr.scan_inputs(
-            b, length, h, p, n, gates=gates, dtype=dt_, seed=24,
-            device="cuda")
+            b, length, h, p, n, gates=gates, inputs=inputs, dtype=dt_,
+            seed=24, device="cuda")
         ds = (torch.randn((b, h, p, n), device="cuda") if with_ds else None)
+        so.reset_launches()
         got = so._launch_bwd(x, dt, a, bb, cc, dy, ds, chunk)
+        route = [k for k, v in so.bwd_design_launches.items() if v][0]
         again = so._launch_bwd(x, dt, a, bb, cc, dy, ds, chunk)
         ref = sr.ssd_chunked_grads(x, dt, a, bb, cc, chunk, dy, ds)
         wit = sr.ssd_chunked_grads(x.float(), dt, a, bb.float(), cc.float(),
@@ -2700,21 +2756,27 @@ def check_mamba_scan_bwd(torch, cfg, b=2, length=1024):
         bit_equal = all(torch.equal(u, w) for u, w in zip(got, again))
         _, s = sr.ssd_chunked(x, dt, a, bb, cc, chunk)
         share = sr.carry_share(x, dt, a, bb, cc, chunk, s)
-        ok = all(oks) and bit_equal and (gates != "slow" or share > 0.1)
+        ok = all(oks) and bit_equal and (gates != "slow" or share > 0.1) \
+            and route == so.bwd_design(dt_)
+        blocks = (length // chunk) * h * b if route == "mma.sync" else h * b
         row = {"B": b, "L": length, "H": h, "P": p, "N": n, "chunk": chunk,
                "dtype": dname, "gates": gates, "ds_fin": with_ds,
+               "inputs": inputs, "route": route, "grid_blocks": blocks,
                "carry_share": share,
                "ok_dx_ddt_da_db_dc": oks,
                "max_abs_err_dx_ddt_da_db_dc": errs,
                "witness_f32_max_abs_err": werrs,
                "max_abs_err": max(errs), "rtol": tol,
                "atol": "rtol x each gradient's largest magnitude",
-               "bit_equal_rerun": bit_equal}
-        if gates == "slow" and dname == "bfloat16":
-            with mock.patch.object(so, "bwd_lib", lambda: fault_lib):
+               "bit_equal_rerun": bit_equal, "ptxas": ptxas}
+        fault = ("round" if inputs == "common" else
+                 "carry" if gates == "slow" and dname == "bfloat16" else None)
+        if fault:
+            name, lib = faults[fault]
+            with mock.patch.object(so, "bwd_lib", lambda: lib):
                 bad = so._launch_bwd(x, dt, a, bb, cc, dy, ds, chunk)
             foks, ferrs = _grads_check(torch, bad, ref, tol)
-            row.update(fault="carry dropped", fault_ok=all(foks),
+            row.update(fault=name, fault_ok=all(foks),
                        fault_ok_each=foks, fault_max_abs_err=ferrs)
             ok = ok and not all(foks)
             del bad
@@ -2772,13 +2834,18 @@ def check_mlstm_bwd(torch, cfg, b=2, length=512):
     chunk 128; ``ref.grad_inputs``): bf16 with slow forget gates on
     inputs whose floor binds on few rows ("random") and on most
     ("floor"), with the model's gates and the JAX tests' ones, f32 with
-    slow gates, and a ragged 500-token bf16 row.  Each row: the floor's
-    share of the rows (``ref.floor_share``), the carry share, the largest
-    errors, a rerun's bit-equality, the kernel's time, its bound,
-    autograd of the plain version's time; the slow bf16 rows also run a
-    planted copy, which must fail (``fault_ok`` false): the reverse
-    walk's carry dropped on the "random" row, the floor's branch ignored
-    on the "floor" row."""
+    slow gates, a ragged 500-token bf16 row, and a bf16 row of
+    common-part inputs ("common": states C with a large common part that
+    U = dH C cancels).  Each row: the route that ran
+    (``ops.bwd_design_launches``), the floor's share of the rows
+    (``ref.floor_share``), the carry share, the largest errors, a rerun's
+    bit-equality, the kernel's time, its bound, autograd of the plain
+    version's time; the slow bf16 rows also run a planted copy, which
+    must fail (``fault_ok`` false): the reverse walk's carry dropped on
+    the "random" row, the floor's branch ignored on the "floor" row, C
+    rounded once in U (``ref.BWD_ROUND_FAULT``) on the "common" row.
+    Every bf16 row must run on the tensor-core route ("mma.sync"), f32 on
+    "fma"."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.mlstm import ops as mo
     from repro_torch.kernels.mlstm import ref as mr
@@ -2788,7 +2855,9 @@ def check_mlstm_bwd(torch, cfg, b=2, length=512):
         f"mlstm_bwd_{fault}_fault", _mlstm_bwd_fault_source(fault),
         mo._BWD_SIG)) for inputs, fault, name in (
             ("random", "carry", "carry dropped"),
-            ("floor", "floor", "floor ignored"))}
+            ("floor", "floor", "floor ignored"),
+            ("common", "round", "C rounded once"))}
+    ptxas = _ptxas("mlstm_bwd")
     _, hd = xlstm_mod.mlstm_dims(cfg)
     h, chunk = cfg.n_heads, 128
     cases = [("bfloat16", "slow", "random", length),
@@ -2796,6 +2865,7 @@ def check_mlstm_bwd(torch, cfg, b=2, length=512):
              ("bfloat16", "model", "random", length),
              ("bfloat16", "jax", "random", length),
              ("bfloat16", "slow", "random", length - 12),
+             ("bfloat16", "slow", "common", length),
              ("float32", "slow", "random", length)]
     rows = []
     for dname, gates, inputs, ln in cases:
@@ -2804,7 +2874,9 @@ def check_mlstm_bwd(torch, cfg, b=2, length=512):
             b, ln, h, hd, gates=gates, inputs=inputs, dtype=dt_, seed=25,
             device="cuda")
         binds = torch.empty((b, h, ln), device="cuda")
+        mo.reset_launches()
         got = mo._launch_bwd(q, k, v, li, lf, dh, chunk, binds)
+        route = [k_ for k_, n_ in mo.bwd_design_launches.items() if n_][0]
         again = mo._launch_bwd(q, k, v, li, lf, dh, chunk)
         ref = mr.mlstm_chunked_grads(q, k, v, li, lf, chunk, dh)
         wit = mr.mlstm_chunked_grads(q.float(), k.float(), v.float(), li,
@@ -2820,17 +2892,21 @@ def check_mlstm_bwd(torch, cfg, b=2, length=512):
         ok = all(oks) and bit_equal \
             and abs(binds.mean().item() - share) < 0.01 \
             and (inputs != "floor" or share > 0.5) \
-            and (gates != "slow" or inputs == "floor" or share < 0.5)
+            and (gates != "slow" or inputs == "floor" or share < 0.5) \
+            and route == mo.bwd_design(dt_)
         row = {"B": b, "L": ln, "H": h, "hd": hd, "chunk": chunk,
                "dtype": dname, "gates": gates, "inputs": inputs,
-               "floor_share": share, "kernel_floor_share":
+               "route": route, "floor_share": share, "kernel_floor_share":
                binds.mean().item(), "carry_share": carry,
                "ok_dq_dk_dv_dlogi_dlogf": oks,
                "max_abs_err_dq_dk_dv_dlogi_dlogf": errs,
                "witness_f32_max_abs_err": werrs,
                "max_abs_err": max(errs), "rtol": tol,
                "atol": "rtol x each gradient's largest magnitude",
-               "bit_equal_rerun": bit_equal}
+               "bit_equal_rerun": bit_equal,
+               "skipped": "the last chunk's own C, dC k and dC^T v; the "
+                          "first chunk's U and own dC",
+               "ptxas": ptxas}
         if gates == "slow" and dname == "bfloat16" and ln == length:
             name, lib = faults[inputs]
             with mock.patch.object(mo, "bwd_lib", lambda: lib):
@@ -3219,7 +3295,9 @@ def train_families(torch, counters, phase_time):
     plain paths and an f32 witness, whatever the learning rate; after
     it, the loss must have fallen.  The runtime saves the state before
     step 0, as every run does.  Every moe_gmm backward call must go
-    through the wgmma design (``ops.bwd_design_launches``).  After the
+    through the wgmma design, and every mamba_scan and mlstm backward call
+    through the tensor-core route, "mma.sync" (each ``ops``'s
+    ``bwd_design_launches``).  After the
     run, one more step of the MoE family's (granite's) runtime, warm, is
     profiled (``profile_phase``: device time by kernel kind, idle
     share)."""
@@ -3227,6 +3305,8 @@ def train_families(torch, counters, phase_time):
                                           SHARED_ATTN)
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mlstm import ops as ml_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.models.model import count_params
     from repro_torch.optim.adamw import AdamWConfig
@@ -3236,7 +3316,10 @@ def train_families(torch, counters, phase_time):
                                                 family_batch_fn)
 
     total = dict.fromkeys(counters, 0)
-    total["moe_gmm_bwd_by_design"] = dict.fromkeys(gmm_ops.BWD_DESIGNS, 0)
+    routed = {"moe_gmm_bwd": gmm_ops, "mamba_scan_bwd": scan_ops,
+              "mlstm_bwd": ml_ops}
+    for name, mod in routed.items():
+        total[f"{name}_by_design"] = dict.fromkeys(mod.BWD_DESIGNS, 0)
     for arch, tag, layers, ranks, gb, seq, steps, lr, cut in TRAIN_FAMILIES:
         cfg = get_config(arch)
         if layers:
@@ -3259,14 +3342,16 @@ def train_families(torch, counters, phase_time):
         torch.cuda.reset_peak_memory_stats()
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
-        gmm_ops.reset_launches()
+        for mod in routed.values():
+            mod.reset_launches()
         t0 = time.perf_counter()
         state, out = runtime.run(state=state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: getattr(mod, attr)
                     for name, (mod, attr) in counters.items()}
-        designs = dict(gmm_ops.bwd_design_launches)
+        designs = {name: dict(mod.bwd_design_launches)
+                   for name, mod in routed.items()}
         kinds = cfg.period() * cfg.n_periods()
         n_attn = sum(kinds.count(k) for k in (ATTN, SHARED_ATTN, MOE, ENCDEC))
         n_moe = kinds.count(MOE)
@@ -3300,7 +3385,7 @@ def train_families(torch, counters, phase_time):
                "tokens_per_s_warm": gb * seq / p50,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                "launches": launches, "expected_launches": expect,
-               "moe_gmm_bwd_by_design": designs,
+               "bwd_by_design": designs,
                "host_rss_gb": _host_rss_gb()}
         print(f"train-family-{tag} {json.dumps(res)}", flush=True)
         if tag == "moe":
@@ -3324,11 +3409,15 @@ def train_families(torch, counters, phase_time):
         assert all(math.isfinite(x) for x in losses), res
         assert losses[-1] < losses[0], res
         assert launches == expect, (launches, expect)
-        assert designs["wgmma"] == expect["moe_gmm_bwd"], designs
+        assert designs["moe_gmm_bwd"]["wgmma"] == expect["moe_gmm_bwd"], \
+            designs
+        for name in ("mamba_scan_bwd", "mlstm_bwd"):
+            assert designs[name]["mma.sync"] == expect[name], designs
         for name in counters:
             total[name] += launches[name]
-        for name in designs:
-            total["moe_gmm_bwd_by_design"][name] += designs[name]
+        for name, by in designs.items():
+            for design, count in by.items():
+                total[f"{name}_by_design"][design] += count
         phase_time(f"train-family-{tag}")
     return total
 
@@ -3427,7 +3516,8 @@ def main() -> int:
     ml_row = ml_rows[0]                 # a 1024-token prefill, bf16
     # the training shapes, bf16, slow gates (few rows at the floor)
     scan_bwd_row = next(r for r in scan_bwd_rows if r["gates"] == "slow"
-                        and r["dtype"] == "bfloat16" and not r["ds_fin"])
+                        and r["dtype"] == "bfloat16" and not r["ds_fin"]
+                        and r["inputs"] == "random")
     ml_bwd_row = ml_bwd_rows[0]
     phase_time("kernel-check")
 
@@ -3571,6 +3661,7 @@ def main() -> int:
         "source": src + "mamba_scan/csrc/mamba_scan_bwd.cu",
         "replaces": "src/repro/kernels/mamba_scan/kernel.py:28",
         "launches": tfam["mamba_scan_bwd"],
+        "launches_by_design": tfam["mamba_scan_bwd_by_design"],
         "max_abs_err": scan_bwd_row["max_abs_err"],
         "ms": scan_bwd_row["ms"], "plain_ms": scan_bwd_row["plain_ms"],
         "bound_ms": scan_bwd_row["bound_ms"],
@@ -3588,6 +3679,7 @@ def main() -> int:
         "source": src + "mlstm/csrc/mlstm_bwd.cu",
         "replaces": "src/repro/kernels/mlstm/kernel.py:23",
         "launches": tfam["mlstm_bwd"],
+        "launches_by_design": tfam["mlstm_bwd_by_design"],
         "max_abs_err": ml_bwd_row["max_abs_err"],
         "ms": ml_bwd_row["ms"], "plain_ms": ml_bwd_row["plain_ms"],
         "bound_ms": ml_bwd_row["bound_ms"],

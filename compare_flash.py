@@ -2,7 +2,8 @@
 """Time one kernel of two checkouts on one GPU, in turns.
 
     python3 compare_flash.py [--kernel flash|moe_gmm|moe_gmm_bwd|moe_step|
-                              mlstm|mamba_scan] OLD_CHECKOUT [NEW_CHECKOUT]
+                              mlstm|mamba_scan|mlstm_bwd|mamba_scan_bwd|
+                              hybrid_step] OLD_CHECKOUT [NEW_CHECKOUT]
 
 NEW_CHECKOUT defaults to this script's own directory.  Both packages are
 named ``repro_torch``, so each checkout runs in a process of its own, in
@@ -41,6 +42,16 @@ chunk 64, a = -(1..80)): B 1 at L 1024 and 256, B 4 at L 512.  No PyTorch
 call computes either function.  Each of their rows also gives the device
 time of each pass (``passes_ms``, torch.profiler).
 
+``mamba_scan_bwd`` and ``mlstm_bwd``: the backward kernels at the training
+shapes of chip_smoke's ``kernel-check`` rows (zamba2-2.7b: rank batch 2 x
+1024, H 80, P = N = 64, chunk 64, the model's gates; xlstm-1.3b: rank
+batch 2 x 512, 4 heads of hd 1024, chunk 128, slow forget gates), bf16,
+each beside its bound, autograd of its plain version and the device time
+of each pass (``passes_ms``).  ``hybrid_step``: one warm training step of
+zamba2-2.7b as chip_smoke's ``train-family-hybrid`` runs it (full width
+and depth, 2 ranks, global batch 4 x 1024), as ``moe_step`` times
+granite's.
+
 Prints the card's name and power limit (``nvidia-smi``), a
 ``<kernel>-compare`` JSON line per process and a
 ``<kernel>-compare-summary`` line: each checkout's best time per shape.
@@ -67,7 +78,7 @@ GMM_BWD_SHAPES = [("granite", 32, 1280, 1024, 512, "silu"),
                   ("granite", 32, 1280, 1024, 512, "gelu"),
                   ("phi3.5", 16, 160, 4096, 6400, "silu")]
 KERNELS = ("flash", "moe_gmm", "moe_gmm_bwd", "moe_step", "mlstm",
-           "mamba_scan")
+           "mamba_scan", "mlstm_bwd", "mamba_scan_bwd", "hybrid_step")
 
 
 def gmm_rows(torch, cs):
@@ -123,7 +134,7 @@ def gmm_bwd_rows(torch, cs):
     return rows
 
 
-def moe_step_rows(torch, cs):
+def moe_step_rows(torch, cs, tag="moe"):
     import time
 
     from repro_torch.configs.registry import get_config
@@ -134,7 +145,7 @@ def moe_step_rows(torch, cs):
                                                 family_batch_fn)
 
     arch, _, _, ranks, gb, seq, steps, lr, _ = next(
-        f for f in cs.TRAIN_FAMILIES if f[1] == "moe")
+        f for f in cs.TRAIN_FAMILIES if f[1] == tag)
     cfg = get_config(arch)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb)
     rt = RuntimeConfig(total_steps=steps, checkpoint_every=0,
@@ -160,7 +171,8 @@ def moe_step_rows(torch, cs):
         t0 = time.perf_counter()
         step()
         times.append(time.perf_counter() - t0)
-    prof = cs.profile_phase(torch, "moe_train_step", lambda: (step(), 1)[1])
+    prof = cs.profile_phase(torch, f"{tag}_train_step",
+                            lambda: (step(), 1)[1])
     runtime.release()
     return [{"key": f"{arch} step", "ms": sorted(times)[2] * 1e3,
              "step_ms": [t * 1e3 for t in times], "ranks": ranks,
@@ -225,6 +237,50 @@ def scan_rows(torch, cs):
     return rows
 
 
+def scan_bwd_rows(torch, cs):
+    from repro_torch.kernels.mamba_scan import ops
+    from repro_torch.kernels.mamba_scan import ref
+
+    b, length, h, p, n, chunk = 2, 1024, 80, 64, 64, 64
+    ins = ref.scan_inputs(b, length, h, p, n, gates="model",
+                          dtype=torch.bfloat16, seed=24, device="cuda")
+
+    def fn():
+        return ops._launch_bwd(*ins, None, chunk)
+    ms = cs._time_ms(fn, iters=10)
+    plain_ms = cs._time_ms(lambda: ref.ssd_chunked_grads(
+        *ins[:5], chunk, ins[5]), iters=3, warmup=1)
+    bound_ms, bound_by, flops, nbytes, _ = cs._scan_bwd_bound(
+        b, length, h, p, n, chunk, 2, "bfloat16")
+    return [{"key": f"B{b} L{length}", "B": b, "L": length, "H": h,
+             "ms": ms, "plain_ms": plain_ms,
+             "tflops": flops / (ms * 1e-3) / 1e12, "bound_ms": bound_ms,
+             "bound_by": bound_by, "passes_ms": cs.pass_ms(torch, fn,
+                                                           iters=5)}]
+
+
+def mlstm_bwd_rows(torch, cs):
+    from repro_torch.kernels.mlstm import ops
+    from repro_torch.kernels.mlstm import ref
+
+    b, length, h, hd, chunk = 2, 512, 4, 1024, 128
+    ins = ref.grad_inputs(b, length, h, hd, gates="slow",
+                          dtype=torch.bfloat16, seed=25, device="cuda")
+
+    def fn():
+        return ops._launch_bwd(*ins, chunk)
+    ms = cs._time_ms(fn, iters=10)
+    plain_ms = cs._time_ms(lambda: ref.mlstm_chunked_grads(
+        *ins[:5], chunk, ins[5]), iters=3, warmup=1)
+    bound_ms, bound_by, flops, nbytes, _ = cs._mlstm_bwd_bound(
+        b, length, h, hd, chunk, 2, "bfloat16")
+    return [{"key": f"B{b} L{length}", "B": b, "L": length, "H": h,
+             "hd": hd, "ms": ms, "plain_ms": plain_ms,
+             "tflops": flops / (ms * 1e-3) / 1e12, "bound_ms": bound_ms,
+             "bound_by": bound_by, "passes_ms": cs.pass_ms(torch, fn,
+                                                           iters=5)}]
+
+
 def child(tree: str, kernel: str) -> int:
     import torch
     import torch.nn.functional as F
@@ -244,7 +300,9 @@ def child(tree: str, kernel: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     other = {"moe_gmm": gmm_rows, "moe_gmm_bwd": gmm_bwd_rows,
              "moe_step": moe_step_rows, "mlstm": mlstm_rows,
-             "mamba_scan": scan_rows}
+             "mamba_scan": scan_rows, "mamba_scan_bwd": scan_bwd_rows,
+             "mlstm_bwd": mlstm_bwd_rows,
+             "hybrid_step": lambda t, c: moe_step_rows(t, c, "hybrid")}
     if kernel in other:
         print(f"{kernel}-compare " + json.dumps({
             "tree": os.path.abspath(tree),

@@ -30,7 +30,8 @@
 //      heads (b and c are (B, L, N), shared by the heads: Mamba2 with one
 //      group; b and c are bf16 inputs, so the products are exact), and
 //      every head's prefix sum of dt * a over the chunk (in order:
-//      chunk_cumsum says why), into f32 scratch the wrapper allocates;
+//      ssd_tc.cuh's chunk_cumsum says why), into f32 scratch the wrapper
+//      allocates;
 //   2. ms_ssd_tc (grid (P / 64, H, B), 16 warps): the walk over the
 //      chunks, the next chunk's x, b, c, C B^T, dt and cum staged by
 //      cp.async while one runs: M from C B^T with the head's decay and dt,
@@ -59,8 +60,17 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "ssd_tc.cuh"
 
 namespace {
+
+using ssd::chunk_cumsum;
+using ssd::LDT;
+using ssd::load64;
+using ssd::NPART;
+using ssd::split3;
+using ssd::store3;
+using ssd::T64;
 
 typedef __nv_bfloat16 bf16;
 
@@ -71,9 +81,7 @@ constexpr int THREADS = 128;
 constexpr int LDN = NMAX + 1;      // row strides padded against bank
 constexpr int LDQ = QMAX + 1;      // conflicts
 constexpr float NEG_INF = -1e30f;
-// the tensor-core route: 64 x 64 tiles (chunk, P slab, N)
-constexpr int T64 = 64;
-constexpr int LDT = T64 + tc::PAD;
+// the tensor-core route: 64 x 64 tiles (chunk, P slab, N; ssd_tc.cuh)
 constexpr int PT = 64;             // state rows (P) per tensor-core block
 constexpr int LDC = T64 + 4;       // row stride of a staged C B^T (f32)
 // a chunk's staged inputs: x, b, c (bf16), C B^T, dt and cum (f32)
@@ -83,26 +91,7 @@ static_assert(STAGE_BYTES % 16 == 0, "16-byte aligned stages");
 constexpr int TC_THREADS = 512;    // 16 warps: 4 row groups x 4 of WC
 constexpr int WC = 16;             // columns of y and S per warp
 constexpr int NTW = WC / 8;        // their n8 tiles
-constexpr int NPART = 3;           // bf16 parts of an f32 operand
 static_assert(QMAX == T64 && NMAX == T64 && PT == T64, "64 x 64 tiles");
-
-// cum = the inclusive prefix sum of dt * a over a chunk's q tokens (dt
-// read with stride ds; cum past q = the total), in order and rounded as
-// the plain version's torch.cumsum rounds it: one product, then one sum,
-// a token.  The decay exp(cum_i - cum_j) takes the difference of two sums
-// that reach -4000 at the model's a = -(1..80), where an f32 ulp is 5e-4:
-// a sum in another order (a parallel scan) moves y by ~1e-4 relative from
-// the plain version, which a full-depth bf16 prefill amplifies past its
-// check (PERF.md, PR 18).
-__device__ __forceinline__ void chunk_cumsum(const float* dt, int ds,
-                                             float ah, int q, float* cum) {
-  float run = 0.f;
-#pragma unroll
-  for (int i = 0; i < QMAX; ++i) {   // unrolled: the loads all in flight
-    if (i < q) run = __fadd_rn(run, __fmul_rn(dt[(size_t)i * ds], ah));
-    cum[i] = run;
-  }
-}
 
 // The factor that carries the state from one chunk into the next; both
 // routes read it here.
@@ -273,49 +262,6 @@ ms_ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 // mma_bf16.cuh: g = lane / 4 and t = lane % 4 own rows g, g + 8 and
 // columns 2t, 2t + 1 of each 16 x 8 accumulator tile.
 // ---------------------------------------------------------------------------
-
-// A 64 x 64 bf16 tile into shared memory (row stride LDT): src is its
-// (0, 0), rs its row stride; rows at or past nr and columns at or past
-// ncols read as 0.  vec: by cp.async, 16 bytes (rs, ncols and src's
-// offset multiples of 8); else element by element.
-__device__ __forceinline__ void load64(bf16* dst, const bf16* src, size_t rs,
-                                       int nr, int ncols, bool vec) {
-  if (vec) {
-    for (int i = threadIdx.x; i < T64 * (T64 / 8); i += blockDim.x) {
-      const int r = i / (T64 / 8), c = (i % (T64 / 8)) * 8;
-      const bool ok = r < nr && c < ncols;
-      tc::cp_async16(dst + r * LDT + c, ok ? src + (size_t)r * rs + c : src,
-                     ok ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < T64 * T64; i += blockDim.x) {
-      const int r = i / T64, c = i % T64;
-      dst[r * LDT + c] = (r < nr && c < ncols) ? src[(size_t)r * rs + c]
-                                               : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// x's three bf16 parts hi = bf16(x), mid = bf16(x - hi) and lo =
-// bf16(x - hi - mid), each a word of two bf16 (x0 in the low halves):
-// three products keep about 24 bits of x, as f32 does.
-__device__ __forceinline__ void split3(float x0, float x1,
-                                       uint32_t (&w)[NPART]) {
-  const float r0 = x0 - __bfloat162float(__float2bfloat16(x0));
-  const float r1 = x1 - __bfloat162float(__float2bfloat16(x1));
-  w[0] = tc::pack_bf16(x0, x1);
-  w[1] = tc::pack_bf16(r0, r1);
-  w[2] = tc::pack_bf16(r0 - __bfloat162float(__float2bfloat16(r0)),
-                       r1 - __bfloat162float(__float2bfloat16(r1)));
-}
-
-// The three parts into three planes of 64 x LDT bf16, at element off.
-__device__ __forceinline__ void store3(bf16* planes, int off,
-                                       const uint32_t (&w)[NPART]) {
-#pragma unroll
-  for (int k = 0; k < NPART; ++k)
-    *reinterpret_cast<uint32_t*>(planes + k * T64 * LDT + off) = w[k];
-}
 
 // C B^T of one chunk of one batch row, for all the heads: (64, 64) f32,
 // rows i and columns j past the chunk 0 (warp w computes rows 16 w..);

@@ -13,7 +13,9 @@ input wants a gradient on CUDA, the call goes through ``_SSD``, whose
 backward is the kernel ``csrc/mamba_scan_bwd.cu`` (P <= 64).
 ``launches`` counts forward kernel launches (one per call: bf16's two
 passes run in one C call), ``bwd_launches`` backward ones (one per call:
-its two passes run in one C call).
+its passes run in one C call), and ``bwd_design_launches`` the same calls
+by the backward's route (``bwd_design``): "mma.sync" (bf16, chunk-parallel
+on the tensor cores) or "fma" (f32, the walk on the CUDA cores).
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ from repro_torch.kernels.mamba_scan.ref import chunk_len, ssd_chunked
 
 launches = 0            # forward kernel launches since the last reset
 bwd_launches = 0        # backward kernel launches since the last reset
+BWD_DESIGNS = ("mma.sync", "fma")
+bwd_design_launches = dict.fromkeys(BWD_DESIGNS, 0)     # the same, by route
 
 MAX_CHUNK = 64          # longest chunk a block's shared tiles hold
 MAX_STATE = 64          # largest state dimension N
@@ -45,6 +49,14 @@ def reset_launches() -> None:
     global launches, bwd_launches
     launches = 0
     bwd_launches = 0
+    for name in BWD_DESIGNS:
+        bwd_design_launches[name] = 0
+
+
+def bwd_design(dtype: torch.dtype) -> str:
+    """The backward's route for x's dtype: "mma.sync" for bf16, "fma" for
+    f32 (the C entry picks the same by its dtype)."""
+    return "mma.sync" if dtype == torch.bfloat16 else "fma"
 
 
 def lib():
@@ -98,10 +110,14 @@ def call(handle, x, dt, a, b, c, q: int, stream):
 
 def bwd_scratch_floats(bs: int, length: int, h: int, p: int, n: int,
                        q: int) -> int:
-    """f32 scratch of the backward (``csrc/mamba_scan_bwd.cu``): the state
-    entering each chunk (B, H, L/q, P, N), each head's db and dc (B, H, L,
-    N) and each batch row's da (B, H)."""
-    return bs * h * ((length // q) * p * n + 2 * length * n + 1)
+    """f32 scratch of the backward (``csrc/mamba_scan_bwd.cu``, ``layout``):
+    cum (B, L/q, H, 64) and C B^T (B, L/q, 64, 64), the state entering
+    each chunk and the gradient of the state leaving it (B, H, L/q, P, N)
+    each, each head's db and dc (B, H, L, N) each and da's partials (B, H,
+    L/q)."""
+    nc = length // q
+    return (bs * nc * 64 * (h + 64)
+            + bs * h * (2 * nc * p * n + 2 * length * n + nc))
 
 
 def call_bwd(handle, x, dt, a, b, c, dy, ds_fin, q: int, stream):
@@ -193,6 +209,7 @@ def _launch_bwd(x, dt, a, b, c, dy, ds_fin, chunk: int):
         raise RuntimeError(f"mamba_scan: CUDA error {err} at backward "
                            "launch")
     bwd_launches += 1
+    bwd_design_launches[bwd_design(x.dtype)] += 1
     return grads
 
 

@@ -94,12 +94,16 @@ def ssd_chunked_grads(x, dt, a, b, c, chunk: int, dy, ds_fin=None):
         return torch.autograd.grad(outs, leaves, grads)
 
 
-# A planted fault of the backward kernel (csrc/mamba_scan_bwd.cu) that its
-# checks must catch: the reverse walk drops the carry of dS from one chunk
-# into the one before it (each chunk's dS_in then holds only its own
-# outputs' part), which the slow gates' rows see.
-BWD_CARRY_FAULT = ("        dS[o] = g * dS[o] + acc[r][cc];\n",
-                   "        dS[o] = acc[r][cc];\n")
+# Planted faults of the backward kernel (csrc/mamba_scan_bwd.cu) that its
+# checks must catch.  BWD_CARRY_FAULT: the gradient of the state entering
+# a chunk drops the carry from the one leaving it (each chunk's dS_in then
+# holds only its own outputs' part), on both routes (``carry_back``), which
+# the slow gates' rows see.  BWD_ROUND_FAULT: the bf16 route's dY S_in
+# with only S_in's first bf16 part (the state rounded once), which the
+# common-part inputs (``scan_inputs(inputs="common")``) see in dc.
+BWD_CARRY_FAULT = ("  return g * ds + own;\n", "  return own;\n")
+BWD_ROUND_FAULT = ("mm64<false, true, 1, NPART>(v, dYs, P2",
+                   "mm64<false, true, 1, 1>(v, dYs, P2")
 
 # The scan's gates for the checks: "jax" draws dt = softplus(N(0, 1)) and
 # a = -exp(N(0, 0.3)), as the JAX kernel tests do (about 0.8 a token:
@@ -111,11 +115,19 @@ BWD_CARRY_FAULT = ("        dS[o] = g * dS[o] + acc[r][cc];\n",
 SCAN_GATES = {"jax": (0.0, 1.0), "model": (0.0, 1.0), "slow": (-4.6, 0.1)}
 
 
-def scan_inputs(bs, length, h, p, n, *, gates="slow", dtype=torch.float32,
-                seed=0, device="cpu"):
+# The checks' inputs: "random", or "common": x with a large common part
+# SCAN_COMMON (each state row p then holds nearly the same values) and dy
+# with its mean over P taken out, so that dY S_in and dY X^T cancel that
+# part and a rounding of the state as an operand shows in dc.
+SCAN_COMMON = 16.0
+
+
+def scan_inputs(bs, length, h, p, n, *, gates="slow", inputs="random",
+                dtype=torch.float32, seed=0, device="cpu"):
     """(x, dt, a, b, c, dy) for a check of the scan's gradient, drawn from
     ``seed``: x, b, c ~ N(0, 0.25), dy ~ N(0, 1), the gates of
-    SCAN_GATES."""
+    SCAN_GATES; ``inputs`` "common" adds SCAN_COMMON to x and takes dy's
+    mean over P out."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape):
@@ -129,6 +141,8 @@ def scan_inputs(bs, length, h, p, n, *, gates="slow", dtype=torch.float32,
         a = -torch.exp(randn(h) * 0.3)
     bb, cc = randn(bs, length, n) * 0.5, randn(bs, length, n) * 0.5
     dy = randn(bs, length, h, p)
+    if inputs == "common":
+        x, dy = x + SCAN_COMMON, dy - dy.mean(-1, keepdim=True)
     return (x.to(dtype), dt, a, bb.to(dtype), cc.to(dtype), dy.to(dtype))
 
 

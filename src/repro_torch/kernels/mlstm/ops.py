@@ -19,7 +19,9 @@ state, or one that reaches the final (c, n, m), raises
 ``launches`` counts forward kernel launches (one per call: the kernel's
 passes, four for float32 and five for bfloat16, run in one C call),
 ``bwd_launches`` backward ones (one per call: its passes run in one C
-call).
+call), and ``bwd_design_launches`` the same calls by the backward's route
+(``bwd_design``): "mma.sync" (bf16, its products on the tensor cores) or
+"fma" (f32, on the CUDA cores).
 """
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ from repro_torch.kernels.mlstm.ref import mlstm_chunked
 
 launches = 0            # forward kernel launches since the last reset
 bwd_launches = 0        # backward kernel launches since the last reset
+BWD_DESIGNS = ("mma.sync", "fma")
+bwd_design_launches = dict.fromkeys(BWD_DESIGNS, 0)     # the same, by route
 
 MAX_CHUNK = 128         # longest chunk the kernel's shared tiles hold
 MAX_HEAD_DIM = 1024     # widest head a block's C tile holds
@@ -57,6 +61,14 @@ def reset_launches() -> None:
     global launches, bwd_launches
     launches = 0
     bwd_launches = 0
+    for name in BWD_DESIGNS:
+        bwd_design_launches[name] = 0
+
+
+def bwd_design(dtype: torch.dtype) -> str:
+    """The backward's route for q's dtype: "mma.sync" for bf16, "fma" for
+    f32 (the C entry picks the same by its dtype)."""
+    return "mma.sync" if dtype == torch.bfloat16 else "fma"
 
 
 def lib():
@@ -205,6 +217,7 @@ def _launch_bwd(q, k, v, logi, logf, dh, chunk: int, binds=None):
     if err != 0:
         raise RuntimeError(f"mlstm: CUDA error {err} at backward launch")
     bwd_launches += 1
+    bwd_design_launches[bwd_design(q.dtype)] += 1
     return grads
 
 

@@ -132,14 +132,19 @@ def floor_share(q, k, v, logi, logf, chunk: int) -> float:
 
 # Planted faults of the backward kernel (csrc/mlstm_bwd.cu) that its checks
 # must catch: the reverse walk drops the carry of (dC, dn) into the chunk
-# before (which the slow forget gates' rows see); and the floor's branch
+# before (which the slow forget gates' rows see); the floor's branch
 # ignored, the gradient sent through den on every row (which the inputs
-# whose floor binds on most rows see).
-BWD_CARRY_FAULT = ("      prev = cr[c] * prev + own;\n",
-                   "      prev = REVERSE ? own : cr[c] * prev + own;\n")
+# whose floor binds on most rows see); and the bf16 route's U = dH C with
+# only C's first bf16 part (the state rounded once; the common-part inputs
+# see it).
+BWD_CARRY_FAULT = ("        prev = cg[k] * prev + own[k];\n",
+                   "        prev = REVERSE ? own[k] : cg[k] * prev + own[k];\n")
 BWD_FLOOR_FAULT = (
     "    const float dden = bind ? 0.f : -sgn * ndh * rinv * rinv;\n",
     "    const float dden = -sgn * ndh * rinv * rinv;\n")
+BWD_ROUND_FAULT = (
+    "Gemm{seq(dh), dd(s.cst), none,",
+    "Gemm{seq(dh), Op{s.cst, 0, D, 1, H * nc * dds, nc * dds, dds, 1}, none,")
 
 # The checks' gates.  logf: "jax" draws -softplus(N(0, 1)) as the JAX kernel
 # test does (about -0.8 a token: nothing outlives a 128-token chunk);
@@ -147,17 +152,22 @@ BWD_FLOOR_FAULT = (
 # sigmoid(N(4.6, 0.1)), about -0.01, so that C and n and their gradients
 # carry over several chunks.  logi: N(-1, 1) ("random"), shifted by -6 for
 # inputs whose floor binds on most rows ("floor": every den is small
-# against exp(-m_comb)).
+# against exp(-m_comb)).  "common": v with a large common part
+# MLSTM_COMMON (the state C's rows then nearly alike) and dh with its mean
+# over hd taken out, so that U = dH C and dH V^T cancel that part and a
+# rounding of C as an operand shows in dq.
 MLSTM_GATES = {"jax": (-1.0, 0.0, 1.0), "model": (1.0, 3.0, 1.0),
                "slow": (1.0, 4.6, 0.1)}
-LOGI_SHIFT = {"random": 0.0, "floor": -6.0}
+LOGI_SHIFT = {"random": 0.0, "floor": -6.0, "common": 0.0}
+MLSTM_COMMON = 16.0
 
 
 def grad_inputs(bs, length, h, hd, *, gates="slow", inputs="random",
                 dtype=torch.float32, seed=0, device="cpu"):
     """(q, k, v, logi, logf, dh) for a check of the mLSTM and its gradient,
     drawn from ``seed``: q, k, v, dh ~ N(0, 1), logi ~ N(-1, 1) + the
-    LOGI_SHIFT of ``inputs``, logf of MLSTM_GATES[gates]."""
+    LOGI_SHIFT of ``inputs``, logf of MLSTM_GATES[gates]; "common" inputs
+    add MLSTM_COMMON to v and take dh's mean over hd out."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape):
@@ -169,4 +179,6 @@ def grad_inputs(bs, length, h, hd, *, gates="slow", inputs="random",
     lf = (-torch.nn.functional.softplus(x) if sign < 0
           else torch.nn.functional.logsigmoid(x))
     dh = randn(bs, length, h, hd)
+    if inputs == "common":
+        v, dh = v + MLSTM_COMMON, dh - dh.mean(-1, keepdim=True)
     return (q.to(dtype), k.to(dtype), v.to(dtype), li, lf, dh.to(dtype))

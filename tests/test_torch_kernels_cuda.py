@@ -1251,11 +1251,11 @@ SCAN_BWD_CASES = [(2, 1024, 80, 64, 64, 64, "model", False),
                   (2, 128, 3, 24, 12, 32, "slow", True)]
 
 
-def _scan_bwd_ok(SO, SR, case, dtype, device):
+def _scan_bwd_ok(SO, SR, case, dtype, device, inputs="random"):
     b, length, h, p, n, chunk, gates, with_ds = case
     x, dtt, a, bb, cc, dy = SR.scan_inputs(
-        b, length, h, p, n, gates=gates, dtype=getattr(torch, dtype),
-        seed=length + h, device=device)
+        b, length, h, p, n, gates=gates, inputs=inputs,
+        dtype=getattr(torch, dtype), seed=length + h, device=device)
     ds = (torch.randn((b, h, p, n), device=device) if with_ds else None)
     got = SO._launch_bwd(x, dtt, a, bb, cc, dy, ds, chunk)
     ref = SR.ssd_chunked_grads(x, dtt, a, bb, cc, chunk, dy, ds)
@@ -1305,6 +1305,35 @@ def test_cuda_mamba_scan_bwd_checks_catch_a_dropped_carry(
             assert not all(ok), (case, dtype, ok)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [SCAN_BWD_CASES[1], SCAN_BWD_CASES[2]])
+def test_cuda_mamba_scan_bwd_keeps_state_precision(cuda_device, case):
+    """bf16 common-part inputs (ref.scan_inputs(inputs="common"): states
+    with a large common part that dY S_in cancels): the tensor-core
+    route, S_in in three bf16 parts, passes."""
+    from repro_torch.kernels.mamba_scan import ops as SO
+    from repro_torch.kernels.mamba_scan import ref as SR
+    ok, share = _scan_bwd_ok(SO, SR, case, "bfloat16", cuda_device,
+                             "common")
+    assert all(ok), ok
+    assert share > 0.1, share
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_bwd_checks_catch_state_rounded_once(
+        cuda_device, tmp_path, monkeypatch):
+    """A copy of mamba_scan_bwd.cu whose dY S_in takes only S_in's first
+    bf16 part (ref.BWD_ROUND_FAULT) fails the common-part cases."""
+    from repro_torch.kernels.mamba_scan import ops as SO
+    from repro_torch.kernels.mamba_scan import ref as SR
+    _mutant_bwd_lib(SO, tmp_path, monkeypatch, "mamba_scan_bwd_round",
+                    *SR.BWD_ROUND_FAULT)
+    for case in SCAN_BWD_CASES[1:3]:
+        ok, _ = _scan_bwd_ok(SO, SR, case, "bfloat16", cuda_device,
+                             "common")
+        assert not all(ok), (case, ok)
+
+
 # mlstm's backward: f32 sums over hd or the chunk in another order (the
 # tolerance scales with each gradient's largest magnitude); bf16 adds one
 # rounding of dq, dk and dv.  xlstm-1.3b's training shape (rank batch 2 x
@@ -1319,6 +1348,9 @@ MLSTM_BWD_CASES = [(2, 512, 4, 1024, 128, "slow", "random"),
 
 
 def _mlstm_bwd_ok(MO, MR, case, dtype, device):
+    """Each gradient's check (``_grads_ok``) and the floor's share; the
+    case's inputs kind is ref.grad_inputs's ("random", "floor",
+    "common")."""
     b, length, h, hd, chunk, gates, inputs = case
     q, k, v, li, lf, dh = MR.grad_inputs(
         b, length, h, hd, gates=gates, inputs=inputs,
@@ -1374,3 +1406,29 @@ def test_cuda_mlstm_bwd_checks_catch_planted_faults(cuda_device, tmp_path,
             ok, _ = _mlstm_bwd_ok(MO, MR, MLSTM_BWD_CASES[i], dtype,
                                   cuda_device)
             assert not all(ok), (MLSTM_BWD_CASES[i], dtype, ok)
+
+
+@pytest.mark.cuda
+def test_cuda_mlstm_bwd_keeps_state_precision(cuda_device):
+    """bf16 common-part inputs (ref.grad_inputs(inputs="common"): states C
+    with a large common part that U = dH C cancels) at xlstm's training
+    shape: the tensor-core products, C as a hi + lo pair, pass."""
+    from repro_torch.kernels.mlstm import ops as MO
+    from repro_torch.kernels.mlstm import ref as MR
+    ok, _ = _mlstm_bwd_ok(MO, MR, (2, 512, 4, 1024, 128, "slow", "common"),
+                          "bfloat16", cuda_device)
+    assert all(ok), ok
+
+
+@pytest.mark.cuda
+def test_cuda_mlstm_bwd_checks_catch_state_rounded_once(
+        cuda_device, tmp_path, monkeypatch):
+    """A copy of mlstm_bwd.cu whose U = dH C takes only C's first bf16 part
+    (ref.BWD_ROUND_FAULT) fails the common-part case."""
+    from repro_torch.kernels.mlstm import ops as MO
+    from repro_torch.kernels.mlstm import ref as MR
+    _mutant_bwd_lib(MO, tmp_path, monkeypatch, "mlstm_bwd_round",
+                    *MR.BWD_ROUND_FAULT)
+    ok, _ = _mlstm_bwd_ok(MO, MR, (2, 512, 4, 1024, 128, "slow", "common"),
+                          "bfloat16", cuda_device)
+    assert not all(ok), ok

@@ -647,12 +647,13 @@ SCAN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SCAN_BWD_NAMES = ("dx", "ddt", "da", "db", "dc")
 
 
-def _scan_bwd_ok(lib, case):
+def _scan_bwd_ok(lib, case, inputs="random"):
     """Whether each gradient of the emulated backward passes
-    SCAN_BWD_TOL, and the slow-gate carry share."""
+    SCAN_BWD_TOL, the slow-gate carry share, and the gradients."""
     b, length, h, p, n, chunk, gates, dtype, with_ds = case
     x, dt, a, bb, cc, dy = SR.scan_inputs(b, length, h, p, n, gates=gates,
-                                          dtype=dtype, seed=length + h)
+                                          inputs=inputs, dtype=dtype,
+                                          seed=length + h)
     ds = (torch.randn((b, h, p, n), generator=torch.Generator()
                       .manual_seed(5)) if with_ds else None)
     q = min(chunk, length)
@@ -664,7 +665,7 @@ def _scan_bwd_ok(lib, case):
                                atol=tol * max(1.0, r.abs().max().item()))
           for name, g, r in zip(SCAN_BWD_NAMES, got, ref)}
     _, s = SR.ssd_chunked(x, dt, a, bb, cc, chunk)
-    return ok, SR.carry_share(x, dt, a, bb, cc, chunk, s)
+    return ok, SR.carry_share(x, dt, a, bb, cc, chunk, s), got
 
 
 SCAN_BWD_CASES = [  # (B, L, H, P, N, chunk, gates, dtype, d s_fin)
@@ -679,23 +680,27 @@ SCAN_BWD_CASES = [  # (B, L, H, P, N, chunk, gates, dtype, d s_fin)
 
 @pytest.mark.parametrize("case", SCAN_BWD_CASES)
 def test_emulated_mamba_scan_bwd_matches_autograd_of_plain(libs, case):
-    ok, share = _scan_bwd_ok(libs["scan_bwd"], case)
+    ok, share, _ = _scan_bwd_ok(libs["scan_bwd"], case)
     assert all(ok.values()), ok
     if case[6] == "slow" and case[1] > case[5]:
         assert share > 0.1, share      # the state carries across chunks
 
 
-def test_emulated_mamba_scan_bwd_checks_catch_a_dropped_carry(libs):
-    """mamba_scan_bwd.cu without the carry of dS into the chunk before
-    (ref.BWD_CARRY_FAULT) fails the slow-gate cases of several chunks, in
-    both dtypes."""
-    old, new = SR.BWD_CARRY_FAULT
+def _scan_bwd_fault_lib(libs, fault, name):
+    old, new = fault
     source = SO._BWD_SOURCE.read_text()
     assert source.count(old) == 1
-    lib = build(source.replace(old, new), SO._SOURCE.parent, libs["out"],
-                "scan_bwd_fault", SO._BWD_SIG)
+    return build(source.replace(old, new), SO._SOURCE.parent, libs["out"],
+                 name, SO._BWD_SIG)
+
+
+def test_emulated_mamba_scan_bwd_checks_catch_a_dropped_carry(libs):
+    """mamba_scan_bwd.cu without the carry of dS into the chunk before
+    (ref.BWD_CARRY_FAULT, both routes' carry_back) fails the slow-gate
+    cases of several chunks, in both dtypes."""
+    lib = _scan_bwd_fault_lib(libs, SR.BWD_CARRY_FAULT, "scan_bwd_fault")
     for case in (SCAN_BWD_CASES[0], SCAN_BWD_CASES[4]):
-        ok, _ = _scan_bwd_ok(lib, case)
+        ok, _, _ = _scan_bwd_ok(lib, case)
         assert not all(ok.values()), (case, ok)
 
 
@@ -710,7 +715,7 @@ MLSTM_BWD_NAMES = ("dq", "dk", "dv", "dlogi", "dlogf")
 
 def _mlstm_bwd_ok(lib, case):
     """Whether each gradient of the emulated backward passes
-    MLSTM_BWD_TOL, and the floor's share of the rows."""
+    MLSTM_BWD_TOL, the floor's share of the rows, and the gradients."""
     b, length, h, hd, chunk, gates, inputs, dtype = case
     q, k, v, li, lf, dh = MR.grad_inputs(b, length, h, hd, gates=gates,
                                          inputs=inputs, dtype=dtype,
@@ -726,7 +731,7 @@ def _mlstm_bwd_ok(lib, case):
           for name, g, r in zip(MLSTM_BWD_NAMES, got, ref)}
     share = MR.floor_share(q, k, v, li, lf, chunk)
     assert abs(binds.mean().item() - share) < 0.02, (binds.mean(), share)
-    return ok, share
+    return ok, share, got
 
 
 MLSTM_BWD_CASES = [  # (B, L, H, hd, chunk, gates, inputs, dtype)
@@ -742,10 +747,18 @@ MLSTM_BWD_CASES = [  # (B, L, H, hd, chunk, gates, inputs, dtype)
 
 @pytest.mark.parametrize("case", MLSTM_BWD_CASES)
 def test_emulated_mlstm_bwd_matches_autograd_of_plain(libs, case):
-    ok, share = _mlstm_bwd_ok(libs["mlstm_bwd"], case)
+    ok, share, _ = _mlstm_bwd_ok(libs["mlstm_bwd"], case)
     assert all(ok.values()), ok
     if case[6] == "floor":
         assert share > 0.5, share      # the floor binds on most rows
+
+
+def _mlstm_bwd_fault_lib(libs, fault, name):
+    old, new = fault
+    source = MO._BWD_SOURCE.read_text()
+    assert source.count(old) == 1
+    return build(source.replace(old, new), MO._SOURCE.parent, libs["out"],
+                 name, MO._BWD_SIG)
 
 
 @pytest.mark.parametrize("fault,cases", [
@@ -756,12 +769,9 @@ def test_emulated_mlstm_bwd_checks_catch_planted_faults(libs, fault, cases):
     (ref.BWD_CARRY_FAULT) fails the slow-gate cases of several chunks;
     with the floor's branch ignored (ref.BWD_FLOOR_FAULT) it fails the
     cases whose floor binds on most rows; both dtypes."""
-    old, new = {"carry": MR.BWD_CARRY_FAULT,
-                "floor": MR.BWD_FLOOR_FAULT}[fault]
-    source = MO._BWD_SOURCE.read_text()
-    assert source.count(old) == 1
-    lib = build(source.replace(old, new), MO._SOURCE.parent, libs["out"],
-                f"mlstm_bwd_{fault}", MO._BWD_SIG)
+    lib = _mlstm_bwd_fault_lib(libs, {"carry": MR.BWD_CARRY_FAULT,
+                                      "floor": MR.BWD_FLOOR_FAULT}[fault],
+                               f"mlstm_bwd_{fault}")
     for case in cases:
-        ok, _ = _mlstm_bwd_ok(lib, case)
+        ok, _, _ = _mlstm_bwd_ok(lib, case)
         assert not all(ok.values()), (case, ok)

@@ -171,3 +171,39 @@ def test_grads_match_jax_grad(b, h, length, p, n, chunk, with_ds, gates):
     if gates == "slow" and length > chunk:      # the carry is in the check
         _, s = TR.ssd_chunked(*tins, chunk)
         assert TR.carry_share(*tins, chunk, s) > 0.1
+
+
+@pytest.mark.parametrize("gates", ["slow", "model"])
+def test_common_part_grads_match_jax_grad(gates):
+    """The backward kernels' common-part inputs (ref.scan_inputs with
+    inputs "common": x around SCAN_COMMON, dy without its mean over P, so
+    the states' common part cancels in dY S_in): the oracle against
+    jax.grad, and the states do share a large common part."""
+    x, dt, a, bb, cc, dy = TR.scan_inputs(1, 192, 2, 16, 8, gates=gates,
+                                          inputs="common", seed=3)
+    ins = tuple(t.numpy() for t in (x, dt, a, bb, cc))
+
+    def loss(*args):
+        y, _ = JS.ssd_chunked(*args, 64)
+        return jnp.sum(y * dy.numpy())
+    jg = jax.grad(loss, argnums=tuple(range(5)))(*map(jnp.asarray, ins))
+    oracle = TR.ssd_chunked_grads(x, dt, a, bb, cc, 64, dy)
+    for name, o, j in zip(GRAD_NAMES, oracle, jg):
+        _grad_close(o, j)
+    _, s = TR.ssd_chunked(x[:, :128], dt[:, :128], a, bb[:, :128],
+                          cc[:, :128], 64)
+    spread = (s - s.mean(2, keepdim=True)).abs().max()
+    assert spread < 0.2 * s.abs().max(), (spread, s.abs().max())
+
+
+@pytest.mark.parametrize("dtype,design", [(torch.bfloat16, "mma.sync"),
+                                          (torch.float32, "fma")])
+def test_bwd_route_is_the_dtypes(dtype, design):
+    """The backward's route, by dtype alone (the C entry picks the same):
+    bf16 chunk-parallel on the tensor cores, f32 the walk on the CUDA
+    cores; reset_launches zeroes its count."""
+    assert TO.bwd_design(dtype) == design and design in TO.BWD_DESIGNS
+    TO.bwd_design_launches[design] += 1
+    TO.reset_launches()
+    assert not any(TO.bwd_design_launches.values())
+    assert TO.bwd_launches == 0

@@ -275,3 +275,38 @@ def test_grads_match_jax_grad(b, h, length, hd, chunk, gates, inputs):
     share = TR.floor_share(*tins, chunk)
     if gates == "slow":
         assert share > 0.5 if inputs == "floor" else share < 0.5, share
+
+
+@pytest.mark.parametrize("gates", ["slow", "model"])
+def test_common_part_grads_match_jax_grad(gates):
+    """The backward kernel's common-part inputs (ref.grad_inputs with
+    inputs "common": v around MLSTM_COMMON, dh without its mean over hd,
+    so the states C's common part cancels in U = dH C): the oracle
+    against jax.grad, and the state's rows do share a large common part."""
+    q, k, v, li, lf, dh = TR.grad_inputs(1, 100, 2, 32, gates=gates,
+                                         inputs="common", seed=4)
+    ins = tuple(t.numpy() for t in (q, k, v, li, lf))
+
+    def loss(*args):
+        out, _ = JX.mlstm_chunked(*args, None, 32)
+        return jnp.sum(out * dh.numpy())
+    jg = jax.grad(loss, argnums=tuple(range(5)))(*map(jnp.asarray, ins))
+    oracle = TR.mlstm_chunked_grads(q, k, v, li, lf, 32, dh)
+    for name, o, j in zip(GRAD_NAMES, oracle, jg):
+        _grad_close(o, j)
+    _, (c, _, _) = TR.mlstm_chunked(q, k, v, li, lf, None, 32)
+    spread = (c - c.mean(2, keepdim=True)).abs().max()
+    assert spread < 0.2 * c.abs().max(), (spread, c.abs().max())
+
+
+@pytest.mark.parametrize("dtype,design", [(torch.bfloat16, "mma.sync"),
+                                          (torch.float32, "fma")])
+def test_bwd_route_is_the_dtypes(dtype, design):
+    """The backward's route, by dtype alone (the C entry picks the same):
+    bf16 products on the tensor cores, f32 on the CUDA cores;
+    reset_launches zeroes its count."""
+    assert TO.bwd_design(dtype) == design and design in TO.BWD_DESIGNS
+    TO.bwd_design_launches[design] += 1
+    TO.reset_launches()
+    assert not any(TO.bwd_design_launches.values())
+    assert TO.bwd_launches == 0
