@@ -44,6 +44,20 @@ non-zero before printing any result):
    frac 0.05, global batch 8 x 1024, 12 steps (``train``: every loss,
    step time p50/p99, tokens/s, peak memory, launches per kernel), times
    one more step's parts (``train-anatomy``) and profiles another.
+   Then the analysis path (slice 15, ``dryrun`` lines): each of
+   ``DRYRUN_CELLS`` (llama3.2-1b's train step at 2 x 1024 under remat
+   and its prefill at 4 x 512, full width and depth; granite-moe-1b-a400m's
+   train step at 4 x 1024, whole; the flash kernels' forward and backward
+   at 2 x 1024) is analysed by ``launch.dryrun.trace`` on the meta device
+   and on fake CUDA tensors (which must agree), every kernel counted by
+   its ``work()``, then run on the card (one warm step, five timed with
+   CUDA events): the kernel calls equal the counters, the predicted peak
+   memory is within 10% of ``max_memory_allocated()``, and no step is
+   faster than its bound (H100 constants).  Each line prints the counted
+   and model FLOPs, HBM bytes, the terms, the bound, the p50, ``mfu`` and
+   ``roofline_fraction``.  A planted analysis that ignores remat must fail
+   the launch gate, one that keeps no lse or f32 output for flash's
+   backward the memory gate.
 6. The data plane (slice 3) over the full-width llama3.2-1b train state
    (params bf16, AdamW moments f32: 12.36 GB).  ``diffsync-check``: fork
    a copy of a state, take one gang step from it to get the child, and
@@ -51,8 +65,8 @@ non-zero before printing any result):
    leaf (op ``sum``, then ``overwrite``): every leaf of 2^20 elements or
    more goes through the diff_merge kernel, bit for bit equal to its
    plain version; the norms and the step take the host path; the
-   overwrite merge has the child's fingerprint.  ``ckpt`` (4 of the 16
-   layers at full width, a 5.06 GB state, for the script's time limit):
+   overwrite merge has the child's fingerprint.  ``ckpt`` (2 of the 16
+   layers at full width, a 3.84 GB state, for the script's time limit):
    the gang runtime (4 ranks, 2 pods, compressed sync at frac 1.0, 4
    steps) run
    once uninterrupted (saving only the state before step 0) and once
@@ -111,7 +125,9 @@ non-zero before printing any result):
    (``profile train_step_moe``).  Then the hybrid and xLSTM families
    (slice 13): zamba2-2.7b whole (2 ranks, 4 x 1024) and xlstm-1.3b cut
    to 16 of its 48 layers (2 ranks, 4 x 512), every mamba_scan and mlstm
-   backward through the tensor-core route, "mma.sync" (slice 14).
+   backward through the tensor-core route, "mma.sync" (slice 14).  Each
+   family's kernel counts must also equal the analysis's calls of one
+   rank's step (``predicted_step_calls``, slice 15) times ranks x steps.
 10. Prints the ``kernels`` JSON line and, last, the device JSON line.
 
 Besides the forward kernel, phase 2 builds the flash-attention backward
@@ -213,20 +229,21 @@ def _time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def _bound(b, h, kv, s, hd, causal, window, dtype_name, esize):
-    """Least time for the attention function on this input: the larger of
-    its bytes over HBM bandwidth and its FLOPs over the dtype's peak."""
-    pairs = 0
-    for qi in range(s):
-        lo = max(0, qi - window + 1) if window else 0
-        hi = qi + 1 if causal else s
-        pairs += hi - lo
-    flops = 4.0 * b * h * pairs * hd
-    nbytes = (2 * b * h * s * hd + 2 * b * kv * s * hd) * esize
+def _roof(flops, nbytes, dtype_name):
+    """(least time in ms, what bounds it): the larger of the bytes over
+    HBM bandwidth and the operations over the dtype's peak."""
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops)
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _bound(b, h, kv, s, hd, causal, window, dtype_name, esize):
+    """Least time for the attention function on this input, from the
+    kernel's ``work`` (flash_attention/ops.py)."""
+    from repro_torch.kernels.flash_attention import ops
+    flops, nbytes = ops.work(b, h, kv, s, hd, causal, window, esize)
+    return (*_roof(flops, nbytes, dtype_name), flops)
 
 
 def check_kernel(torch, fa_ops, fa_ref, F):
@@ -826,10 +843,10 @@ SHARD = 617_907_200        # one full-width shard: 1,235,814,400 / 2 data
 # width, for the script's time limit (at all 16 the phase took 119.9-182.7
 # s, most of it host passes over two 12.36 GB states)
 FABRIC_LAYERS = 4
-# the ckpt phase's depth: 4 of llama3.2-1b's 16 layers at full width
-# (505,956,352 params, a 5.06 GB train state), for the script's time
-# limit (at all 16 the phase took 214-256 s)
-CKPT_LAYERS = 4
+# the ckpt phase's depth: 2 of llama3.2-1b's 16 layers at full width
+# (384,313,344 params, a 3.84 GB train state), for the script's time
+# limit (at all 16 the phase took 214-256 s, at 4 layers 92.9-118.3 s)
+CKPT_LAYERS = 2
 GANG = {"ranks": 4, "pods": 2, "global_batch": 8, "seq_len": 1024,
         "frac": 0.05, "steps": 12, "lr": 1e-3}
 
@@ -1007,7 +1024,7 @@ def check_codec(torch, co, cr):
                             iters=2 if big else 5, warmup=1)
         partial_ms = _time_ms(lambda: torch.max(x.abs(), dim=1),
                               iters=5 if big else 20)
-        nbytes = 8 * k * m + 8 * k
+        nbytes = co.work(k, m)[1]
         row = {"rows": k, "m": m, "bit_exact": exact, "max_abs_err": 0.0
                if exact else None, "ms": ms, "plain_ms": plain_ms,
                "library_ms": None, "nearest_call_ms_partial": partial_ms,
@@ -1064,9 +1081,9 @@ def _dm_same(torch, x, y):
 
 
 def _dm_bytes(n, esize):
-    """Least traffic of one fused pass: a0, b0, b1 read once, a1 written
-    once, one dirty byte per chunk."""
-    return 4 * n * esize + -(-n // 1024)
+    """Least traffic of one fused pass (diff_merge/ops.py ``work``)."""
+    from repro_torch.kernels.diff_merge import ops
+    return ops.work(n, esize)[1]
 
 
 def check_diff_merge(torch, dm, dr):
@@ -1168,15 +1185,10 @@ def check_diff_merge(torch, dm, dr):
 
 
 def _bwd_bound(b, h, kv, s, hd, window, dtype_name, esize):
-    pairs = sum(qi + 1 - (max(0, qi - window + 1) if window else 0)
-                for qi in range(s))
-    flops = 10.0 * b * h * pairs * hd
-    nbytes = (4 * b * h * s * hd + 4 * b * kv * s * hd) * esize \
-        + 4 * b * h * s
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops)
+    """Least time of the causal attention's backward (``bwd_work``)."""
+    from repro_torch.kernels.flash_attention import ops
+    flops, nbytes = ops.bwd_work(b, h, kv, s, hd, True, window, esize)
+    return (*_roof(flops, nbytes, dtype_name), flops)
 
 
 def check_backward(torch, fa_ops, fa_ref, F):
@@ -1504,6 +1516,249 @@ def train(torch, cfg, state_bytes):
     del state, runtime, batch, resid
     torch.cuda.empty_cache()
     return res, launches
+
+
+# The dryrun phase (slice 15): each cell's step analysed on the meta device
+# (launch.dryrun, H100 constants), then run for real: (name, arch, kind,
+# batch, seq).  llama3.2-1b's train step at one rank's batch of the train
+# phase, its prefill at the fixed serving batch, granite's train step at
+# one rank's batch of train-family-moe, and the flash kernels' forward and
+# backward at llama's shape of the train phase (where the saved lse and
+# f32 output are a large share of the peak, so that an analysis that
+# forgets them fails the memory gate).
+DRYRUN_CELLS = [("train", "llama3.2-1b", "train", 2, 1024),
+                ("prefill", "llama3.2-1b", "prefill", 4, 512),
+                ("train_moe", "granite-moe-1b-a400m", "train", 4, 1024),
+                ("flash", "llama3.2-1b", "flash", 2, 1024)]
+DRYRUN_STEPS = 5                   # timed steps, after one warm step
+DRYRUN_MEM_TOL = 0.10              # predicted peak against the measured
+
+
+def _flash_step(q, k, v):
+    """The gradients of q, k, v through the causal flash kernels under a
+    sum loss."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    with torch.enable_grad():
+        ts = [t.detach().requires_grad_() for t in (q, k, v)]
+        loss = fa_ops.flash_attention(*ts).float().sum()
+        return torch.autograd.grad(loss, ts)
+
+
+def dryrun_cell(torch, name, arch, kind, b, s, device, remat=True):
+    """(cfg, step, its meta arguments, a maker of the same arguments on
+    ``device``) of one DRYRUN_CELLS entry."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = get_config(arch).with_(remat=remat)
+    gen = lambda: torch.Generator(device=device).manual_seed(15)
+
+    def tokens():
+        return torch.randint(0, cfg.vocab, (b, s), generator=gen(),
+                             device=device, dtype=torch.int32)
+    if kind == "flash":
+        def make(dev):
+            draw = torch.empty if dev == "meta" else torch.randn
+            return tuple(draw((b, s, h, cfg.hd()), device=dev,
+                              dtype=cfg.torch_dtype())
+                         for h in (cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.n_kv_heads))
+        return cfg, _flash_step, make("meta"), lambda: make(device)
+    mesh = make_host_mesh((1, 1), ("data", "model"))
+    fn, args, _ = dr.build_cell(cfg, ShapeConfig(name, s, b, kind), mesh)
+    if kind == "train":
+        def make():
+            state = model_mod.init_train_state(gen(), cfg, AdamWConfig(),
+                                               device=device)
+            return state, {"tokens": tokens(), "labels": tokens()}
+    else:
+        def make():
+            return (tf.init_params(gen(), cfg, device=device),
+                    {"tokens": tokens()})
+    return cfg, fn, args, make
+
+
+def dryrun_predict(torch, fn, args, kind):
+    """The step's analysis on the meta device (card routes)."""
+    from repro_torch.launch import dryrun as dr
+    return dr.trace(fn, args, kind != "prefill")
+
+
+def dryrun_predict_fake(torch, fn, meta_args, kind):
+    """The same analysis on fake CUDA tensors (a CUDA build of PyTorch
+    traces their backward; a CPU-only one cannot)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.weights import tree_map
+    with FakeTensorMode():
+        args = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device="cuda")
+                        if isinstance(t, torch.Tensor) else t, meta_args)
+        return dr.trace(fn, args, kind != "prefill")
+
+
+def _planted_no_lse(torch, fa_ops):
+    """A planted analysis fault: flash's forward route that keeps neither
+    the lse nor the f32 output for the backward (patches for
+    ``mock.patch.multiple(fa_ops, **...)``)."""
+    from repro_torch.kernels import analysis
+    launch, launch_bwd = fa_ops._launch, fa_ops._launch_bwd
+
+    def fwd(qt, kt, vt, *, causal, window, scale, with_lse=False):
+        out = launch(qt, kt, vt, causal=causal, window=window, scale=scale)
+        return (out, None, None) if with_lse else out
+
+    def bwd(qt, kt, vt, o32, lse, dout, *, causal, window, scale):
+        if not analysis.traced(qt):
+            return launch_bwd(qt, kt, vt, o32, lse, dout, causal=causal,
+                              window=window, scale=scale)
+        b, h, s, hd = qt.shape
+        grads = tuple(torch.empty_like(t) for t in (qt, kt, vt))
+        torch.empty((b, h, s), dtype=torch.float32, device=qt.device)
+        analysis.record("flash_attention_bwd", fa_ops.bwd_work(
+            b, h, kt.shape[1], s, hd, causal, window, qt.element_size()),
+            (qt, kt, vt, dout), grads)
+        return grads
+    return {"_launch": fwd, "_launch_bwd": bwd}
+
+
+def dryrun_phase(torch, mods):
+    """Slice 15: the analysis path (``launch.dryrun``: the step traced on
+    the meta device, every kernel counted by its ``work()``) held against
+    the same steps run on the card: predicted kernel calls equal the
+    counters, predicted peak memory within DRYRUN_MEM_TOL of
+    ``max_memory_allocated()``, and no step faster than its bound.  A
+    planted analysis that ignores remat must fail the launch gate, one
+    that forgets flash's saved lse and o32 the memory gate."""
+    import ctypes
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mlstm import ops as ml_ops
+    from repro_torch.launch import dryrun as dr
+
+    # the mlstm backward's scratch, as its analysis route sizes it
+    for shape in ((2, 512, 4, 1024, 128), (1, 300, 4, 1024, 128),
+                  (2, 1000, 4, 64, 64)):
+        floats = ctypes.c_longlong()
+        ml_ops.bwd_lib().ml_bwd_scratch_floats(*shape,
+                                               ctypes.addressof(floats))
+        assert floats.value == ml_ops.bwd_scratch_floats(*shape), shape
+
+    card = _sh(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"])
+    rows = []
+    for name, arch, kind, b, s in DRYRUN_CELLS:
+        cfg, fn, meta_args, make = dryrun_cell(torch, name, arch, kind, b,
+                                               s, "cuda")
+        t0 = time.perf_counter()
+        pred = dryrun_predict(torch, fn, meta_args, kind)
+        trace_s = time.perf_counter() - t0
+        fake = dryrun_predict_fake(torch, fn, meta_args, kind)
+        same_fake = all(fake[k] == pred[k] for k in (
+            "kernels", "flops", "hbm_bytes", "peak_bytes"))
+        faults = {}
+        if name == "train":
+            _, fn_nr, args_nr, _ = dryrun_cell(
+                torch, name, arch, kind, b, s, "cuda", remat=False)
+            faults["no_remat"] = dryrun_predict(torch, fn_nr, args_nr, kind)
+        if name == "flash":
+            with mock.patch.multiple(fa_ops,
+                                     **_planted_no_lse(torch, fa_ops)):
+                faults["no_lse"] = dryrun_predict(torch, fn, meta_args, kind)
+        del meta_args
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        args = make()
+        grad = kind != "prefill"
+
+        def step():
+            with torch.set_grad_enabled(grad):
+                fn(*args)
+        step()                                  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod, attr in mods.values():
+            setattr(mod, attr, 0)
+        times = []
+        for _ in range(DRYRUN_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            step()
+            ev[1].record()
+            torch.cuda.synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        calls = {k: getattr(mod, attr) for k, (mod, attr) in mods.items()}
+        peak = torch.cuda.max_memory_allocated() - base
+        del args
+        torch.cuda.empty_cache()
+
+        def gates(p):
+            want = {k: p["kernels"].get(k, {}).get("calls", 0) * DRYRUN_STEPS
+                    for k in mods}
+            mem_err = (p["peak_bytes"] - peak) / peak
+            return want == calls, abs(mem_err) <= DRYRUN_MEM_TOL, mem_err
+        launches_ok, mem_ok, mem_err = gates(pred)
+        p50 = sorted(times)[len(times) // 2]
+        bound_s = max(pred["flops"] / dr.PEAK_FLOPS,
+                      pred["hbm_bytes"] / dr.HBM_BW)
+        row = {"cell": name, "arch": arch, "kind": kind, "B": b, "S": s,
+               "layers": cfg.n_layers, "remat": cfg.remat,
+               "flops": pred["flops"], "kernel_flops": pred["kernel_flops"],
+               "hbm_bytes": pred["hbm_bytes"],
+               "terms_ms": {"compute": pred["flops"] / dr.PEAK_FLOPS * 1e3,
+                            "memory": pred["hbm_bytes"] / dr.HBM_BW * 1e3,
+                            "collective": 0.0},
+               "bound_ms": bound_s * 1e3, "p50_ms": p50, "ms": times,
+               "pred_calls": {k: v["calls"] for k, v in
+                              pred["kernels"].items()},
+               "pred_launches": {k: v["launches"] for k, v in
+                                 pred["kernels"].items()},
+               "calls": calls, "steps": DRYRUN_STEPS,
+               "pred_peak_gb": pred["peak_bytes"] / 1e9,
+               "meas_peak_gb": peak / 1e9, "mem_err": mem_err,
+               "launches_ok": launches_ok, "mem_ok": mem_ok,
+               "bound_ok": p50 * 1e-3 >= bound_s, "trace_s": trace_s,
+               "fake_cuda_equal": same_fake,
+               "fake_cuda": {k: fake[k] == pred[k] for k in (
+                   "kernels", "flops", "hbm_bytes", "peak_bytes")},
+               "fake_cuda_hbm_bytes": fake["hbm_bytes"],
+               "fake_cuda_flops": fake["flops"],
+               "fake_cuda_kernels": fake["kernels"],
+               "card": card}
+        if kind != "flash":
+            shape = ShapeConfig(name, s, b, kind)
+            rl = dr.roofline({"flops": pred["flops"]},
+                             {"hbm_bytes": pred["hbm_bytes"],
+                              "collective_bytes": 0}, cfg, shape, 1)
+            row.update(model_flops=rl["model_flops"],
+                       mfu=rl["model_flops"] / (p50 * 1e-3 * dr.PEAK_FLOPS),
+                       roofline_fraction=rl["roofline_fraction"],
+                       bottleneck=rl["bottleneck"])
+        for fault, p in faults.items():
+            f_launch, f_mem, f_err = gates(p)
+            row[f"fault_{fault}"] = {"launches_ok": f_launch, "mem_ok": f_mem,
+                                     "mem_err": f_err}
+        print(f"dryrun {json.dumps(row)}", flush=True)
+        rows.append(row)
+    bad = [r for r in rows if not (r["launches_ok"] and r["mem_ok"]
+                                   and r["bound_ok"]
+                                   and r["fake_cuda_equal"])]
+    assert not bad, bad
+    train_row = next(r for r in rows if r["cell"] == "train")
+    flash_row = next(r for r in rows if r["cell"] == "flash")
+    assert not train_row["fault_no_remat"]["launches_ok"], train_row
+    assert not flash_row["fault_no_lse"]["mem_ok"], flash_row
+    return rows
 
 
 def state_nbytes(cfg):
@@ -2101,15 +2356,11 @@ def _gmm_bound(e, m, d, ff, act, dtype_name, esize):
     """Least time of the expert FFN on this input: the larger of its bytes
     (x and the weights read once, y written once) over HBM bandwidth and
     its operations over the peak of the inputs' type; also the operations
-    over the f32 CUDA-core peak, on which the kernel runs them."""
-    n_w = 3 if act == "silu" else 2
-    flops = 2.0 * e * m * d * ff * n_w
-    nbytes = (2 * e * m * d + n_w * e * d * ff) * esize
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes,
-            max(flops / PEAK_FLOPS["float32"], t_bytes) * 1e3)
+    over the f32 CUDA-core peak (moe_gmm/ops.py ``work``)."""
+    from repro_torch.kernels.moe_gmm import ops
+    flops, nbytes = ops.work(e, m, d, ff, act, esize)
+    return (*_roof(flops, nbytes, dtype_name), flops, nbytes,
+            _roof(flops, nbytes, "float32")[0])
 
 
 # moe_gmm's checked cases (M, act, dtype, inputs) per config.  granite: M
@@ -2241,14 +2492,10 @@ def _gmm_bwd_bound(e, m, d, ff, act, dtype_name, esize):
     bytes (x, dy and the weights read once; dx and the weight gradients
     written once) over HBM bandwidth and its operations (8 products of
     2 E M d ff for SwiGLU, 5 for gelu) over the peak of the inputs'
-    type."""
-    n_w = 3 if act == "silu" else 2
-    flops = 2.0 * e * m * d * ff * (8 if act == "silu" else 5)
-    nbytes = (3 * e * m * d + 2 * n_w * e * d * ff) * esize
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    type (moe_gmm/ops.py ``bwd_work``)."""
+    from repro_torch.kernels.moe_gmm import ops
+    flops, nbytes = ops.bwd_work(e, m, d, ff, act, esize)
+    return (*_roof(flops, nbytes, dtype_name), flops, nbytes)
 
 
 def _max_errs(got, ref):
@@ -2393,18 +2640,12 @@ def _scan_bound(b, length, h, p, n, q, esize, dtype_name):
     over HBM bandwidth and its operations over the peak of the inputs'
     type: C B^T once per (batch, chunk) over the causal pairs, the masked
     (q x q) product per head, and the y_inter and state products per
-    head.  Also the operations over the f32 CUDA-core peak."""
-    nc = length // q
-    pairs = q * (q + 1) // 2
-    flops = 2.0 * b * nc * pairs * n \
-        + 2.0 * b * h * nc * (pairs * p + 2 * q * n * p)
-    nbytes = (2 * b * length * h * p + 2 * b * length * n) * esize \
-        + 4 * (b * length * h + h + b * h * p * n)
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes,
-            max(flops / PEAK_FLOPS["float32"], t_bytes) * 1e3)
+    head.  Also the operations over the f32 CUDA-core peak
+    (mamba_scan/ops.py ``work``)."""
+    from repro_torch.kernels.mamba_scan import ops
+    flops, nbytes = ops.work(b, length, h, p, n, q, esize)
+    return (*_roof(flops, nbytes, dtype_name), flops, nbytes,
+            _roof(flops, nbytes, "float32")[0])
 
 
 # The scan's gates (the tests' SCAN_GATES): "model" is the model's own
@@ -2545,21 +2786,11 @@ def _mlstm_bound(b, length, h, hd, q, state, esize, dtype_name):
     the C update over c hd^2 (Q C^T and q . n not in the first chunk
     when the state is zero), the n update and q . n over c hd.  Also the
     operations over the f32 CUDA-core peak, on which the kernel runs
-    them."""
-    flops = 0.0
-    for ci, l0 in enumerate(range(0, length, q)):
-        c = min(q, length - l0)
-        inter = 1 if (state or ci > 0) else 0
-        flops += 4.0 * hd * c * (c + 1) / 2 + 2.0 * c * hd * hd * (1 + inter) \
-            + 2.0 * c * hd * (1 + inter)
-    flops *= b * h
-    nbytes = 4 * b * length * h * hd * esize + 2 * 4 * b * length * h \
-        + 4 * b * h * (hd * hd + hd + 1) * (2 if state else 1)
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes,
-            max(flops / PEAK_FLOPS["float32"], t_bytes) * 1e3)
+    them (mlstm/ops.py ``work``)."""
+    from repro_torch.kernels.mlstm import ops
+    flops, nbytes = ops.work(b, length, h, hd, q, bool(state), esize)
+    return (*_roof(flops, nbytes, dtype_name), flops, nbytes,
+            _roof(flops, nbytes, "float32")[0])
 
 
 def check_mlstm(torch, cfg):
@@ -2684,18 +2915,11 @@ def _scan_bwd_bound(b, length, h, p, n, q, esize, dtype_name):
     head dY X^T, M1^T dY over the pairs and M2^T C, M2 B over the pairs,
     and the four q P N products of the state (dS B, X dS, dY S_in, the dS
     update).  Also the operations over the f32 CUDA-core peak, on which
-    the kernel runs them."""
-    nc = length // q
-    pairs = q * (q + 1) // 2
-    flops = 2.0 * b * nc * pairs * n \
-        + 2.0 * b * h * nc * (2 * pairs * p + 2 * pairs * n + 4 * q * p * n)
-    nbytes = (3 * b * length * h * p + 4 * b * length * n) * esize \
-        + 4 * 2 * (b * length * h + h)
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes,
-            max(flops / PEAK_FLOPS["float32"], t_bytes) * 1e3)
+    the kernel runs them (mamba_scan/ops.py ``bwd_work``)."""
+    from repro_torch.kernels.mamba_scan import ops
+    flops, nbytes = ops.bwd_work(b, length, h, p, n, q, esize)
+    return (*_roof(flops, nbytes, dtype_name), flops, nbytes,
+            _roof(flops, nbytes, "float32")[0])
 
 
 def check_mamba_scan_bwd(torch, cfg, b=2, length=1024):
@@ -2809,21 +3033,11 @@ def _mlstm_bwd_bound(b, length, h, hd, q, esize, dtype_name):
     where a state enters it (not the first chunk); dC k and dC^T v over c
     hd^2 where a gradient leaves it (not the last); the states C over c
     hd^2 (not the last).  Also the operations over the f32 CUDA-core
-    peak, on which the kernel runs them."""
-    flops = 0.0
-    starts = list(range(0, length, q))
-    for ci, l0 in enumerate(starts):
-        c = min(q, length - l0)
-        first, last = ci == 0, ci == len(starts) - 1
-        flops += 5 * 2.0 * hd * c * (c + 1) / 2 \
-            + 2.0 * c * hd * hd * ((0 if first else 2) + (0 if last else 3))
-    flops *= b * h
-    nbytes = 7 * b * length * h * hd * esize + 4 * 4 * b * length * h
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes,
-            max(flops / PEAK_FLOPS["float32"], t_bytes) * 1e3)
+    peak, on which the kernel runs them (mlstm/ops.py ``bwd_work``)."""
+    from repro_torch.kernels.mlstm import ops
+    flops, nbytes = ops.bwd_work(b, length, h, hd, q, esize)
+    return (*_roof(flops, nbytes, dtype_name), flops, nbytes,
+            _roof(flops, nbytes, "float32")[0])
 
 
 def check_mlstm_bwd(torch, cfg, b=2, length=512):
@@ -3015,7 +3229,9 @@ def draw_gates(torch, cfg, params, seed=5):
 PHI_LAYERS = 8
 # xlstm-1.3b at full width, cut in depth for the script's time limit: 2
 # of its 6 periods (1 sLSTM + 7 mLSTM each), 16 of 48 layers; its sLSTM
-# token loop made the family 156-189 s of the phases at full depth.
+# token loop made the family 156-189 s of the phases at full depth.  (At
+# 8 layers its step-0 gradient check fails: an mLSTM forget-gate bias
+# leaf of the bf16 kernel path is 1.33x the plain bf16 path's error.)
 XLSTM_LAYERS = 16
 # (arch, line tag, token_loop, layers or None, the cut or None)
 FAMILIES = [
@@ -3279,6 +3495,18 @@ def family_grad_check(torch, cfg, dcfg, ranks):
     return res
 
 
+def predicted_step_calls(cfg, batch, seq):
+    """Kernel calls of one rank's training step by the analysis
+    (``launch.dryrun.measure``: the step traced on the meta device at 1
+    and 2 periods, the difference method), at no more than 32 tokens
+    for the xLSTM family (its calls do not depend on the length)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as dr
+    s = min(seq, 32) if cfg.family == "ssm" else seq
+    m = dr.measure(cfg, ShapeConfig("rank", s, batch, "train"), batch)
+    return {k: round(v["calls"]) for k, v in m["kernels"].items()}
+
+
 def train_families(torch, counters, phase_time):
     """Phase 9: ``FaabricTrainRuntime`` trains each of TRAIN_FAMILIES from
     seeded random weights (the vision model's cross-attention gates drawn,
@@ -3365,6 +3593,9 @@ def train_families(torch, counters, phase_time):
                       mamba_scan=fwd * n_mamba * per,
                       mamba_scan_bwd=n_mamba * per,
                       mlstm=fwd * n_mlstm * per, mlstm_bwd=n_mlstm * per)
+        predicted = dict.fromkeys(counters, 0)
+        predicted.update({k: n * per for k, n in predicted_step_calls(
+            cfg, gb // ranks, seq).items()})
         losses = out["losses"]
         times = [e["time"] for e in out["log"]]
         warm = sorted(times[1:])
@@ -3385,6 +3616,7 @@ def train_families(torch, counters, phase_time):
                "tokens_per_s_warm": gb * seq / p50,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                "launches": launches, "expected_launches": expect,
+               "predicted_launches": predicted,
                "bwd_by_design": designs,
                "host_rss_gb": _host_rss_gb()}
         print(f"train-family-{tag} {json.dumps(res)}", flush=True)
@@ -3408,7 +3640,8 @@ def train_families(torch, counters, phase_time):
         torch.cuda.empty_cache()
         assert all(math.isfinite(x) for x in losses), res
         assert losses[-1] < losses[0], res
-        assert launches == expect, (launches, expect)
+        assert launches == expect == predicted, (launches, expect,
+                                                 predicted)
         assert designs["moe_gmm_bwd"]["wgmma"] == expect["moe_gmm_bwd"], \
             designs
         for name in ("mamba_scan_bwd", "mlstm_bwd"):
@@ -3552,6 +3785,10 @@ def main() -> int:
             "mlstm": (ml_ops, "launches"),
             "mlstm_bwd": (ml_ops, "bwd_launches")}
     plane = dict.fromkeys(mods, 0)
+
+    # 5b. the analysis path (slice 15) against real steps
+    dryrun_phase(torch, mods)
+    phase_time("dryrun")
 
     def counted(path):
         for mod, attr in mods.values():

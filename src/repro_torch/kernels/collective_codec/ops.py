@@ -38,6 +38,13 @@ def reset_launches() -> None:
     launches = 0
 
 
+def work(rows: int, m: int) -> tuple:
+    """(flops, bytes) of one launch on a (rows, m) f32 shard: x read and
+    the residual written once (4 bytes each), a value and an int32 column
+    written per row; no floating-point products."""
+    return 0.0, 8 * rows * m + 8 * rows
+
+
 def lib():
     from repro_torch.kernels import _build
     return _build.load("collective_codec", _SOURCE, _SIG)

@@ -35,6 +35,13 @@ def reset_launches() -> None:
     launches = 0
 
 
+def work(n: int, esize: int) -> tuple:
+    """(flops, bytes) of one fused pass over a leaf of n ``esize``-byte
+    elements: a0, b0, b1 read once, a1 written once, one dirty byte per
+    chunk; no floating-point products counted."""
+    return 0.0, 4 * n * esize + -(-n // CHUNK)
+
+
 def lib():
     from repro_torch.kernels import _build
     return _build.load("diff_merge", _SOURCE, _SIG)

@@ -15,6 +15,9 @@ gradient is wanted, the forward kernel also writes the per-row log-sum-exp
 ``torch.autograd.Function`` runs the backward kernel
 (``csrc/flash_attention_bwd.cu``); serving (no gradient) skips both.
 ``launches`` counts forward launches, ``bwd_launches`` backward ones.
+A tensor that holds no data and stands for the card's
+(``kernels.analysis``) takes the kernels' route up to the launch, and is
+counted by ``work`` / ``bwd_work`` in place of it.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import analysis
 from repro_torch.kernels.flash_attention import ref as _ref
 
 launches = 0            # forward kernel launches since the last reset
@@ -45,6 +49,25 @@ def reset_launches() -> None:
     bwd_launches = 0
 
 
+def work(b: int, h: int, kv: int, s: int, hd: int, causal: bool,
+         window: int, esize: int) -> tuple:
+    """(flops, bytes) of the forward on (B,H,S,hd) q over (B,KV,S,hd) k, v
+    of ``esize``-byte elements: 4 hd operations per scored pair and head;
+    q, k, v read once and the output written once."""
+    flops = 4.0 * b * h * analysis.pairs(s, causal, window) * hd
+    return flops, (2 * b * h * s * hd + 2 * b * kv * s * hd) * esize
+
+
+def bwd_work(b: int, h: int, kv: int, s: int, hd: int, causal: bool,
+             window: int, esize: int) -> tuple:
+    """(flops, bytes) of the backward: 10 hd operations per scored pair
+    and head (S, dP, dV, dQ, dK); q, k, v, o, dO read and dq, dk, dv
+    written once in ``esize`` bytes, the f32 lse read once."""
+    flops = 10.0 * b * h * analysis.pairs(s, causal, window) * hd
+    return flops, ((4 * b * h * s * hd + 4 * b * kv * s * hd) * esize
+                   + 4 * b * h * s)
+
+
 def fwd_lib():
     from repro_torch.kernels import _build
     return _build.load("flash_attention", _CSRC / "flash_attention.cu",
@@ -58,13 +81,14 @@ def bwd_lib():
 
 
 def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
-    if not t.is_cuda or t.device != like.device:
+    if not analysis.on_card(t) or t.device != like.device:
         raise ValueError(f"flash_attention: {name} must be on "
                          f"{like.device}, got {t.device}")
     if t.dtype != like.dtype or t.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: {name} dtype {t.dtype}; "
                         "need float32 or bfloat16, all alike")
-    if not t.is_contiguous() or t.data_ptr() % 16:
+    if not t.is_contiguous() or (not analysis.traced(t)
+                                 and t.data_ptr() % 16):
         raise ValueError(f"flash_attention: {name} must be contiguous "
                          "and 16-byte aligned")
 
@@ -101,6 +125,13 @@ def _launch(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, *,
            if with_lse else None)
     o32 = (torch.empty(out.shape, dtype=torch.float32, device=qt.device)
            if with_lse and qt.dtype != torch.float32 else None)
+    if analysis.traced(qt):
+        analysis.record("flash_attention",
+                        work(b, h, kt.shape[1], s, hd, causal, window,
+                             qt.element_size()),
+                        (qt, kt, vt), [t for t in (out, o32, lse)
+                                       if t is not None])
+        return (out, lse, out if o32 is None else o32) if with_lse else out
     lib = fwd_lib()
     stream = torch.cuda.current_stream(qt.device).cuda_stream
     with torch.cuda.device(qt.device):
@@ -142,6 +173,12 @@ def _launch_bwd(qt, kt, vt, o32, lse, dout, *, causal: bool, window: int,
     dk = torch.empty_like(kt)
     dv = torch.empty_like(vt)
     scratch = torch.empty((b, h, s), dtype=torch.float32, device=qt.device)
+    if analysis.traced(qt):
+        analysis.record("flash_attention_bwd",
+                        bwd_work(b, h, kt.shape[1], s, hd, causal, window,
+                                 qt.element_size()),
+                        (qt, kt, vt, o32, lse, dout), (dq, dk, dv))
+        return dq, dk, dv
     lib = bwd_lib()
     stream = torch.cuda.current_stream(qt.device).cuda_stream
     with torch.cuda.device(qt.device):
@@ -190,7 +227,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         qt, kt, vt = (torch.nn.functional.pad(x, (0, pad))
                       for x in (qt, kt, vt))
     scale = hd ** -0.5                      # unpadded head dim
-    if not q.is_cuda:
+    if not analysis.on_card(q):
         out = _ref.attention_ref(qt, kt, vt, causal=causal, window=window,
                                  scale=scale)
     elif torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):

@@ -15,7 +15,9 @@ backward is the kernel ``csrc/mamba_scan_bwd.cu`` (P <= 64).
 passes run in one C call), ``bwd_launches`` backward ones (one per call:
 its passes run in one C call), and ``bwd_design_launches`` the same calls
 by the backward's route (``bwd_design``): "mma.sync" (bf16, chunk-parallel
-on the tensor cores) or "fma" (f32, the walk on the CUDA cores).
+on the tensor cores) or "fma" (f32, the walk on the CUDA cores).  A tensor that holds no data and stands for the
+card's (``kernels.analysis``) takes the kernel route up to the launch,
+and is counted by ``work`` / ``bwd_work`` in place of it.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import analysis
 from repro_torch.kernels.mamba_scan.ref import chunk_len, ssd_chunked
 
 launches = 0            # forward kernel launches since the last reset
@@ -59,6 +62,36 @@ def bwd_design(dtype: torch.dtype) -> str:
     return "mma.sync" if dtype == torch.bfloat16 else "fma"
 
 
+def work(b: int, length: int, h: int, p: int, n: int, q: int,
+         esize: int) -> tuple:
+    """(flops, bytes) of the chunked scan on x (B,L,H,P) and b, c (B,L,N)
+    of ``esize``-byte elements in chunks of q: C B^T once per (batch,
+    chunk) over the causal pairs, the masked (q x q) product per head, and
+    the y_inter and state products per head; x, b, c and the f32 dt, a
+    read once, y and the f32 final state written once."""
+    nc = length // q
+    pairs = q * (q + 1) // 2
+    flops = 2.0 * b * nc * pairs * n \
+        + 2.0 * b * h * nc * (pairs * p + 2 * q * n * p)
+    return flops, ((2 * b * length * h * p + 2 * b * length * n) * esize
+                   + 4 * (b * length * h + h + b * h * p * n))
+
+
+def bwd_work(b: int, length: int, h: int, p: int, n: int, q: int,
+             esize: int) -> tuple:
+    """(flops, bytes) of the scan's backward: per (batch, chunk) C B^T
+    over the causal pairs, and per head dY X^T, M1^T dY over the pairs and
+    M2^T C, M2 B over the pairs, and the four q P N products of the state
+    (dS B, X dS, dY S_in, the dS update); x, dy, b, c, dt and a read once,
+    dx, db, dc, ddt and da written once."""
+    nc = length // q
+    pairs = q * (q + 1) // 2
+    flops = 2.0 * b * nc * pairs * n \
+        + 2.0 * b * h * nc * (2 * pairs * p + 2 * pairs * n + 4 * q * p * n)
+    return flops, ((3 * b * length * h * p + 4 * b * length * n) * esize
+                   + 4 * 2 * (b * length * h + h))
+
+
 def lib():
     from repro_torch.kernels import _build
     return _build.load("mamba_scan", _SOURCE, _SIG)
@@ -82,6 +115,19 @@ def _check_shapes(x, dt, a, b, c):
                          f"{tuple(b.shape)} c {tuple(c.shape)}")
 
 
+def _outputs(x, b, q: int):
+    """y, the f32 final state and, for bf16, the f32 scratch of a call."""
+    bs, length, h, p = x.shape
+    y = torch.empty_like(x)
+    s_fin = torch.empty((bs, h, p, b.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+    scratch = None
+    if x.dtype == torch.bfloat16:
+        scratch = torch.empty(scratch_floats(bs, length, h, q),
+                              dtype=torch.float32, device=x.device)
+    return y, s_fin, scratch
+
+
 def scratch_floats(bs: int, length: int, h: int, q: int) -> int:
     """f32 scratch of the bf16 route (``csrc/mamba_scan.cu``,
     ``launch_bf16``): C B^T (B, L/q, 64, 64) and cum (B, L/q, H, 64)."""
@@ -92,14 +138,9 @@ def call(handle, x, dt, a, b, c, q: int, stream):
     """``handle.ms_ssd`` on checked, contiguous tensors of one device, with
     the outputs and, for bf16, the scratch allocated there: (its return
     code, y, the final state)."""
+    y, s_fin, scratch = _outputs(x, b, q)
     bs, length, h, p = x.shape
     n = b.shape[-1]
-    y = torch.empty_like(x)
-    s_fin = torch.empty((bs, h, p, n), dtype=torch.float32, device=x.device)
-    scratch = None
-    if x.dtype == torch.bfloat16:
-        scratch = torch.empty(scratch_floats(bs, length, h, q),
-                              dtype=torch.float32, device=x.device)
     err = handle.ms_ssd(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                         b.data_ptr(), c.data_ptr(), y.data_ptr(),
                         s_fin.data_ptr(), None if scratch is None
@@ -120,6 +161,16 @@ def bwd_scratch_floats(bs: int, length: int, h: int, p: int, n: int,
             + bs * h * (2 * nc * p * n + 2 * length * n + nc))
 
 
+def _bwd_outputs(x, dt, a, b, c, q: int):
+    """(dx, ddt, da, db, dc) and the f32 scratch of a backward call."""
+    bs, length, h, p = x.shape
+    grads = tuple(torch.empty_like(t) for t in (x, dt, a, b, c))
+    scratch = torch.empty(bwd_scratch_floats(bs, length, h, p, b.shape[-1],
+                                             q),
+                          dtype=torch.float32, device=x.device)
+    return grads, scratch
+
+
 def call_bwd(handle, x, dt, a, b, c, dy, ds_fin, q: int, stream):
     """``handle.msb_ssd_bwd`` on checked, contiguous tensors of one device
     (``ds_fin`` may be None: a zero gradient of the final state), with the
@@ -127,10 +178,7 @@ def call_bwd(handle, x, dt, a, b, c, dy, ds_fin, q: int, stream):
     ddt, da, db, dc))."""
     bs, length, h, p = x.shape
     n = b.shape[-1]
-    dx, db, dc = (torch.empty_like(t) for t in (x, b, c))
-    ddt, da = torch.empty_like(dt), torch.empty_like(a)
-    scratch = torch.empty(bwd_scratch_floats(bs, length, h, p, n, q),
-                          dtype=torch.float32, device=x.device)
+    (dx, ddt, da, db, dc), scratch = _bwd_outputs(x, dt, a, b, c, q)
     err = handle.msb_ssd_bwd(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
         c.data_ptr(), dy.data_ptr(),
@@ -142,7 +190,7 @@ def call_bwd(handle, x, dt, a, b, c, dy, ds_fin, q: int, stream):
 
 def _check_cuda(x, dt, a, b, c):
     ts = (x, dt, a, b, c)
-    if not all(t.is_cuda and t.device == x.device for t in ts):
+    if not all(analysis.on_card(t) and t.device == x.device for t in ts):
         raise TypeError("mamba_scan: x, dt, a, b and c must be on one CUDA "
                         "device")
     if (x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype
@@ -167,6 +215,12 @@ def _launch(x, dt, a, b, c, chunk: int):
         raise ValueError(f"mamba_scan: B {bs}, H {h}, P {p}, N {n}, chunk "
                          f"{q}; need N <= {MAX_STATE} and chunk <= "
                          f"{MAX_CHUNK}")
+    if analysis.traced(x):
+        y, s_fin, _ = _outputs(x, b, q)
+        analysis.record("mamba_scan",
+                        work(bs, length, h, p, n, q, x.element_size()),
+                        (x, dt, a, b, c), (y, s_fin))
+        return y, s_fin
     handle = lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
@@ -201,6 +255,12 @@ def _launch_bwd(x, dt, a, b, c, dy, ds_fin, chunk: int):
         raise ValueError(f"mamba_scan: backward of P {p}, N {n}, chunk {q}; "
                          f"need P <= {MAX_BWD_HEAD}, N <= {MAX_STATE} and "
                          f"chunk <= {MAX_CHUNK}")
+    if analysis.traced(x):
+        grads, _ = _bwd_outputs(x, dt, a, b, c, q)
+        analysis.record("mamba_scan_bwd",
+                        bwd_work(bs, length, h, p, n, q, x.element_size()),
+                        (x, dt, a, b, c, dy), grads)
+        return grads
     handle = bwd_lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
@@ -245,7 +305,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     the kernel on CUDA tensors (with the backward kernel as its gradient
     where an input wants one), the plain version on CPU ones."""
     _check_shapes(x, dt, a, b, c)
-    if x.is_cuda:
+    if analysis.on_card(x):
         ts = (x.contiguous(), dt.float().contiguous(),
               a.float().contiguous(), b.contiguous(), c.contiguous())
         if torch.is_grad_enabled() and any(t.requires_grad for t in ts):

@@ -21,7 +21,9 @@ passes, four for float32 and five for bfloat16, run in one C call),
 ``bwd_launches`` backward ones (one per call: its passes run in one C
 call), and ``bwd_design_launches`` the same calls by the backward's route
 (``bwd_design``): "mma.sync" (bf16, its products on the tensor cores) or
-"fma" (f32, on the CUDA cores).
+"fma" (f32, on the CUDA cores).  A tensor that holds no data and stands
+for the card's (``kernels.analysis``) takes the kernel route up to the
+launch, and is counted by ``work`` / ``bwd_work`` in place of it.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import analysis
 from repro_torch.kernels.mlstm.ref import mlstm_chunked
 
 launches = 0            # forward kernel launches since the last reset
@@ -71,6 +74,59 @@ def bwd_design(dtype: torch.dtype) -> str:
     return "mma.sync" if dtype == torch.bfloat16 else "fma"
 
 
+def work(b: int, length: int, h: int, hd: int, q: int, state: bool,
+         esize: int) -> tuple:
+    """(flops, bytes) of the chunked mLSTM on q, k, v (B,L,H,hd) of
+    ``esize``-byte elements in chunks of q: per (b, h) and chunk of c
+    tokens, S and S V over the c (c + 1) / 2 causal pairs, Q C^T and the
+    C update over c hd^2 (Q C^T and q . n not in the first chunk when the
+    state is zero), the n update and q . n over c hd.  q, k, v and the
+    f32 gates read once, h and the f32 final state written once, an
+    initial state read once."""
+    flops = 0.0
+    for ci, l0 in enumerate(range(0, length, q)):
+        c = min(q, length - l0)
+        inter = 1 if (state or ci > 0) else 0
+        flops += 4.0 * hd * c * (c + 1) / 2 + 2.0 * c * hd * hd * (1 + inter) \
+            + 2.0 * c * hd * (1 + inter)
+    return flops * b * h, (4 * b * length * h * hd * esize
+                           + 2 * 4 * b * length * h
+                           + 4 * b * h * (hd * hd + hd + 1)
+                           * (2 if state else 1))
+
+
+def bwd_work(b: int, length: int, h: int, hd: int, q: int,
+             esize: int) -> tuple:
+    """(flops, bytes) of the backward from the zero state: per (b, h) and
+    chunk of c tokens, Q K^T, dH V^T, d ds K, d ds^T Q and (s rinv)^T dH
+    over the c (c + 1) / 2 causal pairs; the chunk's own dC and C^T dh
+    over c hd^2 where a state enters it (not the first chunk); dC k and
+    dC^T v over c hd^2 where a gradient leaves it (not the last); the
+    states C over c hd^2 (not the last).  q, k, v, dh and the f32 gates
+    read once; dq, dk, dv, dlogi and dlogf written once."""
+    flops = 0.0
+    starts = list(range(0, length, q))
+    for ci, l0 in enumerate(starts):
+        c = min(q, length - l0)
+        first, last = ci == 0, ci == len(starts) - 1
+        flops += 5 * 2.0 * hd * c * (c + 1) / 2 \
+            + 2.0 * c * hd * hd * ((0 if first else 2) + (0 if last else 3))
+    return flops * b * h, (7 * b * length * h * hd * esize
+                           + 4 * 4 * b * length * h)
+
+
+def bwd_scratch_floats(bs: int, length: int, h: int, hd: int,
+                       qc: int) -> int:
+    """The backward's f32 scratch, as ``ml_bwd_scratch_floats`` of
+    ``csrc/mlstm_bwd.cu`` (``layout``) gives it: eleven (B,H,L) vectors,
+    carry (B,H,nc), three (B,H,nc,q,q), two (B,H,nc,hd,hd), two
+    (B,H,nc,hd), three (B,H,nc,q,hd) and the scan's partials."""
+    nc, bh = -(-length // qc), bs * h
+    scan_blocks = -(-(hd * hd + hd) // 256)
+    return bh * (11 * length + nc + 3 * nc * qc * qc + 2 * nc * hd * hd
+                 + 2 * nc * hd + 3 * nc * qc * hd + nc * scan_blocks)
+
+
 def lib():
     from repro_torch.kernels import _build
     return _build.load("mlstm", _SOURCE, _SIG)
@@ -102,6 +158,23 @@ def call(handle, q, k, v, logi, logf, state, qc: int, stream):
     """``handle.ml_mlstm`` on checked, contiguous tensors of one device,
     with the outputs and the scratch allocated there (csrc/mlstm.cu lists
     the layouts): (its return code, h, (c, n, m))."""
+    out, (c, n, m), (gvec, gscal, carry, nin, st, cin, den) = _outputs(
+        q, qc)
+    bs, length, h, hd = q.shape
+    c0, n0, m0 = (t.data_ptr() for t in state) if state is not None \
+        else (None, None, None)
+    err = handle.ml_mlstm(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
+        logf.data_ptr(), c0, n0, m0, out.data_ptr(), c.data_ptr(),
+        n.data_ptr(), m.data_ptr(), gvec.data_ptr(), gscal.data_ptr(),
+        carry.data_ptr(), nin.data_ptr(), st.data_ptr(),
+        None if cin is None else cin.data_ptr(), den.data_ptr(), bs, length,
+        h, hd, qc, _DTYPES[q.dtype], stream)
+    return err, out, (c, n, m)
+
+
+def _outputs(q, qc: int):
+    """h, the f32 final state (c, n, m) and the scratch of a call."""
     bs, length, h, hd = q.shape
     dev = q.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -125,16 +198,7 @@ def call(handle, q, k, v, logi, logf, state, qc: int, stream):
         cin = torch.empty((bs, h, nc, 2, hd, dp), dtype=q.dtype, device=dev)
     else:
         st = torch.empty((bs, h, nc, qc, qc), **f32)
-    c0, n0, m0 = (t.data_ptr() for t in state) if state is not None \
-        else (None, None, None)
-    err = handle.ml_mlstm(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
-        logf.data_ptr(), c0, n0, m0, out.data_ptr(), c.data_ptr(),
-        n.data_ptr(), m.data_ptr(), gvec.data_ptr(), gscal.data_ptr(),
-        carry.data_ptr(), nin.data_ptr(), st.data_ptr(),
-        None if cin is None else cin.data_ptr(), den.data_ptr(), bs, length,
-        h, hd, qc, _DTYPES[q.dtype], stream)
-    return err, out, (c, n, m)
+    return out, (c, n, m), (gvec, gscal, carry, nin, st, cin, den)
 
 
 def _check_cuda(q, k, v, logi, logf, state, chunk: int) -> int:
@@ -142,7 +206,7 @@ def _check_cuda(q, k, v, logi, logf, state, chunk: int) -> int:
     and of the kernel's dtypes and sizes; the chunk the call uses."""
     _check_shapes(q, k, v, logi, logf, state)
     ts = (q, k, v, logi, logf) + tuple(state or ())
-    if not all(t.is_cuda and t.device == q.device for t in ts):
+    if not all(analysis.on_card(t) and t.device == q.device for t in ts):
         raise TypeError("mlstm: q, k, v, logi, logf and the state must be "
                         "on one CUDA device")
     if (q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype
@@ -166,6 +230,14 @@ def _launch(q, k, v, logi, logf, state, chunk: int):
     """The kernel on contiguous CUDA tensors in the model layout."""
     global launches
     qc = _check_cuda(q, k, v, logi, logf, state, chunk)
+    if analysis.traced(q):
+        out, fin, _ = _outputs(q, qc)
+        bs, length, h, hd = q.shape
+        analysis.record("mlstm", work(bs, length, h, hd, qc,
+                                      state is not None, q.element_size()),
+                        (q, k, v, logi, logf) + tuple(state or ()),
+                        (out,) + fin)
+        return out, fin
     dev = q.device
     handle = lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -209,6 +281,15 @@ def _launch_bwd(q, k, v, logi, logf, dh, chunk: int, binds=None):
     if dh.shape != q.shape or dh.dtype != q.dtype or not dh.is_contiguous():
         raise ValueError(f"mlstm: dh {tuple(dh.shape)} {dh.dtype}; need "
                          "q's shape and dtype, contiguous")
+    if analysis.traced(q):
+        bs, length, h, hd = q.shape
+        grads = tuple(torch.empty_like(t) for t in (q, k, v, logi, logf))
+        torch.empty(bwd_scratch_floats(bs, length, h, hd, qc),
+                    dtype=torch.float32, device=q.device)
+        analysis.record("mlstm_bwd", bwd_work(bs, length, h, hd, qc,
+                                              q.element_size()),
+                        (q, k, v, logi, logf, dh), grads)
+        return grads
     handle = bwd_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -258,7 +339,7 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     where an input wants one, from the zero state only), the plain version
     on CPU ones."""
     _check_shapes(q, k, v, logi, logf, state)
-    if q.is_cuda:
+    if analysis.on_card(q):
         if state is not None:
             state = tuple(t.float().contiguous() for t in state)
         ts = (q.contiguous(), k.contiguous(), v.contiguous(),

@@ -16,7 +16,10 @@ allocates, then the down kernel), for f32 one.  ``bwd_launches`` counts
 calls of the backward, three CUDA launches each (gate-up with dh, dx, the
 weight gradients), and ``bwd_design_launches`` the same calls by the
 backward's design (``bwd_design``): "wgmma" (bf16 that TMA can describe),
-"mma.sync" (other bf16 shapes), "fma" (f32 on the CUDA cores).
+"mma.sync" (other bf16 shapes), "fma" (f32 on the CUDA cores).  A tensor
+that holds no data and stands for the card's (``kernels.analysis``)
+takes the kernel route up to the launch, and is counted by ``work`` /
+``bwd_work`` in place of it.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import analysis
 from repro_torch.kernels.moe_gmm.ref import expert_ffn_ref
 
 launches = 0            # forward kernel-route calls since the last reset
@@ -60,6 +64,24 @@ def reset_launches() -> None:
     bwd_launches = 0
     for name in BWD_DESIGNS:
         bwd_design_launches[name] = 0
+
+
+def work(e: int, m: int, d: int, ff: int, act: str, esize: int) -> tuple:
+    """(flops, bytes) of the expert FFN on x (E, M, d) of ``esize``-byte
+    elements: one 2 E M d ff product per weight (three for SwiGLU, two
+    for gelu); x and the weights read once, y written once."""
+    n_w = 3 if act == "silu" else 2
+    return (2.0 * e * m * d * ff * n_w,
+            (2 * e * m * d + n_w * e * d * ff) * esize)
+
+
+def bwd_work(e: int, m: int, d: int, ff: int, act: str, esize: int) -> tuple:
+    """(flops, bytes) of the FFN's backward: 8 products of 2 E M d ff for
+    SwiGLU, 5 for gelu; x, dy and the weights read once, dx and the
+    weights' gradients written once."""
+    n_w = 3 if act == "silu" else 2
+    return (2.0 * e * m * d * ff * (8 if act == "silu" else 5),
+            (3 * e * m * d + 2 * n_w * e * d * ff) * esize)
 
 
 def lib():
@@ -154,7 +176,7 @@ def _check_cuda(ts) -> None:
     """Every tensor of ``ts`` on x's CUDA device, of x's dtype (f32 or
     bf16), contiguous; x is ``ts[0]``."""
     x = ts[0]
-    if not all(t.is_cuda and t.device == x.device for t in ts):
+    if not all(analysis.on_card(t) and t.device == x.device for t in ts):
         raise TypeError("moe_gmm: x, w1, w2, w3 (and dy) must be on one "
                         "CUDA device")
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in ts):
@@ -178,6 +200,11 @@ def _launch(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     y = torch.empty_like(x)
     h = (torch.empty(workspace_shape(e, m, ff), dtype=x.dtype,
                      device=x.device) if x.dtype == torch.bfloat16 else None)
+    if analysis.traced(x):
+        analysis.record("moe_gmm", work(e, m, d, ff, act, x.element_size()),
+                        (x, w1, w2) + ((w3,) if act == "silu" else ()),
+                        (y,), launches=2 if h is not None else 1)
+        return y
     handle = lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
@@ -209,6 +236,13 @@ def _launch_bwd(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     dw3 = torch.empty_like(w3) if act == "silu" else torch.zeros_like(w3)
     ws = torch.empty(bwd_workspace_shape(e, m, ff, x.dtype), dtype=x.dtype,
                      device=x.device)
+    if analysis.traced(x):
+        analysis.record("moe_gmm_bwd",
+                        bwd_work(e, m, d, ff, act, x.element_size()),
+                        (x, w1, w2, dy) + ((w3,) if act == "silu" else ()),
+                        (dx, dw1, dw2) + ((dw3,) if act == "silu" else ()),
+                        launches=3)
+        return dx, dw1, dw2, dw3
     ptrs = [t.data_ptr() for t in (x, w1, w3, w2, dy, ws, dx, dw1, dw3, dw2)]
     design = bwd_design(e, m, d, ff, x.dtype,
                         aligned=all(p % 16 == 0 for p in ptrs))
@@ -248,7 +282,7 @@ def expert_ffn_kernel_layout(x: torch.Tensor, w1: torch.Tensor,
     too where an input wants a gradient), the plain version on CPU ones
     (the JAX package's ``kernel.expert_ffn``)."""
     _check(x, w1, w2, w3, act)
-    if x.is_cuda:
+    if analysis.on_card(x):
         ts = tuple(t.contiguous() for t in (x, w1, w2, w3))
         if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
             return _ExpertFFN.apply(*ts, act)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels import analysis
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import apply_rope, dense_init, matmul, matmul_rp
 
@@ -97,9 +98,9 @@ def plain_causal_attention(q, k, v, window: int = 0):
 
 
 def causal_attention(q, k, v, window: int = 0):
-    """Causal self-attention: the flash kernel on CUDA, the plain path on
-    the CPU."""
-    if q.is_cuda:
+    """Causal self-attention: the flash kernel on CUDA (and in a card
+    trace, ``kernels.analysis``), the plain path on the CPU."""
+    if analysis.on_card(q):
         return fa_ops.flash_attention(q, k, v, causal=True, window=window)
     return plain_causal_attention(q, k, v, window=window)
 

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.kernels import analysis
 
 
 def dense_init(gen: Optional[torch.Generator], shape: Sequence[int],
@@ -90,7 +91,7 @@ def matmul_f32out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     and f32 output, so the (d, V) unembedding is never copied to f32 (a
     1 GB copy for llama3.2-1b's tied embedding).  Elsewhere (the CPU, or
     f32 inputs) it is the f32 product of the inputs."""
-    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16) \
+    if analysis.on_card(x) and x.dtype in (torch.bfloat16, torch.float16) \
             and w.dtype == x.dtype:
         lead = x.shape[:-1]
         out = _MatmulF32Out.apply(x.reshape(-1, x.shape[-1]), w)

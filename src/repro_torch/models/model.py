@@ -1,17 +1,23 @@
 """Model API (PyTorch port of ``repro.models.model``): the train state,
 loss, gradient and train step; prefill and serve steps; parameter
-counting and the decode window.
+counting and the decode window; the shape specs of every (arch x shape)
+cell; and ``build(cfg)``, one object carrying all of it.
+
+A spec is a tensor on the meta device (the port's ``jax.ShapeDtypeStruct``):
+its shape and dtype, no data.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Callable
+from typing import Callable, Dict
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import fused_unembed_xent, matmul_f32out
+from repro_torch.models.shardings import spec_leaves
 from repro_torch.optim import adamw
 from repro_torch.weights import (tree_leaves, tree_leaves_with_path,
                                  tree_map, tree_unflatten)
@@ -113,18 +119,38 @@ def make_grad_fn(cfg: ArchConfig) -> Callable:
     return grad_fn
 
 
+def _check_pspecs(what: str, tree, pspecs) -> None:
+    """Raise unless ``pspecs`` has one spec per tensor leaf of ``tree``,
+    each as long as its leaf's rank (``models.shardings``)."""
+    leaves = [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    specs = spec_leaves(pspecs)
+    if len(specs) != len(leaves):
+        raise ValueError(f"{what}: {len(specs)} specs for {len(leaves)} "
+                         "leaves")
+    for t, spec in zip(leaves, specs):
+        if len(spec) != t.dim():
+            raise ValueError(f"{what}: spec {spec} for a leaf of shape "
+                             f"{tuple(t.shape)}")
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
-                    grad_accum: int = 1) -> Callable:
+                    grad_accum: int = 1, grad_pspecs=None,
+                    batch_pspecs=None) -> Callable:
     """(state, batch) -> (state, metrics).
 
     ``grad_accum`` splits the batch into that many microbatches and
     accumulates their gradients in f32 (the JAX package's unrolled loop;
     its ``deploy`` scan is the same sum).  The optimizer updates the
-    state's tensors in place (``optim.adamw``)."""
+    state's tensors in place (``optim.adamw``).  ``grad_pspecs`` and
+    ``batch_pspecs`` (``models.shardings``) pin the gradients' and the
+    batch's shardings in the JAX package; on one card they move no data
+    and are only held against the gradients' and the batch's ranks."""
     grad_fn = make_grad_fn(cfg)
 
     def train_step(state, batch):
         params = state["params"]
+        if batch_pspecs is not None:
+            _check_pspecs("batch_pspecs", batch, batch_pspecs)
         if grad_accum == 1:
             (_, metrics), grads = grad_fn(params, batch)
         else:
@@ -142,6 +168,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
                     k: metrics[k] + m[k] for k in metrics}
             grads = tree_map(lambda a: a / grad_accum, grads)
             metrics = {k: v / grad_accum for k, v in metrics.items()}
+        if grad_pspecs is not None:
+            _check_pspecs("grad_pspecs", grads, grad_pspecs)
         params, opt, om = adamw.apply(grads, state["opt"], params, opt_cfg)
         return {"params": params, "opt": opt}, {**metrics, **om}
     return train_step
@@ -179,3 +207,74 @@ def decode_window(cfg: ArchConfig, shape: ShapeConfig) -> int:
     if shape.name == "long_500k" and cfg.family == "hybrid":
         return LONG_CONTEXT_WINDOW
     return cfg.window if shape.name == "long_500k" else 0
+
+
+# ---------------------------------------------------------------------------
+# Shape specs for every (arch x shape) cell: tensors on the meta device
+# ---------------------------------------------------------------------------
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeConfig,
+                with_labels: bool = True) -> Dict[str, torch.Tensor]:
+    b, s = shape.global_batch, shape.seq_len
+    specs = {"tokens": _spec((b, s), torch.int32)}
+    if with_labels:
+        specs["labels"] = _spec((b, s), torch.int32)
+    if cfg.family == "audio":
+        specs["frames"] = _spec((b, cfg.enc_seq, cfg.d_model),
+                                cfg.torch_dtype())
+    if cfg.family == "vlm":
+        specs["img"] = _spec((b, cfg.n_img_tokens, cfg.d_model),
+                             cfg.torch_dtype())
+    return specs
+
+
+def train_state_specs(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig):
+    """The train state's specs; its step is the port's host int (0), where
+    the JAX package's is a () int32 array."""
+    return init_train_state(None, cfg, opt_cfg, device="meta")
+
+
+def param_specs(cfg: ArchConfig):
+    return tf.init_params(None, cfg, device="meta")
+
+
+def decode_state_specs(cfg: ArchConfig, shape: ShapeConfig):
+    return tf.init_decode_state(cfg, shape.global_batch, shape.seq_len,
+                                cfg.torch_dtype(),
+                                window=decode_window(cfg, shape),
+                                device="meta")
+
+
+def decode_input_specs(cfg: ArchConfig, shape: ShapeConfig):
+    b = shape.global_batch
+    return {"tokens": _spec((b, 1), torch.int32),
+            "positions": _spec((b, 1), torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# build(): one object carrying everything the launcher needs
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    cfg: ArchConfig
+    init_params: Callable
+    init_train_state: Callable
+    loss_fn: Callable
+    make_train_step: Callable
+    make_prefill_step: Callable
+    make_serve_step: Callable
+
+
+def build(cfg: ArchConfig) -> ModelAPI:
+    return ModelAPI(
+        cfg=cfg,
+        init_params=functools.partial(tf.init_params, cfg=cfg),
+        init_train_state=functools.partial(init_train_state, cfg=cfg),
+        loss_fn=make_loss_fn(cfg),
+        make_train_step=functools.partial(make_train_step, cfg),
+        make_prefill_step=functools.partial(make_prefill_step, cfg),
+        make_serve_step=functools.partial(make_serve_step, cfg),
+    )
