@@ -89,17 +89,31 @@ non-zero before printing any result):
    device's idle share, the trace's kernel launches) and checks the live
    completion order against ``predict_trace``, every resumed state's
    fingerprint against its snapshot's, and the rolled-back gang's losses
-   against an uninterrupted run of it (atol 1e-6).  Then, on a fresh
+   against an uninterrupted run of it (atol 1e-6); 2 of the 16 layers.
+   Then, on a fresh
    pool of 8, the grow-with-drain step (slice 10): a 6-chip train gang
    and a 2-chip serve gang of full-width llama3.2-1b; a
    ``ServeAutoscaler`` under a breach emits "need" 4, and
    ``Fabric.grow_with_drain`` grows the serve gang to 4 by draining the
    train gang to 3; the donor's state must be bit for bit unchanged by
    the drain, both gangs step again, and a grow to 8 must raise
-   (``fabric-grow-drain``).
+   (``fabric-grow-drain``).  Then the risk-aware spot wave (slice 16,
+   ``fabric-spot``): examples/spot_fleet_torch.py's act 2
+   (``risk_aware_wave``) with gangs of the same width and depth, on 6
+   virtual chips (3 hosts of 2) with a spare host of 2
+   and ``CostModel(risk_tau_s=4.0)``: a 4-chip train gang and a 2-chip
+   serve gang, host 0 hard-failing at 6 s and the spare host joining at
+   10 s, ``shrink_recovery`` on, checkpoints every 4 s; the live Action
+   log must equal ``predict_trace``'s, the train gang must shrink onto
+   its survivors and regrow with no recovery and no lost work, and each
+   reshard must equal the replica it came from bit for bit.  Then the
+   examples (slice 16, ``examples``): each of the four twins of the JAX
+   package's examples (``examples/*_torch.py``) runs on the card, with
+   its own assertions, its control-plane outcomes held against those
+   the JAX example prints and its kernel launches counted.
 8. Serves the MoE, hybrid, xLSTM, audio and VLM families at full width
    (granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b cut to 8 of its 32
-   layers, zamba2-2.7b, xlstm-1.3b cut to 16 of its 48, whisper-small,
+   layers, zamba2-2.7b, xlstm-1.3b cut to 8 of its 48, whisper-small,
    llama-3.2-vision-11b; the others at full depth; bf16, random weights
    from a seed, the vision model's cross-attention gates drawn from
    N(0, 1); the audio and VLM requests carry the serve CLI's seeded
@@ -161,7 +175,10 @@ large common part) and mlstm at xlstm-1.3b's (``kernel-check mlstm``: a
 1024-token prefill, a ragged 1000, the 4 x 512 batch and an initial
 state, with the model's forget gates and with slow ones that carry C
 over several chunks, one case whose C has a large common part, and the
-JAX tests' small shapes), and the mamba_scan and mlstm backwards at the
+JAX tests' small shapes, and a precision row at the training shape: h
+and the final C against float64 no further than the plain version's,
+within ``ref.precision``'s factors, which the copy with two-part f32
+operands must fail), and the mamba_scan and mlstm backwards at the
 training shapes (``kernel-check mamba_scan_bwd`` / ``mlstm_bwd``: against
 autograd of the plain versions and an f32 witness, slow gates, both sides
 of mlstm's floor and a common-part row each; planted copies with the
@@ -174,6 +191,7 @@ checkpoints of the state.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -839,10 +857,13 @@ BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # 1.25 times the plain path's.
 TRAIN_TOL = {"loss": 1e-2, "grad": 0.1}
 SHARD = 617_907_200        # one full-width shard: 1,235,814,400 / 2 data
-# the fabric phase's gangs' depth: 4 of llama3.2-1b's 16 layers at full
-# width, for the script's time limit (at all 16 the phase took 119.9-182.7
-# s, most of it host passes over two 12.36 GB states)
-FABRIC_LAYERS = 4
+# the fabric phases' gangs' depth: 2 of llama3.2-1b's 16 layers at full
+# width (384,313,344 params, a 3.84 GB train state, most of it the
+# embedding), for the script's time limit (at all 16 the phase took
+# 119.9-182.7 s, most of it host passes over two 12.36 GB states; at 4
+# layers 62.5-76.2 s; at 2, 58.5 s and the spot wave's 134.7 s, when each
+# of its 39 checkpoints copied and hashed the state)
+FABRIC_LAYERS = 2
 # the ckpt phase's depth: 2 of llama3.2-1b's 16 layers at full width
 # (384,313,344 params, a 3.84 GB train state), for the script's time
 # limit (at all 16 the phase took 214-256 s, at 4 layers 92.9-118.3 s)
@@ -903,6 +924,15 @@ def _mlstm_bwd_fault_source(fault):
                          f"mlstm_bwd_{fault}")
 
 
+def _mlstm_parts_fault_source():
+    """A copy of mlstm.cu with its f32 operands in two bf16 parts
+    (``ref.FWD_PARTS_FAULT``: the forward as it was before three parts),
+    which the forward's precision row must fail."""
+    from repro_torch.kernels.mlstm import ref as mr
+    return _fault_source("mlstm", "mlstm.cu", mr.FWD_PARTS_FAULT,
+                         "mlstm_parts")
+
+
 def _ptxas(name):
     """ptxas's registers and spills for each kernel of the library
     ``name`` (its last build's log): {kernel: "N registers, S bytes spill
@@ -961,6 +991,7 @@ def build_all(torch):
             "mamba_scan_bwd_fault": _scan_bwd_fault_source(),
             "mamba_scan_bwd_round_fault": _scan_bwd_fault_source("round"),
             "mlstm": os.path.join(src, "mlstm", "csrc", "mlstm.cu"),
+            "mlstm_parts_fault": _mlstm_parts_fault_source(),
             "mlstm_bwd": os.path.join(src, "mlstm", "csrc", "mlstm_bwd.cu"),
             "mlstm_bwd_carry_fault": _mlstm_bwd_fault_source("carry"),
             "mlstm_bwd_floor_fault": _mlstm_bwd_fault_source("floor"),
@@ -2338,6 +2369,175 @@ def grow_drain(torch, cfg, mods):
     return launches
 
 
+# Slice 16: the risk-aware spot wave, examples/spot_fleet_torch.py's act 2
+# (``risk_aware_wave``: 6 leased virtual chips in 3 hosts of 2 and a spare
+# host of 2, CostModel(risk_tau_s=4.0); a 4-chip train gang and a 2-chip
+# serve gang; host 0 hard-fails at 6.0 s, the spare host joins at 10.0 s;
+# shrink_recovery on, checkpoints every 4.0 s) with gangs at the full
+# width of llama3.2-1b: the gangs' batch, steps and learning rate.
+SPOT = {"seq_len": 512, "global_batch": 8, "train_steps": 4,
+        "serve_tokens": 4, "lr": 1e-3}
+
+
+def fabric_spot(torch, cfg, mods):
+    """spot_fleet's act 2 (``risk_aware_wave``) at the width of ``cfg``:
+    ``Fabric.run_trace`` with ``shrink_recovery=True`` against
+    ``predict_trace`` of the same trace.  The wide train gang loses a
+    host, sheds its chips and reshards from a surviving replica
+    (``elastic.reshard_gang``), then regrows onto the joined spare host.
+    Each reshard's state is compared with the replica it came from, bit
+    for bit, on the card.  Kernel counts are set to 0 just before the
+    trace and read just after; the trace runs under the CUDA profiler
+    (idle share).  Asserts: the live Action log is the predicted one; at
+    least one shrink and one regrow, no recovery, no lost work; every
+    reshard bit-exact; the gangs launched the flash kernels.  Prints
+    ``fabric-spot``; returns the trace's launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from repro_torch.core import elastic as elastic_mod
+    from repro_torch.core.devices import virtual_devices
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.gang_workloads import workload_factory
+    from repro_torch.weights import tree_leaves
+
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    from spot_fleet_torch import risk_aware_wave
+
+    steps = SPOT["train_steps"]
+    factory = workload_factory(
+        cfg, AdamWConfig(lr=SPOT["lr"], warmup_steps=1, total_steps=steps),
+        DataConfig(vocab=cfg.vocab, seq_len=SPOT["seq_len"],
+                   global_batch=SPOT["global_batch"]),
+        train_steps=steps, serve_tokens=SPOT["serve_tokens"])
+    reshards = []
+    reshard = elastic_mod.reshard_gang
+
+    def checked(state, new_devices):
+        new_state, mesh, stats = reshard(state, new_devices)
+        pairs = list(zip(tree_leaves(state), tree_leaves(new_state)))
+        same = len(pairs) == len(tree_leaves(state)) and all(
+            (a.dtype == b.dtype and torch.equal(a, b))
+            if isinstance(a, torch.Tensor) else a == b for a, b in pairs)
+        reshards.append({"to_chips": len(new_devices), "bit_exact": same,
+                         **stats})
+        return new_state, mesh, stats
+
+    for mod, attr in mods.values():
+        setattr(mod, attr, 0)
+    torch.cuda.synchronize()
+    with mock.patch.object(elastic_mod, "reshard_gang", checked), \
+            tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        ex, pred = risk_aware_wave(virtual_devices(8, "cuda"), factory)
+        torch.cuda.synchronize()
+    launches = {name: getattr(mod, attr)
+                for name, (mod, attr) in mods.items()}
+    busy_s = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA) * 1e-6
+    res = ex.result
+    train = ex.live["train-wide"]
+    out = {"card": _sh(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"]),
+           "layers": cfg.n_layers,
+           "actions_equal": res.actions == pred.actions,
+           "n_actions": len(res.actions),
+           "churn": [(a.kind, a.payload.get("hosts")) for a in res.actions
+                     if a.kind in ("host-fail", "shrink", "join", "regrow",
+                                   "recover")],
+           "order": res.finish_order, "predicted_order": pred.finish_order,
+           "makespan_s": res.makespan, "predicted_makespan_s": pred.makespan,
+           "shrinks": res.shrinks, "regrows": res.regrows,
+           "recoveries": res.recoveries, "lost_work_s": res.lost_work_s,
+           "moves": train.get("moves", []), "reshards": reshards,
+           "checkpoints": {j: {k: rec.get(k, 0) for k in (
+               "checkpoints", "delta_checkpoints", "ckpt_bytes",
+               "ckpt_full_bytes")} for j, rec in ex.live.items()},
+           "train_loss": train.get("final_metrics", {}).get("loss"),
+           "wall_s": ex.wall_s, "device_busy_s": busy_s,
+           "idle_share": 1.0 - busy_s / ex.wall_s, "launches": launches}
+    print("fabric-spot " + json.dumps(out), flush=True)
+    del ex, factory
+    torch.cuda.empty_cache()
+    assert out["actions_equal"], "the live Action log is not the predicted"
+    assert res.shrinks >= 1 and res.regrows >= 1, out
+    assert res.recoveries == 0 and res.lost_work_s == 0.0, out
+    assert reshards and all(r["bit_exact"] for r in reshards), reshards
+    assert launches["flash_attention"] > 0 \
+        and launches["flash_attention_bwd"] > 0, launches
+    return launches
+
+
+# Slice 16: the twins of the JAX package's examples (examples/*_torch.py)
+# on the card: (module, its arguments beside --device cuda, the
+# control-plane outcomes the JAX example prints (makespans and lost work
+# as it rounds them, to 0.1 s; the state in MiB to 0.1), the kernels each
+# must launch).
+EXAMPLES = [
+    ("fault_tolerant_elastic_torch",
+     ["--ckpt-dir", os.path.join(CKPT_ROOT, "examples")],
+     {"devices": 8, "recoveries": 1, "rescales": 1},
+     ("moe_gmm", "moe_gmm_bwd", "flash_attention", "flash_attention_bwd")),
+    ("multi_tenant_fabric_torch", [],
+     {"chips": 8, "hosts": 4, "evict": ["train0"], "checkpoint_step": 3},
+     ("flash_attention", "flash_attention_bwd")),
+    ("spot_fleet_torch", [],
+     {"churn": [["drain", [2]], ["evacuate", None], ["host-fail", [1]],
+                ["recover", None], ["join", [3]], ["retire", [2]]],
+      "order": ["serve-0", "train-0"], "makespan": 113.0,
+      "lost_work_s": 4.0, "shrinks": 1, "regrows": 1,
+      "order2": ["train-wide", "serve-1"], "makespan2": 85.5},
+     ("flash_attention", "flash_attention_bwd")),
+    ("serve_longcontext_ssm_torch", [],
+     {"state_mib": 0.1, "generated": 48, "bit_exact": True}, ())]
+
+
+def example_outcomes(out, want):
+    """The entries of a twin's returned outcomes that ``want`` names, as
+    the JAX example prints them (floats to 0.1, tuples as lists)."""
+    got = {}
+    for key in want:
+        val = out[key]
+        if isinstance(val, float):
+            val = round(val, 1)
+        got[key] = json.loads(json.dumps(val))
+    return got
+
+
+def examples_phase(torch, mods):
+    """Slice 16: each twin of EXAMPLES runs its ``main`` with ``--device
+    cuda``: its own assertions hold, its control-plane outcomes equal the
+    JAX example's, and it launches its kernels (counts set to 0 just
+    before each and read just after; the xLSTM decode runs no kernel,
+    its counts are printed as they are).  Prints ``examples`` rows;
+    returns the launches."""
+    import importlib
+
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    total = dict.fromkeys(mods, 0)
+    for name, args, want, kernels in EXAMPLES:
+        mod = importlib.import_module(name)
+        for m, attr in mods.values():
+            setattr(m, attr, 0)
+        t0 = time.perf_counter()
+        out = mod.main(["--device", "cuda"] + args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: getattr(m, attr) for k, (m, attr) in mods.items()}
+        got = example_outcomes(out, want)
+        print("examples " + json.dumps(
+            {"example": name, "outcomes": got, "expected": want,
+             "secs": secs, "launches": launches}), flush=True)
+        shutil.rmtree(os.path.join(CKPT_ROOT, "examples"),
+                      ignore_errors=True)
+        assert got == json.loads(json.dumps(want)), (name, got, want)
+        assert all(launches[k] > 0 for k in kernels), (name, launches)
+        for k in total:
+            total[k] += launches[k]
+        torch.cuda.empty_cache()
+    return total
+
+
 # ---------------------------------------------------------------------------
 # Slice 4: the MoE (granite-moe-1b-a400m) and hybrid (zamba2-2.7b) families
 # ---------------------------------------------------------------------------
@@ -2806,7 +3006,12 @@ def check_mlstm(torch, cfg):
     Each row gives ``carry_share``, how much of the final C the earlier
     chunks carry.  Times: the kernel, the
     plain version, and one ``torch.bmm`` of Q C^T over the whole
-    sequence (partial: no PyTorch call computes the function)."""
+    sequence (partial: no PyTorch call computes the function).  Last,
+    the precision row at xlstm-1.3b's training shape (B 2, L 512, bf16,
+    slow gates): ``ref.precision`` (h and the final C against float64,
+    the plain version as the yardstick) must pass, and fail on the copy
+    with its f32 operands in two bf16 parts (``fault_ok`` false), whose
+    time is the row's ``two_parts_ms``."""
     from repro_torch.kernels.mlstm import ops as mo
     from repro_torch.kernels.mlstm import ref as mr
     from repro_torch.models import xlstm as xlstm_mod
@@ -2885,9 +3090,40 @@ def check_mlstm(torch, cfg):
                "gbytes_per_s": nbytes / ms * 1e-6}
         rows.append(row)
         print(f"kernel-check mlstm {json.dumps(row)}", flush=True)
+    rows.append(_mlstm_precision_row(torch, mo, mr, h, hd, chunk))
     mo.reset_launches()
     torch.cuda.empty_cache()
     return rows
+
+
+def _mlstm_precision_row(torch, mo, mr, h, hd, chunk):
+    """The forward's precision at xlstm-1.3b's training shape, on the
+    kernel and on its two-part copy (see check_mlstm)."""
+    from repro_torch.kernels import _build
+
+    ins = mr.grad_inputs(2, 512, h, hd, gates="slow", dtype=torch.bfloat16,
+                         seed=1536, device="cuda")[:5]
+    fault = _build.load("mlstm_parts_fault", _mlstm_parts_fault_source(),
+                        mo._SIG)
+    row = {"B": 2, "L": 512, "H": h, "hd": hd, "chunk": chunk,
+           "gates": "slow", "dtype": "bfloat16", "inputs": "precision"}
+    for tag, patch in (("kernel", None), ("two_parts", fault)):
+        ctx = mock.patch.object(mo, "lib", lambda: patch) if patch \
+            else contextlib.nullcontext()
+        with ctx:
+            out, (c, _, _) = mo.mlstm(*ins, chunk=chunk)
+            torch.cuda.synchronize()
+            res = mr.precision(out, c, *ins, chunk)
+            ms = _time_ms(lambda: mo._launch(*ins, None, chunk), iters=10)
+        if tag == "kernel":
+            row.update(res, ms=ms)
+        else:
+            row.update(fault="two_parts", fault_ok=res["ok"],
+                       fault_h_off=res["h_off"], fault_c_err=res["c_err"],
+                       two_parts_ms=ms)
+    print(f"kernel-check mlstm {json.dumps(row)}", flush=True)
+    assert row["ok"] and not row["fault_ok"], row
+    return row
 
 
 # The backward kernels' tolerance (rtol, and atol times each gradient's
@@ -3227,12 +3463,20 @@ def draw_gates(torch, cfg, params, seed=5):
 # are 10,665,136,128 params (21.3 GB in bf16); all 32 are 41,872,527,360
 # (83.7 GB), more than the card's 80 GB.
 PHI_LAYERS = 8
-# xlstm-1.3b at full width, cut in depth for the script's time limit: 2
-# of its 6 periods (1 sLSTM + 7 mLSTM each), 16 of 48 layers; its sLSTM
-# token loop made the family 156-189 s of the phases at full depth.  (At
-# 8 layers its step-0 gradient check fails: an mLSTM forget-gate bias
-# leaf of the bf16 kernel path is 1.33x the plain bf16 path's error.)
+# xlstm-1.3b at full width, cut in depth for the script's time limit: its
+# sLSTM token loop made the family 156-189 s of the phases at full depth.
+# It trains at 2 of its 6 periods (1 sLSTM + 7 mLSTM each), 16 of 48
+# layers: at 8, step 0's gradient check is a draw for bf16 at that
+# depth, not a test of the kernels.  Over 12 draws (weight seeds 0-5,
+# data steps 0-1) it passes 5 with the mLSTM forward's f32 operands in
+# three bf16 parts and 5 with two, and 7 for the plain path with its h
+# one ulp off on 0.05% of elements at random; seed 0, this script's,
+# fails at 8 and passes at 16 (attribute_xlstm.py --sweep; PERF.md §6).
+# It serves at 1 period, 8 layers (since slice 16), where no gradient is
+# checked.
 XLSTM_LAYERS = 16
+XLSTM_SERVE_LAYERS = 8
+_TIME_CUT = "for the script's time limit"
 # (arch, line tag, token_loop, layers or None, the cut or None)
 FAMILIES = [
     ("granite-moe-1b-a400m", "moe", False, None, None),
@@ -3240,17 +3484,17 @@ FAMILIES = [
      f"depth {PHI_LAYERS} of 32 layers: 10,665,136,128 params (21.3 GB "
      "bf16); all 32 are 83.7 GB, over the card's 80 GB"),
     ("zamba2-2.7b", "hybrid", False, None, None),
-    ("xlstm-1.3b", "ssm", True, XLSTM_LAYERS,
-     f"depth {XLSTM_LAYERS} of 48 layers (2 of 6 periods), for the "
-     "script's time limit"),
+    ("xlstm-1.3b", "ssm", True, XLSTM_SERVE_LAYERS,
+     f"depth {XLSTM_SERVE_LAYERS} of 48 layers (1 of 6 periods), "
+     f"{_TIME_CUT}"),
     ("whisper-small", "audio", False, None, None),
     ("llama-3.2-vision-11b", "vlm", False, None, None)]
 
 
 def families(torch, counters, phase_time):
-    """Phase 8: serve full-width granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b
-    (PHI_LAYERS of its 32 layers), zamba2-2.7b, xlstm-1.3b, whisper-small
-    and llama-3.2-vision-11b (the last two at full depth too) in bf16
+    """Phase 8: serve full-width granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b,
+    zamba2-2.7b, xlstm-1.3b, whisper-small and llama-3.2-vision-11b,
+    phi3.5-moe and xlstm cut in depth as FAMILIES says, in bf16
     (random weights from a seed; the vision model's cross-attention
     gates drawn, ``draw_gates``): first use of every serve shape, the
     serving drive, the prefill check and a profile, for each.  The audio
@@ -3313,9 +3557,9 @@ VISION_TRAIN_LAYERS = 10
 # Slice 13: the hybrid and xLSTM families train, through the mamba_scan and
 # mlstm backward kernels.  zamba2-2.7b whole (54 layers: 45 Mamba2 + 9
 # uses of the shared attention) at 2 ranks of 2 x 1024; xlstm-1.3b at
-# XLSTM_LAYERS of its 48 layers, as its serving is cut (the sLSTM token
-# loop runs in the forward, in remat's recompute and in the backward), at
-# 2 ranks of 2 x 512.
+# XLSTM_LAYERS of its 48 layers (the sLSTM token loop runs in the
+# forward, in remat's recompute and in the backward), at 2 ranks of 2 x
+# 512.
 TRAIN_FAMILIES = [
     ("whisper-small", "audio", None, 4, 8, 448, 6, 1e-4, None),
     ("granite-moe-1b-a400m", "moe", None, 2, 8, 1024, 6, 3e-4, None),
@@ -3325,8 +3569,9 @@ TRAIN_FAMILIES = [
      "card's 80 GB"),
     ("zamba2-2.7b", "hybrid", None, 2, 4, 1024, 6, 1e-4, None),
     ("xlstm-1.3b", "ssm", XLSTM_LAYERS, 2, 4, 512, 4, 1e-4,
-     f"depth {XLSTM_LAYERS} of 48 layers (2 of 6 periods), as its "
-     "serving is cut, for the script's time limit (the sLSTM token loop)")]
+     f"depth {XLSTM_LAYERS} of 48 layers (2 of 6 periods), for the "
+     "script's time limit (the sLSTM token loop); not 8, where step 0's "
+     "gradient check cannot separate the kernel path from bf16 noise")]
 
 
 def _pinned_routes(torch, routes):
@@ -3809,8 +4054,18 @@ def main() -> int:
     # 7. the shared Fabric: train and serve gangs through run_trace, at
     # FABRIC_LAYERS of the 16 layers for the script's time limit
     torch.cuda.empty_cache()
-    fabric = fabric_phase(torch, cfg.with_(n_layers=FABRIC_LAYERS), mods)
+    fabric_cfg = cfg.with_(n_layers=FABRIC_LAYERS)
+    fabric = fabric_phase(torch, fabric_cfg, mods)
     phase_time("fabric")
+    # 7b. the risk-aware spot wave (slice 16), after grow-with-drain
+    spot = fabric_spot(torch, fabric_cfg, mods)
+    phase_time("fabric-spot")
+    # 7c. the twins of the JAX package's examples (slice 16)
+    torch.cuda.empty_cache()
+    examples = examples_phase(torch, mods)
+    phase_time("examples")
+    fabric = {name: fabric[name] + spot[name] + examples[name]
+              for name in fabric}
 
     # 8. serve the MoE, hybrid (slice 4) and xLSTM (slice 5) families
     torch.cuda.empty_cache()
@@ -3870,7 +4125,7 @@ def main() -> int:
         "name": "moe_gmm", "route": "cuda",
         "source": src + "moe_gmm/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm/kernel.py:28",
-        "launches": fam["moe_gmm"] + tfam["moe_gmm"],
+        "launches": fam["moe_gmm"] + tfam["moe_gmm"] + fabric["moe_gmm"],
         "max_abs_err": gmm_row["max_abs_err"],
         "ms": gmm_row["ms"], "plain_ms": gmm_row["plain_ms"],
         "bound_ms": gmm_row["bound_ms"], "bound_by": gmm_row["bound_by"],
@@ -3879,7 +4134,7 @@ def main() -> int:
         "name": "moe_gmm_bwd", "route": "cuda",
         "source": src + "moe_gmm/csrc/moe_gmm_bwd.cu",
         "replaces": "src/repro/kernels/moe_gmm/kernel.py:28",
-        "launches": tfam["moe_gmm_bwd"],
+        "launches": tfam["moe_gmm_bwd"] + fabric["moe_gmm_bwd"],
         "launches_by_design": tfam["moe_gmm_bwd_by_design"],
         "max_abs_err": gmm_bwd_row["max_abs_err"],
         "ms": gmm_bwd_row["ms"], "plain_ms": gmm_bwd_row["plain_ms"],

@@ -9,6 +9,7 @@ Run on the GPU (the default) or on the CPU:
 import argparse
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
@@ -24,12 +25,14 @@ from repro_torch.runtime.train_loop import FaabricTrainRuntime, RuntimeConfig
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro-quickstart"))
     args = ap.parse_args(argv)
     cfg = reduced_config("llama3.2-1b")
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=8, seed=0)
     ocfg = AdamWConfig(lr=3e-3, warmup_steps=3, total_steps=30)
     rt = RuntimeConfig(total_steps=30, checkpoint_every=10,
-                       ckpt_dir="/tmp/repro-quickstart", pods=2,
+                       ckpt_dir=args.ckpt_dir, pods=2,
                        sync_mode="compressed", compress_frac=0.05)
 
     runtime = FaabricTrainRuntime(cfg, ocfg, dcfg, rt, ranks=4,
@@ -49,6 +52,8 @@ def main(argv=None):
     loop = ServeLoop(cfg, state["params"], max_len=64)
     done = loop.run(reqs)
     print("generated:", done[0].out)
+    return {"ranks": runtime.ranks, "mesh": dict(runtime.mesh_shape),
+            "losses": out["losses"], "generated": list(done[0].out)}
 
 
 if __name__ == "__main__":

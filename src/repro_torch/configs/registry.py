@@ -4,7 +4,7 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPES, ArchConfig, cell_applicable
 
 _MODULES = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
@@ -60,3 +60,12 @@ def reduced_config(arch_id: str) -> ArchConfig:
     if cfg.family == "vlm":
         kw.update(cross_attn_every=2, n_img_tokens=16)
     return cfg.with_(**kw)
+
+
+def iter_cells():
+    """Yield every assigned (arch, shape, applicable, reason) cell: 40."""
+    for arch_id in ARCH_IDS:
+        cfg = get_config(arch_id)
+        for shape in SHAPES.values():
+            ok, reason = cell_applicable(cfg, shape)
+            yield arch_id, shape, ok, reason

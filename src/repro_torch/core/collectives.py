@@ -173,6 +173,21 @@ def _ring_allreduce(chunks: List[torch.Tensor]) -> torch.Tensor:
     return chunks[0].reshape(-1)
 
 
+def reference_topk_select(vec: torch.Tensor, frac: float):
+    """The pre-tuner codec: a *global* top-k over the whole shard, which
+    the chunk-select codec (``kernels/collective_codec``) replaced; kept
+    as the reference the codec is timed against.  Returns (sel, idx,
+    residual): the k = max(1, int(n frac)) entries of largest magnitude,
+    their indices (by descending magnitude; ties in ``torch.topk``'s
+    order, which may differ from ``jax.lax.top_k``'s) and the shard with
+    them zeroed."""
+    k = max(1, int(vec.numel() * frac))
+    _, idx = torch.topk(vec.abs(), k)
+    residual = vec.clone()
+    residual[idx] = 0.0
+    return vec[idx], idx, residual
+
+
 def tree_sync(per_rank: Iterable[Any], mode: str, pods: int, data: int,
               compress_frac: Optional[float] = None,
               resid: Optional[torch.Tensor] = None

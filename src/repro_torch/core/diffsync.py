@@ -51,7 +51,9 @@ from repro_torch.weights import tree_leaves, tree_leaves_with_path, \
 __all__ = ["CHUNK", "MERGE_OPS", "KERNEL_MIN_ELEMS", "merge_scalarwise",
            "LeafDiff", "diff_leaf", "apply_leaf", "apply_many", "diff_tree",
            "apply_tree", "diff_nbytes", "tree_nbytes", "TrackedFork",
-           "fused_diff_apply", "dense_diff", "dense_merge"]
+           "fused_diff_apply", "dense_diff", "dense_merge",
+           "reference_merge_scalarwise", "reference_diff_leaf",
+           "reference_apply_leaf", "reference_apply_tree"]
 
 # leaves with at least this many elements go to the kernels/diff_merge
 # kernel when they lie on a CUDA device (``fused_diff_apply``); smaller
@@ -558,3 +560,69 @@ def dense_merge(main: torch.Tensor, mask: torch.Tensor, payload: torch.Tensor,
     out = torch.where(mask[:, None], merged, fm)
     return to_leaf_dtype(out.reshape(-1)[:main.numel()].view(main.shape),
                          main.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Reference implementations: the JAX package's pre-vectorization versions
+# (pinned there by tests/test_diffsync.py), kept as the yardsticks the
+# vectorized paths are timed against; do not "optimise" these
+# ---------------------------------------------------------------------------
+def reference_merge_scalarwise(a0, b0, b1, op: str) -> torch.Tensor:
+    """The pre-vectorization ``merge_scalarwise``: a float64 round trip
+    for every dtype (integers too), rounded once to a0's dtype."""
+    a0 = as_tensor(a0)
+    if op == "overwrite":
+        return as_tensor(b1).to(a0.dtype)
+    a0d, b0d, b1d = (as_tensor(x).double() for x in (a0, b0, b1))
+    if op == "sum":
+        out = a0d + (b1d - b0d)
+    elif op == "subtract":
+        out = a0d - (b0d - b1d)
+    elif op == "multiply":
+        out = torch.where(b0d == 0, a0d, a0d * (b1d / b0d))
+    elif op == "divide":
+        out = torch.where(b1d == 0, a0d, a0d / (b0d / b1d))
+    else:
+        raise ValueError(op)
+    return out.to(a0.dtype)
+
+
+def _chunk_view(a) -> torch.Tensor:
+    """A leaf as (n, CHUNK) rows: a view of its flat data, or a
+    zero-padded copy when its size is not a multiple of CHUNK."""
+    flat = as_tensor(a).reshape(-1)
+    pad = (-flat.numel()) % CHUNK
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.reshape(-1, CHUNK)
+
+
+def reference_diff_leaf(old, new, op: str = "overwrite") -> LeafDiff:
+    """The pre-vectorization ``diff_leaf``: a full padded copy and a chunk
+    view of each leaf, on the host."""
+    old, new = _host(old), _host(new)
+    assert old.shape == new.shape and old.dtype == new.dtype
+    oc, nc = _chunk_view(old), _chunk_view(new)
+    idx = _nonzero32((oc != nc).any(dim=1))
+    rows = idx.long()
+    return LeafDiff(idx=idx, new=nc[rows].clone(), old=oc[rows].clone(),
+                    shape=tuple(old.shape), dtype=old.dtype, op=op)
+
+
+def reference_apply_leaf(main, d: LeafDiff) -> torch.Tensor:
+    """The pre-vectorization ``apply_leaf``: a full chunk-view copy of the
+    leaf, clean chunks included, on the host."""
+    main = _host(main)
+    mc = _chunk_view(main).clone()
+    rows = d.idx.long()
+    mc[rows] = reference_merge_scalarwise(mc[rows], d.old, d.new, d.op)
+    return mc.reshape(-1)[:main.numel()].reshape(main.shape).to(main.dtype)
+
+
+def reference_apply_tree(main_tree, diffs: Dict[str, Any]):
+    """The pre-vectorization ``apply_tree``: every leaf re-materialised on
+    the host (a dirty one through ``reference_apply_leaf``)."""
+    out = [reference_apply_leaf(leaf, diffs[key]) if key in diffs
+           else _host(leaf).clone()
+           for key, leaf in tree_leaves_with_path(main_tree)]
+    return tree_unflatten(main_tree, out)

@@ -32,6 +32,17 @@ def make_dp_mesh(devices: Sequence[Any]) -> GangMesh:
     return make_gang_mesh(devices, 1)
 
 
+def replicated_shardings(state, mesh: GangMesh) -> torch.device:
+    """Where a replicated gang's ``state`` goes on ``mesh``: the mesh's
+    torch device, the destination ``migration.migrate_live(state, dst)``
+    and ``migration.migrate_via_snapshot(job, step, state, dst)`` take.
+    The JAX package returns a tree of ``NamedSharding(mesh, P())``, one
+    per leaf of ``state``, which ``device_put`` reads; the port runs a
+    gang's virtual ranks on one torch device and keeps one copy of a
+    replicated state, so the whole tree has that one destination."""
+    return mesh.device
+
+
 def reshard_gang(state, new_devices: Sequence[Any]
                  ) -> Tuple[Any, GangMesh, Dict[str, float]]:
     """Re-factorise a DP gang onto a new device set (grow or shrink).

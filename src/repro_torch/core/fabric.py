@@ -386,31 +386,41 @@ class GangHandle:
         the previous checkpoint, so the recurring cost scales with the
         bytes the gang actually dirtied.  A leaf of the live ``state`` on
         the card (bit-equal to its snapshot) is compared there by the
-        diff_merge kernel.  ``fail`` replays
+        diff_merge kernel.  A delta tick whose diff is empty (nothing
+        changed since the last checkpoint) keeps the last snapshot's host
+        state and fingerprint, which are those a copy of the state would
+        have: it copies and hashes nothing.  ``fail`` replays
         base+deltas and proves the chain bit-exact against the recorded
         fingerprint."""
         tel = telemetry.get()
         t_ckpt = time.perf_counter() if tel.enabled else 0.0
-        snap = snap_mod.take(self.job_id, step, state)
         prev = self.last_checkpoint
         rebase = (self._ckpt_base is None
                   or len(self._ckpt_deltas) >= self.ckpt_rebase_every - 1
                   or prev is None
-                  or not self._same_layout(prev.state, snap.state))
+                  or not self._same_layout(prev.state, state))
         if rebase:
+            snap = snap_mod.take(self.job_id, step, state)
             self._ckpt_base = snap
             self._ckpt_deltas = []
             ckpt_kind, shipped = "full", snap.nbytes
         else:
             # card leaves are diffed where they lie (their dirty rows are
-            # copied out); the rest against the snapshot's host copy,
-            # since a host row may be a view and the live leaf changes
-            live = [x if isinstance(x, torch.Tensor) and x.is_cuda else y
-                    for x, y in zip(tree_leaves(state),
-                                    tree_leaves(snap.state))]
+            # copied out); the rest against a host copy, since a host
+            # row may be a view and the live leaf changes
+            cpu = torch.device("cpu")
+            live = [x if isinstance(x, torch.Tensor) and x.is_cuda
+                    else snap_mod._copy_to(x, cpu)
+                    for x in tree_leaves(state)]
             diffs = diffsync.diff_tree(prev.state,
                                        tree_unflatten(state, live),
                                        op="overwrite")
+            if diffs:
+                snap = snap_mod.take(self.job_id, step, state)
+            else:
+                snap = snap_mod.Snapshot(
+                    job_id=self.job_id, step=step, state=prev.state,
+                    fingerprint=prev.fingerprint, wall_time=time.time())
             self._ckpt_deltas.append(
                 {"step": step, "diffs": diffs,
                  "fingerprint": snap.fingerprint})

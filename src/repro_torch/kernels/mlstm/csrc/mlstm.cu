@@ -45,23 +45,29 @@
 // bf16 operands, f32 sums; kernels/include/mma_bf16.cuh), in the
 // chunk-parallel form:
 //   1. ml_scores_tc (grid (chunks x 64-row blocks, H, B)): S = Q K^T of
-//      every chunk, decayed and masked, and den; S leaves as a bf16 pair
-//      hi + lo (S is f32: one rounding would cost ~2^-9 of h);
+//      every chunk, decayed and masked, and den; S leaves in NPART bf16
+//      parts (S is f32: one rounding would cost ~2^-9 of h);
 //   2. ml_state_tc (grid (hd / 128, hd / 128, H x B)): one block holds a
 //      128 x 128 tile of C as mma accumulators in f32 and walks the
-//      chunks: it writes the C entering each chunk as a bf16 pair, then
-//      adds K^T (wexp o V) with wexp o V as a pair (its products are f32);
+//      chunks: it writes the C entering each chunk in parts, then adds
+//      K^T (wexp o V) with wexp o V in parts (its products are f32);
 //   3. ml_hout_tc (grid (hd / 128, chunks, H x B)): h for every chunk at
-//      once, Q C^T from the pair (scaled by inter_scale), then + S V from
-//      S's pair, over den.
+//      once, Q C^T from C's parts (scaled by inter_scale), then + S V
+//      from S's parts, over den.
 // q, k and v are bf16 inputs, so they enter a product once and exactly;
-// each f32 operand enters as hi = bf16(x), lo = bf16(x - hi), two
-// products keeping ~16 bits of x.  The chunk-parallel form materialises
-// the C entering each chunk (nc H hd^2 4 bytes, 128 MB at L 1024: ~0.08
-// ms of traffic) so that no block walks the chunks with the head's whole
-// Q and K re-staged for each 32-row tile of C, as a block holding its
-// tile of C across the chunks must.  No atomics: the result is
-// deterministic.
+// each f32 operand x enters as NPART = 3 bf16 parts, hi = bf16(x), mid =
+// bf16(x - hi) and lo = bf16(x - hi - mid), three products keeping ~24
+// bits of x, as f32 does (mamba_scan keeps its states so).  With two
+// (~16 bits), h at xlstm-1.3b's layer inputs came out off the bf16
+// rounding of a float64 h on 0.13-0.19% of its elements, against
+// 0.07-0.09% with three and 0.03% for the plain version (S's third part
+// moved that share; C's and wexp o V's keep the state's precision where
+// slow gates carry it over chunks, which ref.precision's C check sees).
+// The chunk-parallel form materialises the C entering each chunk (nc H
+// hd^2 4 bytes, 128 MB at L 1024: ~0.08 ms of traffic) so that no block
+// walks the chunks with the head's whole Q and K re-staged for each
+// 32-row tile of C, as a block holding its tile of C across the chunks
+// must.  No atomics: the result is deterministic.
 //
 // The f32 route keeps the CUDA-core passes (f32 FMAs, a 4 x 4 register
 // tile a thread): ml_scores (S and den, stored as f32) and ml_state (one
@@ -170,6 +176,7 @@ constexpr int HK = 64;             // contraction slice of Q C^T and Q K^T
 constexpr int HLD = HK + tc::PAD;
 constexpr int SC_STAGES = 4;       // cp.async stages of ml_scores_tc
 constexpr int HO_STAGES = 3;       // and of ml_hout_tc's Q C^T
+constexpr int NPART = 3;           // bf16 parts of an f32 operand
 
 static_assert(EK * EU == STAGE, "the C update's K slice fills the stage");
 static_assert((CMAX / 4) * (TV / 4) == THREADS, "4 x 4 tiles cover q x TV");
@@ -231,10 +238,10 @@ __device__ __forceinline__ float c_carry(const float* gcarry, size_t cb) {
 //   nin   (N, D):    n entering the chunk
 //   den   (N, q)
 //   st    f32 route: (N, q, q) S transposed, st[j][i] = S_ij;
-//         bf16 route: (N, 2, SQ, SQ) bf16, S's hi and lo planes, [i][j],
+//         bf16 route: (N, NPART, SQ, SQ) bf16, S's part planes, [i][j],
 //         SQ = q rounded up to 16, zero above the diagonal and past the
 //         chunk
-//   cin   bf16 route: (N, 2, D, DP) bf16, the hi and lo planes of the C
+//   cin   bf16 route: (N, NPART, D, DP) bf16, the part planes of the C
 //         entering the chunk, [v][e], DP = D rounded up to 8 (the pad
 //         columns 0); chunk 0's is not written when the state is zero
 
@@ -701,17 +708,20 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-// x's bf16 pair (hi, lo) as two words of two bf16: x0 in the low halves.
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const float r0 = x0 - __bfloat162float(__float2bfloat16(x0));
-  const float r1 = x1 - __bfloat162float(__float2bfloat16(x1));
-  hi = tc::pack_bf16(x0, x1);
-  lo = tc::pack_bf16(r0, r1);
+// x's NPART bf16 parts as words of two bf16 (x0 in the low halves): part
+// p is bf16 of what the parts before it leave of x.
+__device__ __forceinline__ void split_parts(float x0, float x1,
+                                            uint32_t (&w)[NPART]) {
+#pragma unroll
+  for (int p = 0; p < NPART; ++p) {
+    w[p] = tc::pack_bf16(x0, x1);
+    x0 -= __bfloat162float(__float2bfloat16(x0));
+    x1 -= __bfloat162float(__float2bfloat16(x1));
+  }
 }
 
 // bf16 route, pass 1: S = Q K^T of every chunk on the tensor cores,
-// decayed and masked, stored as a bf16 pair, and den.  Block (ci, rows
+// decayed and masked, stored in NPART bf16 parts, and den.  Block (ci, rows
 // r0..r0+SR-1) of (h, b), 4 warps of 16 rows, each over all the columns
 // j <= its rows; Q, K and n stream through shared memory in HK-column
 // slices (SC_STAGES stages); q . n runs on the CUDA cores beside them.
@@ -805,8 +815,7 @@ ml_scores_tc_kernel(const bf16* __restrict__ qx, const bf16* __restrict__ kx,
   if ((tid & 1) == 0) qns[tid >> 1] = qn;
   __syncthreads();
 
-  bf16* shi = sp + cb * 2 * SQ * SQ;
-  bf16* slo = shi + SQ * SQ;
+  bf16* s0 = sp + cb * NPART * SQ * SQ;     // the parts, SQ^2 apart
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int il = wr + g + 8 * hf, i = r0 + il;
@@ -829,10 +838,12 @@ ml_scores_tc_kernel(const bf16* __restrict__ qx, const bf16* __restrict__ kx,
       }
       const int j0 = nt * 8 + 2 * t4;
       if (i < SQ && j0 < SQ) {
-        uint32_t hi, lo;
-        split2(s[0], s[1], hi, lo);
-        *reinterpret_cast<uint32_t*>(shi + i * SQ + j0) = hi;
-        *reinterpret_cast<uint32_t*>(slo + i * SQ + j0) = lo;
+        uint32_t w[NPART];
+        split_parts(s[0], s[1], w);
+#pragma unroll
+        for (int p = 0; p < NPART; ++p)
+          *reinterpret_cast<uint32_t*>(s0 + (size_t)p * SQ * SQ + i * SQ +
+                                       j0) = w[p];
       }
     }
     rsum += __shfl_xor_sync(0xffffffffu, rsum, 1);
@@ -850,11 +861,12 @@ ml_scores_tc_kernel(const bf16* __restrict__ qx, const bf16* __restrict__ kx,
 
 // bf16 route, pass 2: a 128 x 128 tile of C (rows v0.., columns e0..) as
 // mma accumulators, walking the chunks: the C entering each chunk leaves
-// as a bf16 pair, then C = carry C + (wexp o V)^T K over the chunk's
+// in NPART bf16 parts, then C = carry C + (wexp o V)^T K over the chunk's
 // tokens.  Warp w owns rows 32 (w / 2).. and columns 64 (w % 2)..; the
 // chunk's K and V tiles are staged one chunk ahead; wexp o V (f32) is
-// built from V as a pair [j][v] and read transposed as the A operand, K
-// [j][e] as the B operand.
+// built from V in parts [j][v] (the first two in their own tiles, the
+// third over the V tile it is built from) and read transposed as the A
+// operand, K [j][e] as the B operand.
 __global__ void __launch_bounds__(THREADS)
 ml_state_tc_kernel(const bf16* __restrict__ kx, const bf16* __restrict__ vx,
                    const float* __restrict__ c0,
@@ -863,9 +875,9 @@ ml_state_tc_kernel(const bf16* __restrict__ kx, const bf16* __restrict__ vx,
                    float* __restrict__ c_fin, int L, int H, int D, int q) {
   extern __shared__ __align__(16) bf16 tsm[];
   __shared__ float wex[CMAX];
-  bf16* Wh = tsm;                  // (TT, TLD): hi of wexp_j v_j, [j][v]
-  bf16* Wl = Wh + TT * TLD;        // lo
-  bf16* stages = Wl + TT * TLD;    // 2 x (K [j][e], V [j][v]), (TT, TLD)
+  bf16* W0 = tsm;                  // (TT, TLD): wexp_j v_j's part 0, [j][v]
+  bf16* W1 = W0 + TT * TLD;        // part 1
+  bf16* stages = W1 + TT * TLD;    // 2 x (K [j][e], V [j][v]), (TT, TLD)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int e0 = blockIdx.x * TT, v0 = blockIdx.y * TT, bh = blockIdx.z;
@@ -906,9 +918,8 @@ ml_state_tc_kernel(const bf16* __restrict__ kx, const bf16* __restrict__ vx,
     const float* gv = gvec + cb * 4 * q;
     if (ci + 1 < nc) issue(ci + 1);
     tc::cp_async_commit();
-    if (ci > 0 || c0 != nullptr) {   // the C entering the chunk, as a pair
-      bf16* chi = cin + cb * 2 * (size_t)D * DP;
-      bf16* clo = chi + (size_t)D * DP;
+    if (ci > 0 || c0 != nullptr) {   // the C entering the chunk, in parts
+      bf16* cp = cin + cb * NPART * (size_t)D * DP;   // D DP apart
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -918,10 +929,12 @@ ml_state_tc_kernel(const bf16* __restrict__ kx, const bf16* __restrict__ vx,
             const int v = v0 + wr + mt * 16 + g + 8 * hf;
             const int e = e0 + wc + nt * 8 + 2 * t4;
             if (v < D && e < DP) {
-              uint32_t hi, lo;
-              split2(acc[mt][nt][2 * hf], acc[mt][nt][2 * hf + 1], hi, lo);
-              *reinterpret_cast<uint32_t*>(chi + (size_t)v * DP + e) = hi;
-              *reinterpret_cast<uint32_t*>(clo + (size_t)v * DP + e) = lo;
+              uint32_t w[NPART];
+              split_parts(acc[mt][nt][2 * hf], acc[mt][nt][2 * hf + 1], w);
+#pragma unroll
+              for (int p = 0; p < NPART; ++p)
+                *reinterpret_cast<uint32_t*>(
+                    cp + ((size_t)p * D + v) * DP + e) = w[p];
             }
           }
     }
@@ -930,17 +943,20 @@ ml_state_tc_kernel(const bf16* __restrict__ kx, const bf16* __restrict__ vx,
     tc::cp_async_wait<1>();
     __syncthreads();               // chunk ci's K and V landed
     const bf16* Ks = stages + (ci & 1) * 2 * TT * TLD;
-    const bf16* Vs = Ks + TT * TLD;
+    bf16* Vs = stages + (ci & 1) * 2 * TT * TLD + TT * TLD;
+    bf16* const Wp[3] = {W0, W1, Vs};   // the parts' tiles
+    static_assert(NPART <= 3, "wexp o V's parts: two tiles and V's");
     for (int idx = tid; idx < TT * (TT / 2); idx += THREADS) {
       const int j = idx / (TT / 2), c = (idx % (TT / 2)) * 2;
       const float2 x = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(Vs + j * TLD + c));
-      uint32_t hi, lo;
-      split2(wex[j] * x.x, wex[j] * x.y, hi, lo);
-      *reinterpret_cast<uint32_t*>(Wh + j * TLD + c) = hi;
-      *reinterpret_cast<uint32_t*>(Wl + j * TLD + c) = lo;
+      uint32_t w[NPART];
+      split_parts(wex[j] * x.x, wex[j] * x.y, w);
+#pragma unroll
+      for (int p = 0; p < NPART; ++p)   // a thread overwrites only the V
+        *reinterpret_cast<uint32_t*>(Wp[p] + j * TLD + c) = w[p];  // it read
     }
-    __syncthreads();               // the pair is built
+    __syncthreads();               // the parts are built
     const float carry = c_carry(gcarry, cb);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -950,26 +966,25 @@ ml_state_tc_kernel(const bf16* __restrict__ kx, const bf16* __restrict__ vx,
         for (int r = 0; r < 4; ++r) acc[mt][nt][r] *= carry;
     const int kend = (cl + 15) / 16;
     for (int kk = 0; kk < kend; ++kk) {
-      uint32_t ah[2][4], al[2][4];
+      uint32_t aw[NPART][2][4];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        tc::ldmatrix_x4_trans(ah[mt],
-                              Wh + tc::b_off<TLD>(lane, kk * 16, wr + mt * 16));
-        tc::ldmatrix_x4_trans(al[mt],
-                              Wl + tc::b_off<TLD>(lane, kk * 16, wr + mt * 16));
-      }
+      for (int p = 0; p < NPART; ++p)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          tc::ldmatrix_x4_trans(
+              aw[p][mt], Wp[p] + tc::b_off<TLD>(lane, kk * 16, wr + mt * 16));
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bb[4];
         tc::ldmatrix_x4_trans(bb,
                               Ks + tc::a_off<TLD>(lane, kk * 16, wc + np * 16));
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          tc::mma_bf16(acc[mt][2 * np], ah[mt], bb[0], bb[1]);
-          tc::mma_bf16(acc[mt][2 * np + 1], ah[mt], bb[2], bb[3]);
-          tc::mma_bf16(acc[mt][2 * np], al[mt], bb[0], bb[1]);
-          tc::mma_bf16(acc[mt][2 * np + 1], al[mt], bb[2], bb[3]);
-        }
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int p = 0; p < NPART; ++p) {
+            tc::mma_bf16(acc[mt][2 * np], aw[p][mt], bb[0], bb[1]);
+            tc::mma_bf16(acc[mt][2 * np + 1], aw[p][mt], bb[2], bb[3]);
+          }
       }
     }
     __syncthreads();               // the chunk's tiles are free again
@@ -989,9 +1004,9 @@ ml_state_tc_kernel(const bf16* __restrict__ kx, const bf16* __restrict__ vx,
 }
 
 // bf16 route, pass 3: h of one chunk for 128 columns v0.. of hd_v: Q C^T
-// from the pair of the C entering the chunk (HK-column slices, HO_STAGES
+// from the parts of the C entering the chunk (HK-column slices, HO_STAGES
 // stages; skipped for the first chunk from a zero state), its rows
-// scaled by inter_scale * scale, then + S V from S's pair, over den.
+// scaled by inter_scale * scale, then + S V from S's parts, over den.
 // Warp w owns rows 32 (w / 2).. and columns 64 (w % 2)...
 __global__ void __launch_bounds__(THREADS)
 ml_hout_tc_kernel(const bf16* __restrict__ qx, const bf16* __restrict__ vx,
@@ -1001,7 +1016,7 @@ ml_hout_tc_kernel(const bf16* __restrict__ qx, const bf16* __restrict__ vx,
                   bf16* __restrict__ hx, int L, int H, int D, int q,
                   int has_state, float scale) {
   extern __shared__ __align__(16) bf16 tsm[];
-  constexpr int STG = 3 * TT * HLD;
+  constexpr int STG = (1 + NPART) * TT * HLD;   // Q and C's parts
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int v0 = blockIdx.x * TT, ci = blockIdx.y, bh = blockIdx.z;
@@ -1025,17 +1040,17 @@ ml_hout_tc_kernel(const bf16* __restrict__ qx, const bf16* __restrict__ vx,
       for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
 
   if (ci > 0 || has_state) {
-    const bf16* chi = cin + cb * 2 * (size_t)D * DP + (size_t)v0 * DP;
-    const bf16* clo = chi + (size_t)D * DP;
+    const bf16* cp = cin + cb * NPART * (size_t)D * DP + (size_t)v0 * DP;
     const int KT = (DP + HK - 1) / HK;
-    // slice kt of Q and of the pair into stage kt % HO_STAGES
+    // slice kt of Q and of C's parts into stage kt % HO_STAGES
     auto issue = [&](int kt) {
       bf16* st = tsm + (kt % HO_STAGES) * STG;
       const int e0 = kt * HK;
       load_tile<TT, HK, HLD>(st, qb + e0, rs, cl, D - e0, vec);
-      load_tile<TT, HK, HLD>(st + TT * HLD, chi + e0, DP, nv, DP - e0, true);
-      load_tile<TT, HK, HLD>(st + 2 * TT * HLD, clo + e0, DP, nv, DP - e0,
-                             true);
+      for (int p = 0; p < NPART; ++p)
+        load_tile<TT, HK, HLD>(st + (1 + p) * TT * HLD,
+                               cp + (size_t)p * D * DP + e0, DP, nv, DP - e0,
+                               true);
     };
     for (int kt = 0; kt < HO_STAGES - 1; ++kt) {
       if (kt < KT) issue(kt);
@@ -1047,8 +1062,7 @@ ml_hout_tc_kernel(const bf16* __restrict__ qx, const bf16* __restrict__ vx,
       if (kt + HO_STAGES - 1 < KT) issue(kt + HO_STAGES - 1);
       tc::cp_async_commit();
       const bf16* qs = tsm + (kt % HO_STAGES) * STG;
-      const bf16* hs = qs + TT * HLD;
-      const bf16* ls = hs + TT * HLD;
+      const bf16* hs = qs + TT * HLD;          // C's parts, TT HLD apart
 #pragma unroll
       for (int kk = 0; kk < HK / 16; ++kk) {
         uint32_t a[2][4];
@@ -1058,17 +1072,25 @@ ml_hout_tc_kernel(const bf16* __restrict__ qx, const bf16* __restrict__ vx,
                           qs + tc::a_off<HLD>(lane, wr + mt * 16, kk * 16));
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
-          uint32_t bh4[4], bl4[4];
+          uint32_t bh4[4];
           tc::ldmatrix_x4(bh4, hs + tc::b_off<HLD>(lane, wc + np * 16,
-                                                   kk * 16));
-          tc::ldmatrix_x4(bl4, ls + tc::b_off<HLD>(lane, wc + np * 16,
                                                    kk * 16));
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
             tc::mma_bf16(acc[mt][2 * np], a[mt], bh4[0], bh4[1]);
             tc::mma_bf16(acc[mt][2 * np + 1], a[mt], bh4[2], bh4[3]);
-            tc::mma_bf16(acc[mt][2 * np], a[mt], bl4[0], bl4[1]);
-            tc::mma_bf16(acc[mt][2 * np + 1], a[mt], bl4[2], bl4[3]);
+          }
+#pragma unroll
+          for (int p = 1; p < NPART; ++p) {     // C's lower parts
+            uint32_t bl4[4];
+            tc::ldmatrix_x4(bl4, hs + p * TT * HLD +
+                                     tc::b_off<HLD>(lane, wc + np * 16,
+                                                    kk * 16));
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              tc::mma_bf16(acc[mt][2 * np], a[mt], bl4[0], bl4[1]);
+              tc::mma_bf16(acc[mt][2 * np + 1], a[mt], bl4[2], bl4[3]);
+            }
           }
         }
       }
@@ -1089,13 +1111,13 @@ ml_hout_tc_kernel(const bf16* __restrict__ qx, const bf16* __restrict__ vx,
       }
   }
 
-  // + S V: S's pair [i][j] as the A operand, V [j][v] as the B operand
-  bf16* Sh = tsm;
-  bf16* Sl = Sh + TT * TLD;
-  bf16* Vs = Sl + TT * TLD;
-  const bf16* shi = sp + cb * 2 * SQ * SQ;
-  load_tile<TT, TT, TLD>(Sh, shi, SQ, SQ, SQ, true);
-  load_tile<TT, TT, TLD>(Sl, shi + SQ * SQ, SQ, SQ, SQ, true);
+  // + S V: S's parts [i][j] as the A operand, V [j][v] as the B operand
+  bf16* Ss = tsm;                            // S's parts, TT TLD apart
+  bf16* Vs = Ss + NPART * TT * TLD;
+  const bf16* s0 = sp + cb * NPART * SQ * SQ;
+  for (int p = 0; p < NPART; ++p)
+    load_tile<TT, TT, TLD>(Ss + p * TT * TLD, s0 + (size_t)p * SQ * SQ, SQ,
+                           SQ, SQ, true);
   const bf16* vb = vx + ((size_t)b * L + l0) * rs + (size_t)h * D + v0;
   load_tile<TT, TT, TLD>(Vs, vb, rs, cl, nv, vec);
   tc::cp_async_commit();
@@ -1103,24 +1125,26 @@ ml_hout_tc_kernel(const bf16* __restrict__ qx, const bf16* __restrict__ vx,
   __syncthreads();
   const int kend = min(SQ, wr + 32) / 16;     // S is 0 past the diagonal
   for (int kk = 0; kk < kend; ++kk) {
-    uint32_t ah[2][4], al[2][4];
+    uint32_t as[NPART][2][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      tc::ldmatrix_x4(ah[mt], Sh + tc::a_off<TLD>(lane, wr + mt * 16, kk * 16));
-      tc::ldmatrix_x4(al[mt], Sl + tc::a_off<TLD>(lane, wr + mt * 16, kk * 16));
-    }
+    for (int p = 0; p < NPART; ++p)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        tc::ldmatrix_x4(as[p][mt], Ss + p * TT * TLD +
+                                       tc::a_off<TLD>(lane, wr + mt * 16,
+                                                      kk * 16));
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
       uint32_t bb[4];
       tc::ldmatrix_x4_trans(bb,
                             Vs + tc::a_off<TLD>(lane, kk * 16, wc + np * 16));
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        tc::mma_bf16(acc[mt][2 * np], ah[mt], bb[0], bb[1]);
-        tc::mma_bf16(acc[mt][2 * np + 1], ah[mt], bb[2], bb[3]);
-        tc::mma_bf16(acc[mt][2 * np], al[mt], bb[0], bb[1]);
-        tc::mma_bf16(acc[mt][2 * np + 1], al[mt], bb[2], bb[3]);
-      }
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int p = 0; p < NPART; ++p) {
+          tc::mma_bf16(acc[mt][2 * np], as[p][mt], bb[0], bb[1]);
+          tc::mma_bf16(acc[mt][2 * np + 1], as[p][mt], bb[2], bb[3]);
+        }
     }
   }
 
@@ -1152,8 +1176,9 @@ constexpr int SCORES_TC_SMEM =
     SC_STAGES * ((SR + CMAX) * HLD + 2 * HK) * (int)sizeof(bf16);
 constexpr int STATE_TC_SMEM = 6 * TT * TLD * (int)sizeof(bf16);
 constexpr int HOUT_TC_SMEM =
-    (HO_STAGES * 3 * TT * HLD > 3 * TT * TLD ? HO_STAGES * 3 * TT * HLD
-                                              : 3 * TT * TLD) *
+    (HO_STAGES * (1 + NPART) * TT * HLD > (NPART + 1) * TT * TLD
+         ? HO_STAGES * (1 + NPART) * TT * HLD
+         : (NPART + 1) * TT * TLD) *
     (int)sizeof(bf16);
 
 template <typename T>

@@ -42,6 +42,7 @@ bwd_design_launches = dict.fromkeys(BWD_DESIGNS, 0)     # the same, by route
 
 MAX_CHUNK = 128         # longest chunk the kernel's shared tiles hold
 MAX_HEAD_DIM = 1024     # widest head a block's C tile holds
+FWD_PARTS = 3           # bf16 parts of an f32 operand (csrc/mlstm.cu NPART)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "mlstm.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -184,8 +185,8 @@ def _outputs(q, qc: int):
     n = torch.empty((bs, h, hd), **f32)
     m = torch.empty((bs, h), **f32)
     # per (b, h, chunk): the gates' vectors and scalars, carry, the n
-    # entering the chunk, S and den; for bf16 S as a bf16 pair and the C
-    # entering the chunk as one
+    # entering the chunk, S and den; for bf16 S and the C entering the
+    # chunk in FWD_PARTS bf16 parts each
     gvec = torch.empty((bs, h, nc, 4, qc), **f32)
     gscal = torch.empty((bs, h, nc, 2), **f32)
     carry = torch.empty((bs, h, nc), **f32)
@@ -194,8 +195,10 @@ def _outputs(q, qc: int):
     cin = None
     if q.dtype == torch.bfloat16:
         sq, dp = -(-qc // 16) * 16, -(-hd // 8) * 8
-        st = torch.empty((bs, h, nc, 2, sq, sq), dtype=q.dtype, device=dev)
-        cin = torch.empty((bs, h, nc, 2, hd, dp), dtype=q.dtype, device=dev)
+        st = torch.empty((bs, h, nc, FWD_PARTS, sq, sq), dtype=q.dtype,
+                         device=dev)
+        cin = torch.empty((bs, h, nc, FWD_PARTS, hd, dp), dtype=q.dtype,
+                          device=dev)
     else:
         st = torch.empty((bs, h, nc, qc, qc), **f32)
     return out, (c, n, m), (gvec, gscal, carry, nin, st, cin, den)

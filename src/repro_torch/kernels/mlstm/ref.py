@@ -120,6 +120,62 @@ def mlstm_chunked_grads(q, k, v, logi, logf, chunk: int, dh):
         return torch.autograd.grad(h, leaves, dh)
 
 
+def mlstm_float64(q, k, v, logi, logf, chunk: int):
+    """h and the final state C of the chunked mLSTM from the zero state,
+    every operation in float64 (nothing rounded): the oracle of the
+    forward's precision check."""
+    bs, length, h, hd = q.shape
+    f64 = dict(dtype=torch.float64, device=q.device)
+    state = (torch.zeros((bs, h, hd, hd), **f64),
+             torch.zeros((bs, h, hd), **f64), torch.full((bs, h), NEG, **f64))
+    outs = []
+    with torch.no_grad():
+        for i in range(0, length, chunk):
+            j = min(i + chunk, length)
+            ht, state = mlstm_chunk_body(
+                *(x[:, i:j].double() for x in (q, k, v, logi, logf)), state)
+            outs.append(ht)
+    return torch.cat(outs, dim=1), state[0]
+
+
+# The forward's precision check (bf16 inputs, slow gates, from the zero
+# state): h and the final C of a kernel against the float64 oracle, with
+# the plain version (f32 throughout, h rounded once) as the yardstick.
+# h's elements off the oracle's rounding to bf16 may number at most
+# PRECISION_H times the plain version's plus PRECISION_H_SLACK (the two
+# sum in different orders, so each misses a few rounding ties the other
+# does not); C's relative error may be at most PRECISION_C times the
+# plain version's.  Readings (h's count against the plain version's, C's
+# error as a multiple of the plain version's), three bf16 parts of each
+# f32 operand (~24 bits) against two (~16 bits): on an H100 at the
+# training shape (B 2, L 512, 4 heads of hd 1024) h 6,080 / 1,747 (3.5x)
+# against 11,021 (6.3x), C 2.2x against 9.1x; emulated at (1, 16, 1, 8)
+# h 0 / 0 against 1, C 1.6x against 38x, and at (1, 256, 2, 64) h 10 / 9
+# against 88, C 1.9x against 11x.  4 sits between the two on both: at
+# the training shape h's limit (6,990) is 15% above three parts' reading
+# and 37% below two parts', C's 1.8x above and 2.3x below.
+PRECISION_H, PRECISION_H_SLACK, PRECISION_C = 4, 2, 4
+
+
+def precision(h, c, q, k, v, logi, logf, chunk: int) -> dict:
+    """The forward's precision check of a kernel's h and final C at these
+    inputs: the counts of h's elements off the float64 oracle's bf16
+    rounding, C's relative errors (the kernel's and the plain version's),
+    and ``ok``."""
+    h64, c64 = mlstm_float64(q, k, v, logi, logf, chunk)
+    hp, (cp, _, _) = mlstm_chunked(q, k, v, logi, logf, None, chunk)
+    hr = h64.to(h.dtype)
+
+    def rel(x):
+        return ((x.double() - c64).norm() / c64.norm()).item()
+    row = {"h_off": int((h != hr).sum()), "h_off_plain": int((hp != hr).sum()),
+           "h_elems": h.numel(), "c_err": rel(c), "c_err_plain": rel(cp)}
+    row["ok"] = (row["h_off"] <= PRECISION_H * row["h_off_plain"]
+                 + PRECISION_H_SLACK
+                 and row["c_err"] <= PRECISION_C * row["c_err_plain"])
+    return row
+
+
 def floor_share(q, k, v, logi, logf, chunk: int) -> float:
     """The share of rows (b, t, h) whose denominator takes the floor
     exp(-m_comb) in the plain version from the zero state: there no
@@ -142,6 +198,10 @@ BWD_CARRY_FAULT = ("        prev = cg[k] * prev + own[k];\n",
 BWD_FLOOR_FAULT = (
     "    const float dden = bind ? 0.f : -sgn * ndh * rinv * rinv;\n",
     "    const float dden = -sgn * ndh * rinv * rinv;\n")
+# The forward kernel (csrc/mlstm.cu) with its f32 operands (S, the C
+# entering each chunk, wexp o V) in two bf16 parts, as it was: the fault
+# the precision check must catch.
+FWD_PARTS_FAULT = ("constexpr int NPART = 3;", "constexpr int NPART = 2;")
 BWD_ROUND_FAULT = (
     "Gemm{seq(dh), dd(s.cst), none,",
     "Gemm{seq(dh), Op{s.cst, 0, D, 1, H * nc * dds, nc * dds, dds, 1}, none,")

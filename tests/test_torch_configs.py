@@ -109,6 +109,42 @@ def test_chip_smoke_imports_no_jax_and_no_repro():
             assert not mod.startswith(("jax", "repro.")) and mod != "repro", s
 
 
+def test_example_twins_import_no_jax_and_no_repro():
+    """The port's twins of the JAX package's examples import neither jax
+    nor repro: in a subprocess that loads each of them (without running
+    it), and line by line."""
+    examples = os.path.join(os.path.dirname(__file__), "..", "examples")
+    twins = sorted(f for f in os.listdir(examples) if f.endswith("_torch.py"))
+    assert {"fault_tolerant_elastic_torch.py", "multi_tenant_fabric_torch.py",
+            "spot_fleet_torch.py", "serve_longcontext_ssm_torch.py",
+            "quickstart_torch.py"} <= set(twins), twins
+    for name in twins:
+        with open(os.path.join(examples, name)) as f:
+            for line in f.read().splitlines():
+                s = line.strip()
+                if s.startswith(("import ", "from ")):
+                    mod = s.split()[1]
+                    assert not mod.startswith(("jax", "repro.")) \
+                        and mod != "repro", (name, s)
+    code = textwrap.dedent(f"""
+        import importlib.util, os, sys
+        for name in {twins!r}:
+            path = os.path.join({examples!r}, name)
+            spec = importlib.util.spec_from_file_location(name[:-3], path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "repro" or m.startswith("repro."))
+        assert not bad, bad
+        print("loaded", len({twins!r}))
+    """)
+    env = {**os.environ, "PYTHONPATH": SRC}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "loaded" in out.stdout
+
+
 def test_entry_points_default_to_cuda():
     from repro_torch import resolve_device
     from repro_torch.models import transformer as tf

@@ -584,6 +584,35 @@ def test_serve_gang_checkpoint_and_snapshot_keep_host_bookkeeping():
     assert isinstance(snap.state["slots"]["plen"], np.ndarray)
 
 
+def test_unchanged_checkpoint_keeps_the_last_snapshot():
+    """A delta tick with nothing changed since the last checkpoint ships
+    nothing and keeps the last snapshot's host state and fingerprint (no
+    copy, no hash); a changed state is copied and hashed anew, and a
+    failure after both replays the chain to the last fingerprint."""
+    fab = _fabric()
+    g = fab.allocate("t", 2)
+    state = {"w": torch.arange(70000, dtype=torch.float32),
+             "m": {"v": torch.ones((13, 7), dtype=torch.bfloat16)},
+             "step": 3}
+    first = g.checkpoint(state, 3)
+    same = g.checkpoint(state, 3)
+    assert [s["kind"] for s in g.ckpt_stats] == ["full", "delta"]
+    assert g.ckpt_stats[1]["bytes"] == 0
+    assert same.state is first.state
+    assert same.fingerprint == first.fingerprint \
+        == snap_mod.fingerprint(state)
+    state["w"][5] = -1.0                 # the live leaf changes in place
+    changed = g.checkpoint(state, 4)
+    assert g.ckpt_stats[2]["kind"] == "delta" and g.ckpt_stats[2]["bytes"]
+    assert changed.state is not first.state
+    assert float(first.state["w"][5]) == 5.0
+    assert changed.fingerprint == snap_mod.fingerprint(state) \
+        != first.fingerprint
+    snap = g.fail([])
+    assert snap.fingerprint == changed.fingerprint
+    assert snap_mod.fingerprint(snap.state) == changed.fingerprint
+
+
 # ---------------------------------------------------------------------------
 # tests/test_dist.py on the port runtime
 # ---------------------------------------------------------------------------

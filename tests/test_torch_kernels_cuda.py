@@ -1127,13 +1127,12 @@ def test_cuda_mlstm_checks_catch_carry_faults(cuda_device, tmp_path,
 
 # bf16 cases whose initial C has a large common part (_mlstm_inputs'
 # common): a kernel that rounds C once as an operand of Q C^T fails them.
-# The "rounded once" fault drops the product of C's low bf16 part.
+# The "rounded once" fault keeps only the product of C's first bf16 part.
 MLSTM_COMMON = [(1, 300, 4, 1024, 128, True, "slow"),
                 (1, 130, 1, 64, 128, True, "slow")]
 MLSTM_ROUND_FAULT = (
-    "            tc::mma_bf16(acc[mt][2 * np], a[mt], bl4[0], bl4[1]);\n"
-    "            tc::mma_bf16(acc[mt][2 * np + 1], a[mt], bl4[2], bl4[3]);\n",
-    "")
+    "          for (int p = 1; p < NPART; ++p) {     // C's lower parts\n",
+    "          for (int p = 1; p < 1; ++p) {     // C's lower parts\n")
 
 
 @pytest.mark.cuda
@@ -1148,8 +1147,8 @@ def test_cuda_mlstm_keeps_c_precision(cuda_device, case):
 @pytest.mark.cuda
 def test_cuda_mlstm_checks_catch_c_rounded_once(cuda_device, tmp_path,
                                                 monkeypatch):
-    """A copy of mlstm.cu whose Q C^T drops C's low bf16 part fails every
-    common-part case."""
+    """A copy of mlstm.cu whose Q C^T keeps only C's first bf16 part fails
+    every common-part case."""
     import json
 
     from repro_torch.kernels.mlstm import ops as MO
@@ -1163,6 +1162,33 @@ def test_cuda_mlstm_checks_catch_c_rounded_once(cuda_device, tmp_path,
         caught[case] = not all(row[f"{x}_ok"] for x in "hcnm")
         print(f"mlstm-round-fault {json.dumps(row)}", flush=True)
     assert all(caught.values()), caught
+
+
+@pytest.mark.cuda
+def test_cuda_mlstm_precision_at_training_shape(cuda_device, tmp_path,
+                                                monkeypatch):
+    """xlstm-1.3b's training shape (B 2, L 512, 4 heads of hd 1024, chunk
+    128), bf16, slow gates: the kernel's h and final C pass
+    ``ref.precision`` (against float64, the plain version as the
+    yardstick); a copy with its f32 operands in two bf16 parts
+    (``ref.FWD_PARTS_FAULT``: the kernel as it was) fails it."""
+    import json
+
+    from repro_torch.kernels.mlstm import ops as MO
+    from repro_torch.kernels.mlstm import ref as MR
+    ins = MR.grad_inputs(2, 512, 4, 1024, gates="slow",
+                         dtype=torch.bfloat16, seed=1536,
+                         device=cuda_device)[:5]
+    rows = {}
+    for tag in ("kernel", "two_parts"):
+        if tag == "two_parts":
+            _mutant_lib(MO, tmp_path, monkeypatch, "mlstm_parts",
+                        *MR.FWD_PARTS_FAULT)
+        h, (c, _, _) = MO.mlstm(*ins, chunk=128)
+        torch.cuda.synchronize()
+        rows[tag] = MR.precision(h, c, *ins, 128)
+        print(f"mlstm-precision {tag} {json.dumps(rows[tag])}", flush=True)
+    assert rows["kernel"]["ok"] and not rows["two_parts"]["ok"], rows
 
 
 @pytest.mark.cuda

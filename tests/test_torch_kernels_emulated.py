@@ -46,13 +46,12 @@ PTX_FNS = {"smem_u32", "cp_async16", "cp_async4", "cp_async_commit",
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# mlstm's h pass without the product of C's low bf16 part, and
+# mlstm's h pass with only the product of C's first bf16 part, and
 # mamba_scan's y with only that of the state S's first part: each rounded
 # once (the faults the card tests plant too)
 MLSTM_ROUND_FAULT = (
-    "            tc::mma_bf16(acc[mt][2 * np], a[mt], bl4[0], bl4[1]);\n"
-    "            tc::mma_bf16(acc[mt][2 * np + 1], a[mt], bl4[2], bl4[3]);\n",
-    "")
+    "          for (int p = 1; p < NPART; ++p) {     // C's lower parts\n",
+    "          for (int p = 1; p < 1; ++p) {     // C's lower parts\n")
 SCAN_ROUND_FAULT = (
     "for (int k = 0; k < NPART; ++k) {   // the state's parts",
     "for (int k = 0; k < 1; ++k) {   // the state's parts")
@@ -556,20 +555,60 @@ def test_emulated_mlstm_matches_plain(libs, case):
 
 
 def test_emulated_mlstm_keeps_c_precision(libs):
-    """bf16, an initial C with a large common part: Q C^T from C's hi +
-    lo bf16 pair passes."""
+    """bf16, an initial C with a large common part: Q C^T from C's bf16
+    parts passes."""
     ok = _mlstm_ok(libs["mlstm"], MLSTM_COMMON, common=True)
     assert all(ok.values()), ok
 
 
 def test_emulated_mlstm_checks_catch_c_rounded_once(libs):
-    """mlstm.cu without the product of C's low part fails the case."""
+    """mlstm.cu with only C's first part in Q C^T fails the case."""
     old, new = MLSTM_ROUND_FAULT
     source = MO._SOURCE.read_text()
     assert source.count(old) == 1
     lib = build(source.replace(old, new), MO._SOURCE.parent, libs["out"],
                 "mlstm_fault", MO._SIG)
     assert not all(_mlstm_ok(lib, MLSTM_COMMON, common=True).values())
+
+
+# The forward's precision check (ref.precision: h and the final C against
+# float64, the plain version as the yardstick), bf16 with slow gates: the
+# smallest shape where f32 operands kept in two bf16 parts fail it (one
+# chunk of 16 tokens, hd 8), and several chunks of two heads, where h
+# fails too.
+MLSTM_PRECISION = [(1, 16, 1, 8, 16), (1, 256, 2, 64, 64)]
+
+
+def _mlstm_precision(lib, case):
+    b, length, h, hd, chunk = case
+    ins = MR.grad_inputs(b, length, h, hd, gates="slow",
+                         dtype=torch.bfloat16, seed=length + hd)[:5]
+    err, out, (c, _, _) = MO.call(lib, *ins, None, chunk, None)
+    assert err == 0
+    return MR.precision(out, c, *ins, chunk)
+
+
+@pytest.mark.parametrize("case", MLSTM_PRECISION)
+def test_emulated_mlstm_keeps_f32_precision(libs, case):
+    """S, the C entering each chunk and wexp o V in three bf16 parts: h
+    and C as close to float64 as the plain version's, within
+    ref.precision's factors."""
+    row = _mlstm_precision(libs["mlstm"], case)
+    assert row["ok"], row
+
+
+def test_emulated_mlstm_precision_catches_two_parts(libs):
+    """mlstm.cu with its f32 operands in two bf16 parts
+    (ref.FWD_PARTS_FAULT: the kernel as it was) fails every precision
+    case."""
+    old, new = MR.FWD_PARTS_FAULT
+    source = MO._SOURCE.read_text()
+    assert source.count(old) == 1
+    lib = build(source.replace(old, new), MO._SOURCE.parent, libs["out"],
+                "mlstm_parts", MO._SIG)
+    for case in MLSTM_PRECISION:
+        row = _mlstm_precision(lib, case)
+        assert not row["ok"], (case, row)
 
 
 # mamba_scan: the card tests' gate kinds (SCAN_GATES) and tolerances

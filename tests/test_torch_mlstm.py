@@ -310,3 +310,30 @@ def test_bwd_route_is_the_dtypes(dtype, design):
     TO.reset_launches()
     assert not any(TO.bwd_design_launches.values())
     assert TO.bwd_launches == 0
+
+
+@pytest.mark.parametrize("case", [(1, 16, 1, 8, 16), (1, 256, 2, 64, 64),
+                                  (2, 512, 4, 1024, 128)])
+def test_precision_yardstick_is_the_plain_version(case):
+    """``ref.precision``'s yardstick at the shapes of its emulated cases
+    and of xlstm-1.3b's training (bf16, slow gates): the plain version
+    (f32 throughout, h rounded once) keeps C within 1e-6 of the float64
+    oracle and misses the oracle's bf16 rounding of h on under 0.1% of
+    the elements, so it passes against itself; and its h is the JAX
+    package's jnp path's (``models.xlstm.mlstm_chunked``) on the same
+    inputs, to within one bf16 rounding."""
+    import ml_dtypes
+    b, length, h, hd, chunk = case
+    ins = TR.grad_inputs(b, length, h, hd, gates="slow",
+                         dtype=torch.bfloat16, seed=length + hd)[:5]
+    hp, (cp, _, _) = TR.mlstm_chunked(*ins, None, chunk)
+    row = TR.precision(hp, cp, *ins, chunk)
+    assert row["ok"] and row["h_off"] == row["h_off_plain"], row
+    assert row["c_err_plain"] < 1e-6, row
+    assert row["h_off_plain"] < 1e-3 * row["h_elems"], row
+    jh, _ = JX.mlstm_chunked(*(jnp.asarray(
+        t.float().numpy().astype(ml_dtypes.bfloat16) if t.dtype ==
+        torch.bfloat16 else t.numpy()) for t in ins), None, chunk=chunk)
+    jh = np.asarray(jh).astype(np.float32)
+    np.testing.assert_allclose(hp.float().numpy(), jh, rtol=2 ** -7,
+                               atol=2 ** -7 * np.abs(jh).max())
