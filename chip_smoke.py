@@ -44,20 +44,37 @@ non-zero before printing any result):
    frac 0.05, global batch 8 x 1024, 12 steps (``train``: every loss,
    step time p50/p99, tokens/s, peak memory, launches per kernel), times
    one more step's parts (``train-anatomy``) and profiles another.
-   Then the analysis path (slice 15, ``dryrun`` lines): each of
-   ``DRYRUN_CELLS`` (llama3.2-1b's train step at 2 x 1024 under remat
-   and its prefill at 4 x 512, full width and depth; granite-moe-1b-a400m's
-   train step at 4 x 1024, whole; the flash kernels' forward and backward
-   at 2 x 1024) is analysed by ``launch.dryrun.trace`` on the meta device
-   and on fake CUDA tensors (which must agree), every kernel counted by
-   its ``work()``, then run on the card (one warm step, five timed with
-   CUDA events): the kernel calls equal the counters, the predicted peak
-   memory is within 10% of ``max_memory_allocated()``, and no step is
-   faster than its bound (H100 constants).  Each line prints the counted
-   and model FLOPs, HBM bytes, the terms, the bound, the p50, ``mfu`` and
-   ``roofline_fraction``.  A planted analysis that ignores remat must fail
-   the launch gate, one that keeps no lse or f32 output for flash's
-   backward the memory gate.
+   Then the analysis path (slice 15, ``dryrun`` lines) at the JAX
+   package's assigned shapes (slice 17): each of ``DRYRUN_CELLS``
+   (train_4k for llama3.2-1b, llama3.2-3b and granite-moe-1b-a400m,
+   micro-batched by ``GRAD_ACCUM``; prefill_32k for llama3.2-1b, glm4-9b
+   and zamba2-2.7b; decode_32k for llama3.2-1b and minitron-4b over a
+   full seeded cache at position 32767; long_500k for zamba2-2.7b, its
+   ring of 4096 wrapped 127 times, and xlstm-1.3b at position 524287;
+   full width and depth, each global batch cut as the line's ``reduced``
+   says; and the flash kernels' forward and backward at 2 x 1024) is
+   analysed by ``launch.dryrun.trace`` on the meta device and on fake
+   CUDA tensors (which must agree), every kernel counted by its
+   ``work()``, then run on the card (one warm step, three timed with
+   CUDA events; five for flash): the kernel calls equal the counters, the
+   predicted peak memory is within 10% of ``max_memory_allocated()``, no
+   step is faster than its bound (H100 constants), and its logits or loss
+   are finite.  Each line prints the counted and model FLOPs, HBM bytes,
+   the terms, the bound, the p50, ``mfu`` and ``roofline_fraction``.  A
+   planted analysis that ignores remat must fail the launch gate (on
+   train_4k-llama1b), one that keeps no lse or f32 output for flash's
+   backward the memory gate.  Then a 500k-token context (slice 17,
+   ``long-serve``): zamba2-2.7b whole through ``ServeLoop`` with the
+   long_500k window of 4096, a seeded prompt of 524,224 tokens (not a
+   multiple of the window) and 64 greedy tokens up to position 524,287,
+   held against the model's windowed forward over the same 524,288
+   tokens (the prefill's logits within the serving tolerance; the
+   decode's, which bf16 carries 0.28-0.46 apart at full depth, nearer
+   than unrelated logits), after an f32 control of the same path at
+   12,288 tokens whose every served token is the forward's; before it,
+   mamba_scan at 524,288 tokens with slow gates and flash at S 524,288
+   with the window, each against its plain version and a planted copy
+   that must fail.
 6. The data plane (slice 3) over the full-width llama3.2-1b train state
    (params bf16, AdamW moments f32: 12.36 GB).  ``diffsync-check``: fork
    a copy of a state, take one gang step from it to get the child, and
@@ -65,8 +82,8 @@ non-zero before printing any result):
    leaf (op ``sum``, then ``overwrite``): every leaf of 2^20 elements or
    more goes through the diff_merge kernel, bit for bit equal to its
    plain version; the norms and the step take the host path; the
-   overwrite merge has the child's fingerprint.  ``ckpt`` (2 of the 16
-   layers at full width, a 3.84 GB state, for the script's time limit):
+   overwrite merge has the child's fingerprint.  ``ckpt`` (1 of the 16
+   layers at full width, a 3.24 GB state, for the script's time limit):
    the gang runtime (4 ranks, 2 pods, compressed sync at frac 1.0, 4
    steps) run
    once uninterrupted (saving only the state before step 0) and once
@@ -137,7 +154,8 @@ non-zero before printing any result):
    their backwards once, every moe_gmm backward through the wgmma
    design); then one more warm granite step is profiled
    (``profile train_step_moe``).  Then the hybrid and xLSTM families
-   (slice 13): zamba2-2.7b whole (2 ranks, 4 x 1024) and xlstm-1.3b cut
+   (slice 13): zamba2-2.7b cut to 12 of its 54 layers (2 ranks, 4 x
+   1024; whole until slice 17) and xlstm-1.3b cut
    to 16 of its 48 layers (2 ranks, 4 x 512), every mamba_scan and mlstm
    backward through the tensor-core route, "mma.sync" (slice 14).  Each
    family's kernel counts must also equal the analysis's calls of one
@@ -864,10 +882,11 @@ SHARD = 617_907_200        # one full-width shard: 1,235,814,400 / 2 data
 # layers 62.5-76.2 s; at 2, 58.5 s and the spot wave's 134.7 s, when each
 # of its 39 checkpoints copied and hashed the state)
 FABRIC_LAYERS = 2
-# the ckpt phase's depth: 2 of llama3.2-1b's 16 layers at full width
-# (384,313,344 params, a 3.84 GB train state), for the script's time
-# limit (at all 16 the phase took 214-256 s, at 4 layers 92.9-118.3 s)
-CKPT_LAYERS = 2
+# the ckpt phase's depth: 1 of llama3.2-1b's 16 layers at full width
+# (323,491,840 params, a 3.24 GB train state, most of it the embedding),
+# for the script's time limit (at all 16 the phase took 214-256 s, at 4
+# layers 92.9-118.3 s, at 2 77.0 s)
+CKPT_LAYERS = 1
 GANG = {"ranks": 4, "pods": 2, "global_batch": 8, "seq_len": 1024,
         "frac": 0.05, "steps": 12, "lr": 1e-3}
 
@@ -933,6 +952,24 @@ def _mlstm_parts_fault_source():
                          "mlstm_parts")
 
 
+def _scan_carry_fault_source():
+    """A copy of mamba_scan.cu that carries no state from one chunk into
+    the next (``ref.FWD_CARRY_FAULT``), which the long scan's row must
+    fail."""
+    from repro_torch.kernels.mamba_scan import ref as sr
+    return _fault_source("mamba_scan", "mamba_scan.cu", sr.FWD_CARRY_FAULT,
+                         "mamba_scan_carry")
+
+
+def _flash_rescale_fault_source():
+    """A copy of flash_attention.cu whose bf16 route does not rescale the
+    running sum and accumulator when a row's maximum rises
+    (``ref.FWD_RESCALE_FAULT``), which the long flash row must fail."""
+    from repro_torch.kernels.flash_attention import ref as fr
+    return _fault_source("flash_attention", "flash_attention.cu",
+                         fr.FWD_RESCALE_FAULT, "flash_attention_rescale")
+
+
 def _ptxas(name):
     """ptxas's registers and spills for each kernel of the library
     ``name`` (its last build's log): {kernel: "N registers, S bytes spill
@@ -988,6 +1025,8 @@ def build_all(torch):
                 src, "mamba_scan", "csrc", "mamba_scan.cu"),
             "mamba_scan_bwd": os.path.join(
                 src, "mamba_scan", "csrc", "mamba_scan_bwd.cu"),
+            "mamba_scan_carry_fault": _scan_carry_fault_source(),
+            "flash_attention_rescale_fault": _flash_rescale_fault_source(),
             "mamba_scan_bwd_fault": _scan_bwd_fault_source(),
             "mamba_scan_bwd_round_fault": _scan_bwd_fault_source("round"),
             "mlstm": os.path.join(src, "mlstm", "csrc", "mlstm.cu"),
@@ -1549,19 +1588,34 @@ def train(torch, cfg, state_bytes):
     return res, launches
 
 
-# The dryrun phase (slice 15): each cell's step analysed on the meta device
-# (launch.dryrun, H100 constants), then run for real: (name, arch, kind,
-# batch, seq).  llama3.2-1b's train step at one rank's batch of the train
-# phase, its prefill at the fixed serving batch, granite's train step at
-# one rank's batch of train-family-moe, and the flash kernels' forward and
-# backward at llama's shape of the train phase (where the saved lse and
-# f32 output are a large share of the peak, so that an analysis that
-# forgets them fails the memory gate).
-DRYRUN_CELLS = [("train", "llama3.2-1b", "train", 2, 1024),
-                ("prefill", "llama3.2-1b", "prefill", 4, 512),
-                ("train_moe", "granite-moe-1b-a400m", "train", 4, 1024),
-                ("flash", "llama3.2-1b", "flash", 2, 1024)]
-DRYRUN_STEPS = 5                   # timed steps, after one warm step
+# The dryrun phase (slice 15; the JAX package's assigned shapes since
+# slice 17): each cell's step analysed on the meta device (launch.dryrun,
+# H100 constants), then run for real at full width and depth: (name, arch,
+# shape, batch, why the batch is cut).  A shape is one of
+# configs.base.SHAPES, its global batch cut to ``batch`` only as far as
+# the card's 80 GB or the script's time limit force; a train_4k step
+# micro-batches by launch.dryrun.GRAD_ACCUM.  "flash" is the flash
+# kernels' forward and backward alone at 2 x 1024, llama's shape of the
+# train phase (where the saved lse and f32 output are a large share of
+# the peak, so that an analysis that forgets them fails the memory gate).
+_TIME = "the script's time limit (a step is linear in the batch)"
+DRYRUN_CELLS = [
+    ("train_4k-llama1b", "llama3.2-1b", "train_4k", 4, _TIME),
+    ("train_4k-llama3b", "llama3.2-3b", "train_4k", 2,
+     _TIME + "; a 32.1 GB train state and its f32 gradient sum"),
+    ("train_4k-granite", "granite-moe-1b-a400m", "train_4k", 2, _TIME),
+    ("prefill_32k-llama1b", "llama3.2-1b", "prefill_32k", 2, _TIME),
+    ("prefill_32k-glm9b", "glm4-9b", "prefill_32k", 1, _TIME),
+    ("prefill_32k-zamba2", "zamba2-2.7b", "prefill_32k", 1, _TIME),
+    ("decode_32k-llama1b", "llama3.2-1b", "decode_32k", 48,
+     "80 GB: 1.07 GB of KV cache a sequence"),
+    ("decode_32k-minitron4b", "minitron-4b", "decode_32k", 12,
+     "80 GB: 4.29 GB of KV cache a sequence"),
+    ("long_500k-zamba2", "zamba2-2.7b", "long_500k", 1, None),
+    ("long_500k-xlstm", "xlstm-1.3b", "long_500k", 1, None),
+    ("flash", "llama3.2-1b", "flash", 2, None)]
+DRYRUN_STEPS = 3                   # timed steps, after one warm step
+DRYRUN_FLASH_STEPS = 5             # the flash cell's (a step is ~1 ms)
 DRYRUN_MEM_TOL = 0.10              # predicted peak against the measured
 
 
@@ -1576,10 +1630,17 @@ def _flash_step(q, k, v):
         return torch.autograd.grad(loss, ts)
 
 
-def dryrun_cell(torch, name, arch, kind, b, s, device, remat=True):
-    """(cfg, step, its meta arguments, a maker of the same arguments on
-    ``device``) of one DRYRUN_CELLS entry."""
-    from repro_torch.configs.base import ShapeConfig
+def dryrun_cell(torch, cell, device, remat=True, cfg=None):
+    """(cfg, shape, step, its meta arguments, a maker of the same
+    arguments on ``device``) of one DRYRUN_CELLS entry; ``shape`` is a
+    ShapeConfig with the JAX shape's name and length and the cell's batch
+    (kind "flash" for the flash cell).  ``cfg`` stands in for the arch's
+    full config (a reduced one, on the CPU).  A decode cell's state is
+    ``tf.init_decode_state`` at the shape's window, every KV row drawn
+    from a seeded normal in the model's dtype, and its position is
+    ``seq_len - 1``, where every row is attended (a long_500k ring has
+    wrapped 127 times)."""
+    from repro_torch.configs.base import SHAPES, ShapeConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import dryrun as dr
     from repro_torch.launch.mesh import make_host_mesh
@@ -1587,38 +1648,59 @@ def dryrun_cell(torch, name, arch, kind, b, s, device, remat=True):
     from repro_torch.models import transformer as tf
     from repro_torch.optim.adamw import AdamWConfig
 
-    cfg = get_config(arch).with_(remat=remat)
-    gen = lambda: torch.Generator(device=device).manual_seed(15)
+    _, arch, shape_name, b = cell[:4]
+    cfg = (cfg or get_config(arch)).with_(remat=remat)
+    gen = lambda seed=15: torch.Generator(device=device).manual_seed(seed)
+    if shape_name == "flash":
+        shape = ShapeConfig("flash", 1024, b, "flash")
 
-    def tokens():
-        return torch.randint(0, cfg.vocab, (b, s), generator=gen(),
-                             device=device, dtype=torch.int32)
-    if kind == "flash":
-        def make(dev):
+        def make_flash(dev):
             draw = torch.empty if dev == "meta" else torch.randn
-            return tuple(draw((b, s, h, cfg.hd()), device=dev,
+            return tuple(draw((b, shape.seq_len, h, cfg.hd()), device=dev,
                               dtype=cfg.torch_dtype())
                          for h in (cfg.n_heads, cfg.n_kv_heads,
                                    cfg.n_kv_heads))
-        return cfg, _flash_step, make("meta"), lambda: make(device)
+        return cfg, shape, _flash_step, make_flash("meta"), \
+            lambda: make_flash(device)
+    jax_shape = SHAPES[shape_name]
+    shape = ShapeConfig(jax_shape.name, jax_shape.seq_len, b, jax_shape.kind)
+    s = shape.seq_len
+    accum = dr.GRAD_ACCUM[arch] if shape.name == "train_4k" else 1
     mesh = make_host_mesh((1, 1), ("data", "model"))
-    fn, args, _ = dr.build_cell(cfg, ShapeConfig(name, s, b, kind), mesh)
-    if kind == "train":
+    fn, args, _ = dr.build_cell(cfg, shape, mesh, grad_accum=accum)
+
+    def tokens(n):
+        return torch.randint(0, cfg.vocab, (b, n), generator=gen(),
+                             device=device, dtype=torch.int32)
+    if shape.kind == "train":
         def make():
             state = model_mod.init_train_state(gen(), cfg, AdamWConfig(),
                                                device=device)
-            return state, {"tokens": tokens(), "labels": tokens()}
-    else:
+            return state, {"tokens": tokens(s), "labels": tokens(s)}
+    elif shape.kind == "prefill":
         def make():
             return (tf.init_params(gen(), cfg, device=device),
-                    {"tokens": tokens()})
-    return cfg, fn, args, make
+                    {"tokens": tokens(s)})
+    else:
+        def make():
+            states = tf.init_decode_state(
+                cfg, b, s, cfg.torch_dtype(),
+                window=model_mod.decode_window(cfg, shape), device=device)
+            draw = gen(16)
+            for st in states:
+                for key in ("k", "v"):
+                    if key in st:
+                        st[key].normal_(generator=draw)
+            pos = torch.full((b, 1), s - 1, dtype=torch.int32, device=device)
+            return (tf.init_params(gen(), cfg, device=device), states,
+                    tokens(1), pos)
+    return cfg, shape, fn, args, make
 
 
 def dryrun_predict(torch, fn, args, kind):
     """The step's analysis on the meta device (card routes)."""
     from repro_torch.launch import dryrun as dr
-    return dr.trace(fn, args, kind != "prefill")
+    return dr.trace(fn, args, kind in ("train", "flash"))
 
 
 def dryrun_predict_fake(torch, fn, meta_args, kind):
@@ -1632,7 +1714,7 @@ def dryrun_predict_fake(torch, fn, meta_args, kind):
         args = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                               device="cuda")
                         if isinstance(t, torch.Tensor) else t, meta_args)
-        return dr.trace(fn, args, kind != "prefill")
+        return dr.trace(fn, args, kind in ("train", "flash"))
 
 
 def _planted_no_lse(torch, fa_ops):
@@ -1665,15 +1747,18 @@ def dryrun_phase(torch, mods):
     the meta device, every kernel counted by its ``work()``) held against
     the same steps run on the card: predicted kernel calls equal the
     counters, predicted peak memory within DRYRUN_MEM_TOL of
-    ``max_memory_allocated()``, and no step faster than its bound.  A
-    planted analysis that ignores remat must fail the launch gate, one
-    that forgets flash's saved lse and o32 the memory gate."""
+    ``max_memory_allocated()``, no step faster than its bound, and finite
+    logits or loss.  Since slice 17 the cells are the JAX package's
+    assigned shapes (DRYRUN_CELLS).  A planted analysis that ignores remat
+    must fail the launch gate, one that forgets flash's saved lse and o32
+    the memory gate."""
     import ctypes
 
-    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.base import SHAPES
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mlstm import ops as ml_ops
     from repro_torch.launch import dryrun as dr
+    from repro_torch.models import model as model_mod
 
     # the mlstm backward's scratch, as its analysis route sizes it
     for shape in ((2, 512, 4, 1024, 128), (1, 300, 4, 1024, 128),
@@ -1686,9 +1771,10 @@ def dryrun_phase(torch, mods):
     card = _sh(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
     rows = []
-    for name, arch, kind, b, s in DRYRUN_CELLS:
-        cfg, fn, meta_args, make = dryrun_cell(torch, name, arch, kind, b,
-                                               s, "cuda")
+    for cell in DRYRUN_CELLS:
+        name, arch, shape_name, b, why = cell
+        cfg, shape, fn, meta_args, make = dryrun_cell(torch, cell, "cuda")
+        kind = shape.kind
         t0 = time.perf_counter()
         pred = dryrun_predict(torch, fn, meta_args, kind)
         trace_s = time.perf_counter() - t0
@@ -1696,10 +1782,11 @@ def dryrun_phase(torch, mods):
         same_fake = all(fake[k] == pred[k] for k in (
             "kernels", "flops", "hbm_bytes", "peak_bytes"))
         faults = {}
-        if name == "train":
-            _, fn_nr, args_nr, _ = dryrun_cell(
-                torch, name, arch, kind, b, s, "cuda", remat=False)
+        if name == "train_4k-llama1b":
+            _, _, fn_nr, args_nr, _ = dryrun_cell(torch, cell, "cuda",
+                                                  remat=False)
             faults["no_remat"] = dryrun_predict(torch, fn_nr, args_nr, kind)
+            del fn_nr, args_nr
         if name == "flash":
             with mock.patch.multiple(fa_ops,
                                      **_planted_no_lse(torch, fa_ops)):
@@ -1709,32 +1796,41 @@ def dryrun_phase(torch, mods):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
+        t_make = time.perf_counter()
         args = make()
-        grad = kind != "prefill"
+        torch.cuda.synchronize()
+        make_s = time.perf_counter() - t_make
+        grad = kind in ("train", "flash")
+        steps = DRYRUN_FLASH_STEPS if kind == "flash" else DRYRUN_STEPS
 
         def step():
             with torch.set_grad_enabled(grad):
-                fn(*args)
+                return fn(*args)
         step()                                  # warm
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for mod, attr in mods.values():
             setattr(mod, attr, 0)
-        times = []
-        for _ in range(DRYRUN_STEPS):
+        times, out = [], None
+        for _ in range(steps):
+            out = None              # the last step's outputs, not held
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
-            step()
+            out = step()
             ev[1].record()
             torch.cuda.synchronize()
             times.append(ev[0].elapsed_time(ev[1]))
         calls = {k: getattr(mod, attr) for k, (mod, attr) in mods.items()}
         peak = torch.cuda.max_memory_allocated() - base
-        del args
+        # the step's logits (prefill, decode), loss (train) or dq (flash)
+        head = out[1]["loss"] if kind == "train" else out[0]
+        finite = bool(torch.isfinite(head.float()).all())
+        del args, out, head
+        gc.collect()
         torch.cuda.empty_cache()
 
         def gates(p):
-            want = {k: p["kernels"].get(k, {}).get("calls", 0) * DRYRUN_STEPS
+            want = {k: p["kernels"].get(k, {}).get("calls", 0) * steps
                     for k in mods}
             mem_err = (p["peak_bytes"] - peak) / peak
             return want == calls, abs(mem_err) <= DRYRUN_MEM_TOL, mem_err
@@ -1742,8 +1838,17 @@ def dryrun_phase(torch, mods):
         p50 = sorted(times)[len(times) // 2]
         bound_s = max(pred["flops"] / dr.PEAK_FLOPS,
                       pred["hbm_bytes"] / dr.HBM_BW)
-        row = {"cell": name, "arch": arch, "kind": kind, "B": b, "S": s,
-               "layers": cfg.n_layers, "remat": cfg.remat,
+        jax_b = SHAPES[shape_name].global_batch \
+            if shape_name in SHAPES else None
+        row = {"cell": name, "arch": arch, "shape": shape_name, "kind": kind,
+               "B": b, "S": shape.seq_len, "layers": cfg.n_layers,
+               "remat": cfg.remat,
+               "grad_accum": (dr.GRAD_ACCUM[arch]
+                              if shape_name == "train_4k" else 1),
+               "window": (model_mod.decode_window(cfg, shape)
+                          if kind == "decode" else 0),
+               "reduced": ({"global_batch": [jax_b, b], "why": why}
+                           if jax_b is not None and jax_b != b else None),
                "flops": pred["flops"], "kernel_flops": pred["kernel_flops"],
                "hbm_bytes": pred["hbm_bytes"],
                "terms_ms": {"compute": pred["flops"] / dr.PEAK_FLOPS * 1e3,
@@ -1754,11 +1859,12 @@ def dryrun_phase(torch, mods):
                               pred["kernels"].items()},
                "pred_launches": {k: v["launches"] for k, v in
                                  pred["kernels"].items()},
-               "calls": calls, "steps": DRYRUN_STEPS,
+               "calls": calls, "steps": steps,
                "pred_peak_gb": pred["peak_bytes"] / 1e9,
                "meas_peak_gb": peak / 1e9, "mem_err": mem_err,
                "launches_ok": launches_ok, "mem_ok": mem_ok,
-               "bound_ok": p50 * 1e-3 >= bound_s, "trace_s": trace_s,
+               "bound_ok": p50 * 1e-3 >= bound_s, "finite": finite,
+               "trace_s": trace_s, "make_s": make_s,
                "fake_cuda_equal": same_fake,
                "fake_cuda": {k: fake[k] == pred[k] for k in (
                    "kernels", "flops", "hbm_bytes", "peak_bytes")},
@@ -1767,7 +1873,6 @@ def dryrun_phase(torch, mods):
                "fake_cuda_kernels": fake["kernels"],
                "card": card}
         if kind != "flash":
-            shape = ShapeConfig(name, s, b, kind)
             rl = dr.roofline({"flops": pred["flops"]},
                              {"hbm_bytes": pred["hbm_bytes"],
                               "collective_bytes": 0}, cfg, shape, 1)
@@ -1782,14 +1887,348 @@ def dryrun_phase(torch, mods):
         print(f"dryrun {json.dumps(row)}", flush=True)
         rows.append(row)
     bad = [r for r in rows if not (r["launches_ok"] and r["mem_ok"]
-                                   and r["bound_ok"]
+                                   and r["bound_ok"] and r["finite"]
                                    and r["fake_cuda_equal"])]
     assert not bad, bad
-    train_row = next(r for r in rows if r["cell"] == "train")
+    train_row = next(r for r in rows if r["cell"] == "train_4k-llama1b")
     flash_row = next(r for r in rows if r["cell"] == "flash")
     assert not train_row["fault_no_remat"]["launches_ok"], train_row
     assert not flash_row["fault_no_lse"]["mem_ok"], flash_row
     return rows
+
+
+# Slice 17: the long_500k shape's main path, a 500k-token context served
+# by zamba2-2.7b through the window path at full width and depth: one
+# ServeLoop(window=4096), batch 1, a prompt LONG_NEW tokens short of the
+# shape's 524,288 (not a multiple of the window, so the ring's placement
+# of the prompt's last rows decides the decode), LONG_NEW greedy tokens up
+# to position 524,287.
+LONG_ARCH = "zamba2-2.7b"
+LONG_NEW = 64
+LONG_SCAN_HEADS = 8            # the plain scan's heads at a time (memory)
+# the f32 control: LONG_NEW greedy tokens after a prompt that ends 4032
+# tokens past the ring's second wrap, as the 524k prompt ends past its
+# 127th (3 x 4096 tokens in all: the prompt and the sequence must be
+# multiples of the scan's 64-token chunk); its tolerance (normwise,
+# logits): decode and forward sum in other orders over 54 layers in f32
+# (1.1e-4 to 3.4e-4 at 960 to 65,536 tokens, window or not: PERF.md, PR
+# 27)
+LONG_CONTROL = 3 * 4096 - LONG_NEW
+LONG_F32_TOL = 1e-3
+
+
+def _scan_plain_by_heads(sr, x, dt, a, b, c, chunk):
+    """``ref.ssd_chunked`` LONG_SCAN_HEADS heads at a time (the heads are
+    independent): the plain version's f32 intermediates of all 80 heads at
+    524k tokens would not fit the card."""
+    ys, ss = [], []
+    for h0 in range(0, x.shape[2], LONG_SCAN_HEADS):
+        hs = slice(h0, h0 + LONG_SCAN_HEADS)
+        y, st = sr.ssd_chunked(x[:, :, hs], dt[:, :, hs], a[hs], b, c, chunk)
+        ys.append(y)
+        ss.append(st)
+    import torch
+    return torch.cat(ys, dim=2), torch.cat(ss, dim=1)
+
+
+def _close_by_rows(torch, got, want, atol, rtol, rows=16384):
+    """(allclose, max abs error) of two (B, L, ...) tensors, compared
+    ``rows`` positions at a time: the f32 temporaries of one comparison
+    of a 524k-token tensor would not fit beside the inputs."""
+    ok, err = bool(torch.isfinite(got.float()).all()), 0.0
+    for i in range(0, got.shape[1], rows):
+        g = got[:, i:i + rows].float()
+        w = want[:, i:i + rows].float()
+        ok = ok and torch.allclose(g, w, atol=atol, rtol=rtol)
+        err = max(err, (g - w).abs().max().item())
+    return ok, err
+
+
+def check_long_kernels(torch, cfg, window, length):
+    """The 500k serve's kernels against their plain versions at its
+    length, with the existing gates, and each against a planted copy that
+    must fail: mamba_scan at (1, length, 80, 64, 64) bf16 with slow gates
+    (SCAN_GATES), so that the carry over length / 64 chunks decides the
+    result (``carry_share`` above 0.1); flash, causal, at ``window``, over
+    zamba2's heads (H 32 = KV 32, hd 80 through the padding wrapper),
+    against ``ref.attention_ref_blocked`` (the (S, S) logits of
+    ``attention_ref`` would not fit).  Times the kernels on their own
+    inputs (flash on the padded (B, H, S, 128) layout, as check_kernel
+    does), the plain versions once; no PyTorch call computes either
+    function at this length (SDPA would need an (S, S) window mask)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.mamba_scan import ops as so
+    from repro_torch.kernels.mamba_scan import ref as sr
+    from repro_torch.models import ssm as ssm_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    rows = []
+    # mamba_scan, slow gates
+    _, h = ssm_mod.dims(cfg)
+    p, n, chunk = cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk
+    bf16 = torch.bfloat16
+    x = (torch.randn((1, length, h, p), generator=gen, device="cuda")
+         * 0.5).to(bf16)
+    mean, std = SCAN_GATES["slow"]
+    dt = torch.nn.functional.softplus(
+        torch.randn((1, length, h), generator=gen, device="cuda") * std
+        + mean)
+    bb, cc = ((torch.randn((1, length, n), generator=gen, device="cuda")
+               * 0.5).to(bf16) for _ in range(2))
+    a = -torch.exp(torch.randn((h,), generator=gen, device="cuda") * 0.3)
+    y, st = so.ssd(x, dt, a, bb, cc, chunk=chunk)
+    t0 = time.perf_counter()
+    yr, sr_ = _scan_plain_by_heads(sr, x, dt, a, bb, cc, chunk)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    tol = SCAN_TOL["bfloat16"]
+
+    def scan_ok(y_, s_):
+        return (_close_by_rows(torch, y_, yr, tol["y"][0], tol["y"][1])[0]
+                and torch.allclose(s_, sr_, atol=tol["state"][0],
+                                   rtol=tol["state"][1]))
+    share = sr.carry_share(x, dt, a, bb, cc, chunk, sr_)
+    fault = _build.load("mamba_scan_carry_fault",
+                        _scan_carry_fault_source(), so._SIG)
+    with mock.patch.object(so, "lib", lambda: fault):
+        fault_ok = scan_ok(*so.ssd(x, dt, a, bb, cc, chunk=chunk))
+    ms = _time_ms(lambda: so.ssd(x, dt, a, bb, cc, chunk=chunk), iters=3,
+                  warmup=1)
+    bound_ms, bound_by, flops, nbytes, f32_ms = _scan_bound(
+        1, length, h, p, n, chunk, 2, "bfloat16")
+    row = {"B": 1, "L": length, "H": h, "P": p, "N": n, "chunk": chunk,
+           "dtype": "bfloat16", "gates": "slow", "inputs": "random",
+           "carry_share": share,
+           "max_abs_err": _close_by_rows(torch, y, yr, tol["y"][0],
+                                         tol["y"][1])[1],
+           "state_max_abs_err": (st - sr_).abs().max().item(), "tol": tol,
+           "fault": "no state carried (ref.FWD_CARRY_FAULT)",
+           "fault_ok": fault_ok,
+           "ok": scan_ok(y, st) and share > 0.1 and not fault_ok,
+           "ms": ms, "plain_ms": plain_ms, "plain_timed": "once, "
+           f"{LONG_SCAN_HEADS} heads at a time", "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_f32_cores_ms": f32_ms,
+           "tflops": flops / (ms * 1e-3) / 1e12,
+           "gbytes_per_s": nbytes / ms * 1e-6}
+    print(f"kernel-check mamba_scan {json.dumps(row)}", flush=True)
+    rows.append(row)
+    del x, dt, bb, cc, y, st, yr, sr_
+    torch.cuda.empty_cache()
+
+    # flash, causal, windowed, zamba2's heads
+    heads, hd = cfg.n_heads, cfg.hd()
+    q, k, v = (torch.randn((1, length, heads, hd), generator=gen,
+                           device="cuda").to(bf16) for _ in range(3))
+    out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    t0 = time.perf_counter()
+    ref = fa_ref.attention_ref_blocked(qt, kt, vt, window=window)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ref = ref.transpose(1, 2)
+    tol = TOL["bfloat16"]
+
+    def flash_ok(o):
+        return _close_by_rows(torch, o, ref, tol, tol)[0]
+    fault = _build.load("flash_attention_rescale_fault",
+                        _flash_rescale_fault_source(), fa_ops._FWD_SIG)
+    with mock.patch.object(fa_ops, "fwd_lib", lambda: fault):
+        fault_ok = flash_ok(fa_ops.flash_attention(q, k, v, causal=True,
+                                                   window=window))
+    good, err = _close_by_rows(torch, out, ref, tol, tol)
+    ok = good and not fault_ok
+    del ref, out, qt, kt, vt
+    pad = (-hd) % 128
+    qp, kp, vp = (torch.nn.functional.pad(t.transpose(1, 2), (0, pad))
+                  .contiguous() for t in (q, k, v))
+    del q, k, v
+    ms = _time_ms(lambda: fa_ops._launch(qp, kp, vp, causal=True,
+                                         window=window, scale=hd ** -0.5),
+                  iters=3, warmup=1)
+    bound_ms, bound_by, flops = _bound(1, heads, heads, length, hd, True,
+                                       window, "bfloat16", 2)
+    row = {"B": 1, "S": length, "H": heads, "KV": heads, "hd": hd,
+           "hd_padded": hd + pad, "causal": True, "window": window,
+           "dtype": "bfloat16", "max_abs_err": err, "tol": tol,
+           "fault": "no rescale (ref.FWD_RESCALE_FAULT)",
+           "fault_ok": fault_ok, "ok": ok, "ms": ms, "plain_ms": plain_ms,
+           "plain": "attention_ref_blocked, timed once", "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "tflops": flops / (ms * 1e-3) / 1e12}
+    print(f"kernel-check {json.dumps(row)}", flush=True)
+    rows.append(row)
+    del qp, kp, vp
+    fa_ops.reset_launches()
+    so.reset_launches()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_vs_forward(torch, cfg, params, plen, new, window, mods):
+    """One ``ServeLoop`` run at ``window`` of a seeded prompt of ``plen``
+    tokens for ``new`` greedy tokens, its kernel launches counted (every
+    count set to 0 before it, read after it), then the model's own
+    windowed forward over the same plen + new tokens (the prompt and the
+    served tokens), unembedded from the last prompt position on as
+    ``make_ragged_prefill`` does (the (S, V) logits of a 524k-token
+    sequence would take 67 GB).  Returns the row: the distance (normwise)
+    of the last decode step's logits from the forward's at the last
+    position, and how many served tokens are the forward's greedy token,
+    or within TOL (of the largest logit) of its logit, a near tie that
+    rounding may flip."""
+    import numpy as np
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import matmul_f32out
+    from repro_torch.runtime.serve_loop import Request, ServeLoop
+
+    prompt = np.random.default_rng(17).integers(
+        0, cfg.vocab, plen).astype(np.int32)
+    loop = ServeLoop(cfg, params, max_len=plen + new, window=window)
+    prefill, serve, last = loop._prefill, loop._serve, {}
+
+    def capture_prefill(*args):
+        last["prefill"], states = prefill(*args)
+        return last["prefill"], states
+
+    def capture(*args):
+        logits, states = serve(*args)
+        last["logits"] = logits
+        return logits, states
+    loop._prefill, loop._serve = capture_prefill, capture
+    req = Request(rid=0, prompt=prompt, max_new_tokens=new)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod, attr in mods.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loop.start([req])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        while loop.decode_step():
+            pass
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in mods.items()}
+    serve_peak = torch.cuda.max_memory_allocated()
+    del loop
+
+    seq = torch.as_tensor(np.concatenate(
+        [prompt, np.asarray(req.out, np.int32)]), device="cuda")[None]
+    torch.cuda.reset_peak_memory_stats()
+    t3 = time.perf_counter()
+    with torch.no_grad():
+        hidden, _, _ = tf.forward(params, seq, cfg,
+                                  {"window": window, "return_hidden": True})
+        ref = matmul_f32out(hidden[:, plen - 1:], tf._head(params, cfg))[0]
+        del hidden
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t3
+    check_peak = torch.cuda.max_memory_allocated()
+    for mod, attr in mods.values():
+        setattr(mod, attr, 0)
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+    tol = TOL["bfloat16"]
+    served = last["logits"][0, 0].float()
+    out = torch.as_tensor(req.out, device="cuda")
+    steps = ref[:-1]
+    gap = steps.max(-1).values - steps.gather(-1, out[:, None].long())[:, 0]
+    scale = steps.abs().max(-1).values
+    exact = int((steps.argmax(-1) == out).sum())
+    row = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "window": window, "prompt": plen, "new": new,
+           "last_position": plen + new - 1,
+           "prompt_mod_window": plen % window if window else None,
+           "prefill_s": t1 - t0, "decode_s_per_token": (t2 - t1) / new,
+           "tokens_per_s": new / (t2 - t1),
+           "serve_peak_gb": serve_peak / 1e9, "launches": launches,
+           "check_s": check_s, "check_peak_gb": check_peak / 1e9,
+           "prefill_logits_rel": rel(last["prefill"][0, 0].float(), ref[0]),
+           "last_logits_rel": rel(served, ref[-1]),
+           "tol": tol, "tokens_equal": exact,
+           "tokens_near_tie": int((gap <= tol * scale).sum()) - exact,
+           "max_gap_rel": (gap / scale).max().item(),
+           "finite": bool(torch.isfinite(served).all()
+                          and torch.isfinite(ref).all()),
+           "card": _sh(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"])}
+    del ref, steps, seq, last, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def long_context_serve(torch, mods):
+    """The long_500k main path: zamba2-2.7b served by ``ServeLoop`` with
+    the shape's window at full width and depth, a seeded prompt of
+    524,288 - LONG_NEW tokens and LONG_NEW greedy tokens, held against the
+    model's windowed forward (``serve_vs_forward``; ``long-serve`` line:
+    prefill seconds, decode seconds a token, peak memory, launches: each
+    shared-attention use one flash launch and each Mamba layer one
+    mamba_scan launch, none in decode).
+
+    In bf16 at full depth a decode step and the forward are two roundings
+    of the model (decode keeps the Mamba B and C in f32, as the JAX
+    package's does; the prefill rounds them) that random weights carry
+    apart over 54 layers: their logits lie 0.28-0.46 apart (normwise) at
+    any length from 960 tokens up, window or not, while in f32 they agree
+    within 3.4e-4 with every token equal (``long_context_probe.py``;
+    PERF.md, PR 27).  So the path is held in f32 first
+    (``long-serve-control``: the same weights and window over
+    LONG_CONTROL tokens, the ring wrapped with the 524k prompt's residue,
+    every served token the forward's and the last logits within
+    LONG_F32_TOL); then at 524k in
+    bf16 the prefill's last logits are held within TOL of the forward's
+    (the same function through the same kernels), and the decode's last
+    logits must lie nearer the forward's than unrelated logits (sqrt(2)
+    apart at equal norms): under 1.  Returns the serve's launches by
+    kernel."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.weights import tree_map
+
+    cfg = get_config(LONG_ARCH)
+    shape = SHAPES["long_500k"]
+    window = model_mod.decode_window(cfg, shape)
+    plen = shape.seq_len - LONG_NEW
+    assert plen % window, "the prompt must not fill the ring evenly"
+    assert LONG_CONTROL % window == plen % window
+    rows = check_long_kernels(torch, cfg, window, shape.seq_len)
+    assert all(r["ok"] for r in rows), rows
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    with torch.no_grad():
+        params = tf.init_params(gen, cfg, device="cuda")
+    f32cfg = cfg.with_(dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    f32 = serve_vs_forward(torch, f32cfg, params32, LONG_CONTROL, LONG_NEW,
+                           window, mods)
+    del params32
+    print(f"long-serve-control {json.dumps(f32)}", flush=True)
+    assert f32["tokens_equal"] == LONG_NEW and max(
+        f32["last_logits_rel"], f32["prefill_logits_rel"]) <= LONG_F32_TOL, \
+        f32
+    row = serve_vs_forward(torch, cfg, params, plen, LONG_NEW, window, mods)
+    period = cfg.period()
+    want = dict.fromkeys(mods, 0)
+    want["flash_attention"] = cfg.n_periods() * period.count("shared_attn")
+    want["mamba_scan"] = cfg.n_periods() * period.count("mamba")
+    row["launches_want"] = want
+    row["f32_tol"] = LONG_F32_TOL
+    print(f"long-serve {json.dumps(row)}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    assert row["finite"] and row["launches"] == want, row
+    assert row["prefill_logits_rel"] <= row["tol"] \
+        and row["last_logits_rel"] < 1.0, row
+    return row["launches"]
 
 
 def state_nbytes(cfg):
@@ -1850,6 +2289,11 @@ def diffsync_check(torch, cfg):
     pairs = list(zip(tree_leaves_with_path(fork), tree_leaves(child)))
     res = {"leaves": len(pairs), "state_bytes": ds.tree_nbytes(fork),
            "child_fingerprint": child_fp}
+    # one cached segment the merged leaves are carved from, so that no
+    # timed call pays a cudaMalloc (once the dryrun and long-context
+    # phases had emptied the cache, the first pass took 129 ms and the
+    # second 19)
+    torch.empty(res["state_bytes"], dtype=torch.uint8, device="cuda")
     dm.reset_launches()
     for op in ("sum", "overwrite"):
         per = {"kernel_leaves": 0, "host_leaves": [], "kernel_ms": 0.0,
@@ -3544,8 +3988,11 @@ def families(torch, counters, phase_time):
 # 10 of its 40 layers (2 of its 8 periods of 4 ATTN + 1 CROSS_ATTN):
 # 3,231,797,252 params, a 32.3 GB train state at 10 bytes a parameter,
 # where all 40 layers would be 97.8 GB; 2 ranks of 1 x 1024 (its global
-# batch of 2 allows no more).
+# batch of 2 allows no more).  Not 5: there the last block's gate_mlp
+# gradient fails step 0's check on the kernel path (0.32 of the f32
+# witness against the plain path's 0.014, PERF.md PR 27).
 VISION_TRAIN_LAYERS = 10
+HYBRID_TRAIN_LAYERS = 12
 # The learning rates warm up over half the steps.  At the llama phase's
 # 1e-3 (warm-up 1 step) whisper-small's loss rose from its second step
 # on the card, at 3e-4 llama-3.2-vision-11b's did (12.1 to 19.8 in 4
@@ -3555,8 +4002,9 @@ VISION_TRAIN_LAYERS = 10
 # rate.
 #
 # Slice 13: the hybrid and xLSTM families train, through the mamba_scan and
-# mlstm backward kernels.  zamba2-2.7b whole (54 layers: 45 Mamba2 + 9
-# uses of the shared attention) at 2 ranks of 2 x 1024; xlstm-1.3b at
+# mlstm backward kernels.  zamba2-2.7b at HYBRID_TRAIN_LAYERS of its 54
+# (10 Mamba2 + 2 uses of the shared attention; whole until slice 17 cut
+# it for the script's time limit) at 2 ranks of 2 x 1024; xlstm-1.3b at
 # XLSTM_LAYERS of its 48 layers (the sLSTM token loop runs in the
 # forward, in remat's recompute and in the backward), at 2 ranks of 2 x
 # 512.
@@ -3567,7 +4015,9 @@ TRAIN_FAMILIES = [
      5e-5, f"depth {VISION_TRAIN_LAYERS} of 40 layers: 3,231,797,252 "
      "params (32.3 GB of train state); all 40 are 97.8 GB, over the "
      "card's 80 GB"),
-    ("zamba2-2.7b", "hybrid", None, 2, 4, 1024, 6, 1e-4, None),
+    ("zamba2-2.7b", "hybrid", HYBRID_TRAIN_LAYERS, 2, 4, 1024, 6, 1e-4,
+     f"depth {HYBRID_TRAIN_LAYERS} of 54 layers (2 of 9 periods), for the "
+     "script's time limit"),
     ("xlstm-1.3b", "ssm", XLSTM_LAYERS, 2, 4, 512, 4, 1e-4,
      f"depth {XLSTM_LAYERS} of 48 layers (2 of 6 periods), for the "
      "script's time limit (the sLSTM token loop); not 8, where step 0's "
@@ -4031,9 +4481,14 @@ def main() -> int:
             "mlstm_bwd": (ml_ops, "bwd_launches")}
     plane = dict.fromkeys(mods, 0)
 
-    # 5b. the analysis path (slice 15) against real steps
+    # 5b. the analysis path (slice 15) against real steps, at the JAX
+    # package's assigned shapes (slice 17)
     dryrun_phase(torch, mods)
     phase_time("dryrun")
+    # 5c. a 500k-token context served through the window path (slice 17)
+    torch.cuda.empty_cache()
+    long_launches = long_context_serve(torch, mods)
+    phase_time("long-context")
 
     def counted(path):
         for mod, attr in mods.values():
@@ -4088,7 +4543,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
         "launches": serve_launches + train_launches["flash_attention"]
         + plane["flash_attention"] + fabric["flash_attention"]
-        + fam["flash_attention"] + tfam["flash_attention"],
+        + fam["flash_attention"] + tfam["flash_attention"]
+        + long_launches["flash_attention"],
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -4143,7 +4599,8 @@ def main() -> int:
         "name": "mamba_scan", "route": "cuda",
         "source": src + "mamba_scan/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan/kernel.py:28",
-        "launches": fam["mamba_scan"] + tfam["mamba_scan"],
+        "launches": fam["mamba_scan"] + tfam["mamba_scan"]
+        + long_launches["mamba_scan"],
         "max_abs_err": scan_row["max_abs_err"],
         "ms": scan_row["ms"], "plain_ms": scan_row["plain_ms"],
         "bound_ms": scan_row["bound_ms"], "bound_by": scan_row["bound_by"],

@@ -94,6 +94,12 @@ def ssd_chunked_grads(x, dt, a, b, c, chunk: int, dy, ds_fin=None):
         return torch.autograd.grad(outs, leaves, grads)
 
 
+# A planted fault of the forward kernel (csrc/mamba_scan.cu): the state
+# leaving a chunk is not carried into the next (``state_carry``, both
+# routes), which the slow gates' checks see.
+FWD_CARRY_FAULT = ("return expf(total);", "return 0.f;")
+
+
 # Planted faults of the backward kernel (csrc/mamba_scan_bwd.cu) that its
 # checks must catch.  BWD_CARRY_FAULT: the gradient of the state entering
 # a chunk drops the carry from the one leaving it (each chunk's dS_in then

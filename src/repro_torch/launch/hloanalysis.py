@@ -67,7 +67,17 @@ def _base(name: str) -> str:
 
 
 def _nbytes(t: torch.Tensor) -> int:
-    return t.numel() * t.element_size()
+    """Bytes of the elements ``t`` holds: a broadcast (stride-0) dimension
+    repeats the same elements, so an operand expanded for a batched
+    product (``matmul`` folds or expands by strides, which meta and fake
+    tensors may report apart) counts its elements once."""
+    if t.numel() == 0:
+        return 0
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride:
+            n *= size
+    return n * t.element_size()
 
 
 class _UF:

@@ -41,6 +41,7 @@ def rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5):
     x32 = x.float()
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
+    del x32               # one f32 copy of x less at the peak
     return (y * w.float()).to(x.dtype)
 
 

@@ -183,10 +183,13 @@ def make_prefill_step(cfg: ArchConfig, window: int = 0) -> Callable:
 
     Unembeds ONLY the last position: the (B, S, V) logits of a long
     prefill would otherwise dominate device memory.  The product is
-    ``matmul_f32out``: f32 logits without an f32 copy of the head."""
+    ``matmul_f32out``: f32 logits without an f32 copy of the head.  With
+    a window, each attention state is the prompt's last ``window`` K/V
+    rows (all a ring can hold): a 500k-token prompt's whole K/V would
+    not fit the card beside its activations."""
     def prefill_step(params, batch):
         ctx = _ctx_from_batch(cfg, batch, collect_state=True, window=window,
-                              return_hidden=True)
+                              return_hidden=True, kv_rows=window)
         hidden, _, states = tf.forward(params, batch["tokens"], cfg, ctx)
         logits = matmul_f32out(hidden[:, -1:], tf._head(params, cfg))
         return logits, states

@@ -80,28 +80,39 @@ def mamba_forward(params, x, cfg) -> Tuple[torch.Tensor, dict]:
     d_inner, h = dims(cfg)
     p = cfg.ssm_headdim
 
-    z = matmul(x, params["in_z"])
+    def tail(r):       # the last D_CONV-1 pre-conv rows, zeros in front
+        # a copy: a view would keep the whole (B, L, ·) stream alive in
+        # the decode state (5.4 GB a layer for zamba2 at 524k tokens)
+        return F.pad(r[:, -(D_CONV - 1):],
+                     (0, 0, max(0, D_CONV - 1 - r.shape[1]), 0)).clone()
+
+    # each stream is dropped once used: at long lengths the block's peak
+    # is the sum of what is still referenced
+    state = {}
     xr = matmul(x, params["in_x"])                     # pre-conv x stream
+    state["conv_x"] = tail(xr)
+    xs = F.silu(_conv1d(xr, params["conv_x"]))
+    del xr
     br = matmul(x, params["in_b"])
     cr = matmul(x, params["in_c"])
-    xs = F.silu(_conv1d(xr, params["conv_x"]))
+    state["conv_b"], state["conv_c"] = tail(br), tail(cr)
     b = F.silu(_conv1d(br, params["conv_b"]))
     c = F.silu(_conv1d(cr, params["conv_c"]))
+    del br, cr
     dt = _softplus(matmul(x, params["in_dt"]).float() + params["dt_bias"])
     a = -torch.exp(params["a_log"])
 
     xh = xs.reshape(bs, length, h, p)
-    y, s_fin = scan_ops.ssd(xh, dt, a, b, c, chunk=cfg.ssm_chunk)
+    del xs
+    y, state["ssm"] = scan_ops.ssd(xh, dt, a, b, c, chunk=cfg.ssm_chunk)
+    del dt, b, c
     # the skip term is added in y's dtype, after the scan rounded y
     y = y + xh.to(y.dtype) * params["d_skip"].to(y.dtype)[None, None, :,
                                                           None]
-    y = y.reshape(bs, length, d_inner) * F.silu(z)
+    del xh
+    y = y.reshape(bs, length, d_inner) * F.silu(matmul(x, params["in_z"]))
     y = rms_norm(params["norm_w"], y, cfg.norm_eps)
-
-    def tail(r):       # the last D_CONV-1 pre-conv rows, zeros in front
-        return F.pad(r, (0, 0, D_CONV - 1, 0))[:, -(D_CONV - 1):]
-    state = {"ssm": s_fin, "conv_x": tail(xr), "conv_b": tail(br),
-             "conv_c": tail(cr)}
+    state = {k: state[k] for k in ("ssm", "conv_x", "conv_b", "conv_c")}
     return matmul_rp(y, params["out_proj"], cfg), state
 
 

@@ -139,7 +139,10 @@ def apply_block_seq(kind: str, p, x, cfg, ctx):
     """x: (B,S,d) -> (x', aux_loss, state).
 
     ``state`` is the decode-time handover (KV cache or SSM state) when
-    ``ctx["collect_state"]`` is set; otherwise None.
+    ``ctx["collect_state"]`` is set; otherwise None.  With
+    ``ctx["kv_rows"]`` a self-attention block keeps only the last that
+    many K/V rows (a windowed ring holds no more), in a copy, so that the
+    whole sequence's K/V is freed with the block.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     collect = ctx.get("collect_state", False)
@@ -147,7 +150,12 @@ def apply_block_seq(kind: str, p, x, cfg, ctx):
         h, (k, v) = attn.attention(
             p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg,
             ctx["positions"], causal=True, window=ctx.get("window", 0))
-        state = {"k": k, "v": v} if collect else None
+        state = None
+        if collect:
+            rows = ctx.get("kv_rows", 0)
+            if rows and k.shape[1] > rows:
+                k, v = k[:, -rows:].clone(), v[:, -rows:].clone()
+            state = {"k": k, "v": v}
         x = x + h
         if kind == cb.MOE:
             h, aux = moe_mod.moe_ffn(p["moe"],

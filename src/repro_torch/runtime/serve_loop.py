@@ -167,28 +167,37 @@ class ServeLoop:
                                                  dec["max_new"],
                                                  dec["outs"])]
 
-    def _pad_states(self, states):
+    def _pad_states(self, states, plen: int):
         """Grow prefill KV caches to max_len-sized decode buffers.
 
         Which leaves are seq-sized is decided against the
         ``init_decode_state`` template shapes (built on the meta device),
-        not a dimension heuristic."""
+        not a dimension heuristic.  With a window, an attention cache is a
+        ring that decode writes position p into at slot p % size
+        (``decode_attention``): a prompt longer than the ring keeps its
+        last ``size`` rows, each at its own position's slot.  The prefill
+        may have collected only its last rows (``make_prefill_step``)."""
         size = min(self.max_len, self.window) if self.window else self.max_len
         batch = tree_leaves(states)[0].shape[1]
         template = tf.init_decode_state(self.cfg, batch, self.max_len,
                                         self.cfg.torch_dtype(),
                                         window=self.window, device="meta")
 
-        def pad(x, t):
-            if x.shape == t.shape:
+        def pad(x, t, ring):
+            if x.shape == t.shape and not ring:
                 return x
             if size <= x.shape[2]:
-                return x[:, :, -size:].contiguous()
+                kept = x[:, :, -size:]
+                # kept row i holds position plen - size + i
+                return (torch.roll(kept, plen % size, dims=2) if ring
+                        else kept.contiguous())
             out = x.new_zeros((*x.shape[:2], size, *x.shape[3:]))
             out[:, :, :x.shape[2]] = x
             return out
-        return [{key: pad(s[key], t[key]) for key in s}
-                for s, t in zip(states, template)]
+        return [{key: pad(s[key], t[key],
+                          bool(self.window) and kind in tf._ATTN_KINDS)
+                 for key in s}
+                for kind, s, t in zip(self.cfg.period(), states, template)]
 
     # ---- decode lifecycle --------------------------------------------------
     def start(self, requests: Sequence[Request],
@@ -205,7 +214,7 @@ class ServeLoop:
             self.params, {"tokens": tokens, **(extras or {})})
         self.stats.prefill_tokens += b * plen
         self._reqs = reqs
-        self._states = self._pad_states(states)
+        self._states = self._pad_states(states, plen)
         self._cur = _greedy(last_logits[:, 0])
         self._plen = plen
         self._t = 0

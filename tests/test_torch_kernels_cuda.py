@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as TO
 from repro_torch.kernels.flash_attention import ref as TR
+from repro_torch.kernels.mamba_scan import ref as SR
 
 
 @pytest.fixture
@@ -215,7 +216,7 @@ def test_cuda_flash_rising_row_max(cuda_device, hd, dtype):
 # A fault planted in a copy of csrc/flash_attention.cu (built into a
 # temporary directory, never into the repository): the bf16 kernel's
 # rescale of its running sum and accumulator when a row's maximum rises.
-FLASH_FAULT = ("corr[i] = exp2f(m_r[i] - mx[i]);", "corr[i] = 1.f;")
+FLASH_FAULT = TR.FWD_RESCALE_FAULT
 
 
 @pytest.mark.cuda
@@ -865,8 +866,8 @@ def test_cuda_mamba_scan_matches_plain(cuda_device, b, length, h, p, n,
 # state from one chunk into the next (state_carry, read by both routes),
 # set to 0 or 1.  The checks above must fail on every case with slow
 # gates, in both dtypes.
-SCAN_FAULTS = {"carry_0": ("return expf(total);", "return 0.f;"),
-               "carry_1": ("return expf(total);", "return 1.f;")}
+SCAN_FAULTS = {"carry_0": SR.FWD_CARRY_FAULT,
+               "carry_1": (SR.FWD_CARRY_FAULT[0], "return 1.f;")}
 
 
 def _mutant_lib(ops, tmp_path, monkeypatch, name, old, new):
@@ -1458,3 +1459,104 @@ def test_cuda_mlstm_bwd_checks_catch_state_rounded_once(
     ok, _ = _mlstm_bwd_ok(MO, MR, (2, 512, 4, 1024, 128, "slow", "common"),
                           "bfloat16", cuda_device)
     assert not all(ok), ok
+
+
+# The long_500k and prefill_32k shapes (slice 17).  Their plain versions
+# run a piece at a time: attention_ref_blocked a block of query rows at a
+# time against the keys its window reaches, and ssd_chunked
+# LONG_SCAN_HEADS heads at a time (the heads are independent), since the
+# whole (S, S) logits or the scan's f32 intermediates of 80 heads at 524k
+# tokens do not fit the card.
+LONG = 524288
+LONG_WINDOW = 4096
+LONG_SCAN_HEADS = 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kv,hd", [(32, 8, 64), (32, 2, 128)])
+def test_cuda_flash_matches_plain_at_32k(cuda_device, h, kv, hd):
+    """Causal bf16 flash at prefill_32k's length, llama3.2-1b's heads and
+    glm4-9b's (group 16, hd 128)."""
+    s = 32768
+    gen = torch.Generator(device=cuda_device).manual_seed(hd)
+    q, k, v = (torch.randn((1, s, n, hd), generator=gen,
+                           device=cuda_device).to(torch.bfloat16)
+               for n in (h, kv, kv))
+    out = TO.flash_attention(q, k, v, causal=True)
+    ref = TR.attention_ref_blocked(*(x.transpose(1, 2) for x in (q, k, v))
+                                   ).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def _long_flash_inputs(device):
+    """zamba2-2.7b's heads (H 32 = KV 32, hd 80) at 524,288 tokens."""
+    gen = torch.Generator(device=device).manual_seed(27)
+    return tuple(torch.randn((1, LONG, 32, 80), generator=gen,
+                             device=device).to(torch.bfloat16)
+                 for _ in range(3))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_window_at_524288(cuda_device, tmp_path, monkeypatch):
+    """Causal flash with the long_500k window over 524,288 tokens (the
+    padded q holds 2^31 elements) against the plain version; a copy
+    without the online softmax's rescale fails it."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    q, k, v = _long_flash_inputs(cuda_device)
+    ref = TR.attention_ref_blocked(*(x.transpose(1, 2) for x in (q, k, v)),
+                                   window=LONG_WINDOW).transpose(1, 2)
+    out = TO.flash_attention(q, k, v, causal=True, window=LONG_WINDOW)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    del out
+    old, new = TR.FWD_RESCALE_FAULT
+    source = (TO._CSRC / "flash_attention.cu").read_text()
+    mutant = tmp_path / "flash_attention.cu"
+    mutant.write_text(source.replace(old, new))
+    so = tmp_path / "libflash_rescale.so"
+    _build.compile_to("flash_rescale", mutant, so)
+    lib = _build.bind(ctypes.CDLL(str(so)), TO._FWD_SIG)
+    monkeypatch.setattr(TO, "fwd_lib", lambda: lib)
+    bad = TO.flash_attention(q, k, v, causal=True, window=LONG_WINDOW)
+    assert not torch.allclose(bad.float(), ref.float(), atol=2e-2,
+                              rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_carry_over_8192_chunks(cuda_device, tmp_path,
+                                                monkeypatch):
+    """bf16 mamba_scan at (1, 524288, 80, 64, 64) with slow gates (x holds
+    2.7e9 elements, past 2^31), where the state carried into the last
+    chunk is more than a tenth of it, against the plain version; a copy
+    that carries no state (ref.FWD_CARRY_FAULT) fails it."""
+    from repro_torch.kernels.mamba_scan import ops as SO
+    ins = _scan_inputs(1, LONG, 80, 64, 64, "bfloat16", cuda_device, 27,
+                       "slow")
+    ys, ss = [], []
+    for h0 in range(0, 80, LONG_SCAN_HEADS):
+        hs = slice(h0, h0 + LONG_SCAN_HEADS)
+        y, s = SR.ssd_chunked(ins[0][:, :, hs], ins[1][:, :, hs],
+                              ins[2][hs], ins[3], ins[4], 64)
+        ys.append(y)
+        ss.append(s)
+    yr, sr = torch.cat(ys, dim=2), torch.cat(ss, dim=1)
+    del ys, ss
+    assert SR.carry_share(*ins, 64, sr) > 0.1
+    tol = SCAN_TOL["bfloat16"]
+
+    def ok(y, s):
+        return (torch.allclose(y.float(), yr.float(), atol=tol["y"][0],
+                               rtol=tol["y"][1])
+                and torch.allclose(s, sr, atol=tol["state"][0],
+                                   rtol=tol["state"][1]))
+    assert ok(*SO.ssd(*ins, chunk=64))
+    _mutant_lib(SO, tmp_path, monkeypatch, "mamba_scan_carry",
+                *SR.FWD_CARRY_FAULT)
+    assert not ok(*SO.ssd(*ins, chunk=64))
