@@ -46,17 +46,20 @@ non-zero before printing any result):
    one more step's parts (``train-anatomy``) and profiles another.
    Then the analysis path (slice 15, ``dryrun`` lines) at the JAX
    package's assigned shapes (slice 17): each of ``DRYRUN_CELLS``
-   (train_4k for llama3.2-1b, llama3.2-3b and granite-moe-1b-a400m,
-   micro-batched by ``GRAD_ACCUM``; prefill_32k for llama3.2-1b, glm4-9b
-   and zamba2-2.7b; decode_32k for llama3.2-1b and minitron-4b over a
-   full seeded cache at position 32767; long_500k for zamba2-2.7b, its
-   ring of 4096 wrapped 127 times, and xlstm-1.3b at position 524287;
+   (train_4k for llama3.2-1b, llama3.2-3b, granite-moe-1b-a400m and,
+   since slice 18, xlstm-1.3b, micro-batched by ``GRAD_ACCUM``;
+   prefill_32k for llama3.2-1b, glm4-9b, zamba2-2.7b and xlstm-1.3b;
+   decode_32k for llama3.2-1b and minitron-4b over a full seeded cache at
+   position 32767 and for xlstm-1.3b (100 sequences of mLSTM state);
+   long_500k for zamba2-2.7b, its ring of 4096 wrapped 127 times, and
+   xlstm-1.3b at position 524287;
    full width and depth, each global batch cut as the line's ``reduced``
    says; and the flash kernels' forward and backward at 2 x 1024) is
    analysed by ``launch.dryrun.trace`` on the meta device and on fake
    CUDA tensors (which must agree), every kernel counted by its
    ``work()``, then run on the card (one warm step, three timed with
-   CUDA events; five for flash): the kernel calls equal the counters, the
+   CUDA events, one where the warm step took 2 s or more; five for
+   flash): the kernel calls equal the counters, the
    predicted peak memory is within 10% of ``max_memory_allocated()``, no
    step is faster than its bound (H100 constants), and its logits or loss
    are finite.  Each line prints the counted and model FLOPs, HBM bytes,
@@ -157,15 +160,17 @@ non-zero before printing any result):
    (slice 13): zamba2-2.7b cut to 12 of its 54 layers (2 ranks, 4 x
    1024; whole until slice 17) and xlstm-1.3b cut
    to 16 of its 48 layers (2 ranks, 4 x 512), every mamba_scan and mlstm
-   backward through the tensor-core route, "mma.sync" (slice 14).  Each
+   backward through the tensor-core route, "mma.sync" (slice 14), and
+   xlstm's sLSTM through the slstm scan kernels (slice 18).  Each
    family's kernel counts must also equal the analysis's calls of one
    rank's step (``predicted_step_calls``, slice 15) times ranks x steps.
 10. Prints the ``kernels`` JSON line and, last, the device JSON line.
 
 Besides the forward kernel, phase 2 builds the flash-attention backward
 kernel and the collective_codec, diff_merge, moe_gmm (forward and
-backward), mamba_scan and mlstm kernels (one nvcc each, all started
-together), and phase 3 holds each against its plain version: the
+backward), mamba_scan, mlstm and slstm (forward and backward) kernels
+(one nvcc each, all started together), and phase 3 holds each against
+its plain version: the
 backward's dq, dk, dv against autograd of the plain attention
 (``kernel-check bwd``; also at the train families' rank batches:
 whisper-small's group 1, granite's group 2 and llama-3.2-vision-11b's hd
@@ -193,10 +198,20 @@ large common part) and mlstm at xlstm-1.3b's (``kernel-check mlstm``: a
 1024-token prefill, a ragged 1000, the 4 x 512 batch and an initial
 state, with the model's forget gates and with slow ones that carry C
 over several chunks, one case whose C has a large common part, and the
-JAX tests' small shapes, and a precision row at the training shape: h
-and the final C against float64 no further than the plain version's,
-within ``ref.precision``'s factors, which the copy with two-part f32
-operands must fail), and the mamba_scan and mlstm backwards at the
+JAX tests' small shapes, prefill_32k's 32768 tokens, and a precision
+row at the training shape: h and the final C against float64 no
+further than the plain version's, within ``ref.precision``'s factors,
+which the copy with two-part f32 operands must fail), the slstm scan
+(slice 18, ``kernel-check slstm`` / ``slstm_bwd``: at xlstm-1.3b's width
+on training's 2 x 512, train_4k's 1 x 4096, prefill_32k's 1 x 32768, a
+decode step of 100 rows from a state and a ragged 1000 from a state,
+with slow forget gates and r of another scale per head, against the
+token loop and, up to 4096 steps, an f64 witness; planted copies with
+the recurrent term gate-major, without the stabiliser's rescale and
+without the grid barrier must fail; each row's time per step beside its
+bound and the grid barrier's own cost; the backward at 2 x 512, 1 x
+4096 and a ragged row from a state with the final state's gradients,
+against autograd of the loop), and the mamba_scan and mlstm backwards at the
 training shapes (``kernel-check mamba_scan_bwd`` / ``mlstm_bwd``: against
 autograd of the plain versions and an f32 witness, slow gates, both sides
 of mlstm's floor and a common-part row each; planted copies with the
@@ -367,11 +382,7 @@ def check_kernel(torch, fa_ops, fa_ref, F):
 
 # The first calls that run under the profiler for a family whose prefill
 # is a loop over tokens (see warm_up).
-SHORT_FIRST_CALLS = {"prefill_1x256", "decode_step_8_lanes",
-                     "fixed_decode_step_4_lanes"}
-
-
-def warm_up(torch, cfg, params, max_len, token_loop=False, extras=None):
+def warm_up(torch, cfg, params, max_len, extras=None):
     """Run every shape of the timed drives once before them, so that the
     serve numbers measure serving and not first use: the B=1 ragged
     prefill at the 256, 512 and 1024 buckets and an 8-lane decode step,
@@ -380,10 +391,7 @@ def warm_up(torch, cfg, params, max_len, token_loop=False, extras=None):
     on an empty region before) and is then repeated without it; a
     ``first-call`` line gives both wall times, the first call's device
     time, and its host operations by self time, which is where a
-    one-time cost shows.  With ``token_loop`` (a prefill that launches
-    kernels per token, whose long profiles take the profiler tens of
-    seconds to process) only SHORT_FIRST_CALLS run under the profiler.
-    ``extras``: the (per-request, per-batch) extras functions of an audio
+    one-time cost shows.  ``extras``: the (per-request, per-batch) extras functions of an audio
     or VLM config (``launch.serve._extras_fns``)."""
     import numpy as np
     from torch.autograd import DeviceType
@@ -411,13 +419,6 @@ def warm_up(torch, cfg, params, max_len, token_loop=False, extras=None):
         return time.perf_counter() - t0
 
     def first_and_warm(name, fn):
-        if token_loop and name not in SHORT_FIRST_CALLS:
-            first, warm = timed(fn), timed(fn)
-            row = {"call": name, "first_ms": first * 1e3,
-                   "warm_ms": warm * 1e3, "first_device_ms": None,
-                   "first_host_self_ms": None}
-            print(f"first-call {json.dumps(row)}", flush=True)
-            return
         with tprofile(activities=acts) as prof:
             first = timed(fn)
         device_us = sum(e.time_range.elapsed_us() for e in prof.events()
@@ -582,6 +583,8 @@ def _plain_paths():
     from repro_torch.kernels.mlstm import ref as ml_ref
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.kernels.moe_gmm import ref as gmm_ref
+    from repro_torch.kernels.slstm import ops as sl_ops
+    from repro_torch.kernels.slstm import ref as sl_ref
     from repro_torch.models import attention as attn
 
     stack = ExitStack()
@@ -606,6 +609,13 @@ def _plain_paths():
         ml_ops._MLSTM, "apply", lambda q, k, v, logi, logf, chunk:
         _flat_state(ml_ref.mlstm_chunked(q, k, v, logi, logf, None,
                                          chunk))))
+    stack.enter_context(mock.patch.object(
+        sl_ops, "_launch", lambda gx, r, bf, state, keep:
+        sl_ref.slstm_scan(gx, r, bf, state, r.shape[0]) + (None,)))
+    stack.enter_context(mock.patch.object(
+        sl_ops._SLSTM, "apply", lambda gx, r, bf, c0, n0, h0, m0:
+        _flat_slstm(sl_ref.slstm_scan(gx, r, bf, dict(c=c0, n=n0, h=h0,
+                                                      m=m0), r.shape[0]))))
     return stack
 
 
@@ -615,13 +625,20 @@ def _flat_state(out):
     return (out[0], *out[1])
 
 
+def _flat_slstm(out):
+    """(y, state) as (y, c, n, h, m), the order ``_SLSTM.apply``
+    returns."""
+    return (out[0], *(out[1][k] for k in ("c", "n", "h", "m")))
+
+
 def _launch_counts():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.mlstm import ops as ml_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.slstm import ops as sl_ops
     return (fa_ops.launches, gmm_ops.launches, scan_ops.launches,
-            ml_ops.launches)
+            ml_ops.launches, sl_ops.launches)
 
 
 def _route_recorder(routes):
@@ -784,6 +801,8 @@ KERNEL_KINDS = [
     ("mamba_scan", ("ms_ssd", "ms_cb_kernel")),
     ("mlstm", ("ml_gate_", "ml_scores", "ml_state", "ml_hout")),
     ("flash_attention_bwd", ("fa_bwd_",)),
+    ("slstm", ("sl_fwd_",)),
+    ("slstm_bwd", ("sl_bwd_",)),
     ("collective_codec", ("cc_select",)),
     ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
     ("copy_fill", ("Memcpy", "Memset", "copy_kernel", "fill_kernel")),
@@ -829,11 +848,11 @@ def profile_phase(torch, name, fn):
     return out
 
 
-def profile(torch, cfg, params, tag="", token_loop=False, extras=None):
+def profile(torch, cfg, params, tag="", extras=None):
     """Where the time goes: device time by kernel and the device's idle
-    share over one 1024-token prefill, over 8-lane decode steps and,
-    unless ``token_loop`` (see warm_up), over the 4 x 512 fixed-batch
-    prefill (phase names prefixed with ``tag``); ``extras`` as warm_up's."""
+    share over one 1024-token prefill, over 8-lane decode steps and over
+    the 4 x 512 fixed-batch prefill (phase names prefixed with ``tag``);
+    ``extras`` as warm_up's."""
     import numpy as np
 
     from repro_torch.runtime.serve_loop import (ContinuousServeLoop, Request,
@@ -856,8 +875,6 @@ def profile(torch, cfg, params, tag="", token_loop=False, extras=None):
     profile_phase(torch, tag + "decode_step_8_lanes",
                   lambda: sum(1 for _ in range(10) if loop.decode_step()))
     del loop
-    if token_loop:
-        return
     floop = ServeLoop(cfg, params, max_len=MAX_LEN)
     batch = [Request(rid=i, prompt=r.prompt[:512], max_new_tokens=4)
              for i, r in enumerate(reqs[:4])]
@@ -1007,6 +1024,7 @@ def build_all(torch):
     from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.mlstm import ops as ml_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.slstm import ops as sl_ops
 
     src = os.path.join(REPO, "src", "repro_torch", "kernels")
     jobs = {"flash_attention": os.path.join(
@@ -1034,7 +1052,12 @@ def build_all(torch):
             "mlstm_bwd": os.path.join(src, "mlstm", "csrc", "mlstm_bwd.cu"),
             "mlstm_bwd_carry_fault": _mlstm_bwd_fault_source("carry"),
             "mlstm_bwd_floor_fault": _mlstm_bwd_fault_source("floor"),
-            "mlstm_bwd_round_fault": _mlstm_bwd_fault_source("round")}
+            "mlstm_bwd_round_fault": _mlstm_bwd_fault_source("round"),
+            "slstm": os.path.join(src, "slstm", "csrc", "slstm.cu"),
+            "slstm_bwd": os.path.join(src, "slstm", "csrc", "slstm_bwd.cu"),
+            "slstm_layout_fault": _slstm_fault_source("layout"),
+            "slstm_rescale_fault": _slstm_fault_source("rescale"),
+            "slstm_barrier_fault": _slstm_fault_source("barrier")}
 
     def one(name):
         t0 = time.perf_counter()
@@ -1053,6 +1076,8 @@ def build_all(torch):
     scan_ops.bwd_lib()
     ml_ops.lib()
     ml_ops.bwd_lib()
+    sl_ops.lib()
+    sl_ops.bwd_lib()
     for name in jobs:
         ptxas = [ln.strip() for ln in _build.build_logs.get(name, "")
                  .splitlines() if "registers" in ln or "spill" in ln]
@@ -1604,17 +1629,27 @@ DRYRUN_CELLS = [
     ("train_4k-llama3b", "llama3.2-3b", "train_4k", 2,
      _TIME + "; a 32.1 GB train state and its f32 gradient sum"),
     ("train_4k-granite", "granite-moe-1b-a400m", "train_4k", 2, _TIME),
+    ("train_4k-xlstm", "xlstm-1.3b", "train_4k", 4, _TIME),
     ("prefill_32k-llama1b", "llama3.2-1b", "prefill_32k", 2, _TIME),
     ("prefill_32k-glm9b", "glm4-9b", "prefill_32k", 1, _TIME),
     ("prefill_32k-zamba2", "zamba2-2.7b", "prefill_32k", 1, _TIME),
+    ("prefill_32k-xlstm", "xlstm-1.3b", "prefill_32k", 1, _TIME),
     ("decode_32k-llama1b", "llama3.2-1b", "decode_32k", 48,
      "80 GB: 1.07 GB of KV cache a sequence"),
     ("decode_32k-minitron4b", "minitron-4b", "decode_32k", 12,
      "80 GB: 4.29 GB of KV cache a sequence"),
+    ("decode_32k-xlstm", "xlstm-1.3b", "decode_32k", 100,
+     "80 GB: 0.70 GB of mLSTM state a sequence (the analysis predicts a "
+     "74.7 GB peak at 100, 77.6 at 104)"),
     ("long_500k-zamba2", "zamba2-2.7b", "long_500k", 1, None),
     ("long_500k-xlstm", "xlstm-1.3b", "long_500k", 1, None),
     ("flash", "llama3.2-1b", "flash", 2, None)]
 DRYRUN_STEPS = 3                   # timed steps, after one warm step
+# A step whose warm run takes this long or longer is timed once: the
+# spread of three such steps was under 3.4% (glm4-9b's and xlstm's
+# prefill_32k under 0.2%, xlstm's train_4k 3.4%; PR 28 runs 2-4), and
+# their repeats were ~25 s of the script's time limit.
+DRYRUN_LONG_S = 2.0
 DRYRUN_FLASH_STEPS = 5             # the flash cell's (a step is ~1 ms)
 DRYRUN_MEM_TOL = 0.10              # predicted peak against the measured
 
@@ -1801,13 +1836,16 @@ def dryrun_phase(torch, mods):
         torch.cuda.synchronize()
         make_s = time.perf_counter() - t_make
         grad = kind in ("train", "flash")
-        steps = DRYRUN_FLASH_STEPS if kind == "flash" else DRYRUN_STEPS
 
         def step():
             with torch.set_grad_enabled(grad):
                 return fn(*args)
+        t_warm = time.perf_counter()
         step()                                  # warm
         torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t_warm
+        steps = DRYRUN_FLASH_STEPS if kind == "flash" else \
+            DRYRUN_STEPS if warm_s < DRYRUN_LONG_S else 1
         torch.cuda.reset_peak_memory_stats()
         for mod, attr in mods.values():
             setattr(mod, attr, 0)
@@ -1864,7 +1902,7 @@ def dryrun_phase(torch, mods):
                "meas_peak_gb": peak / 1e9, "mem_err": mem_err,
                "launches_ok": launches_ok, "mem_ok": mem_ok,
                "bound_ok": p50 * 1e-3 >= bound_s, "finite": finite,
-               "trace_s": trace_s, "make_s": make_s,
+               "trace_s": trace_s, "make_s": make_s, "warm_s": warm_s,
                "fake_cuda_equal": same_fake,
                "fake_cuda": {k: fake[k] == pred[k] for k in (
                    "kernels", "flops", "hbm_bytes", "peak_bytes")},
@@ -3446,8 +3484,9 @@ def check_mlstm(torch, cfg):
     with slow gates in bf16 too; then the JAX tests' small shapes (hd
     16-64) with their gates; last the 300-token bf16 case with slow
     gates whose initial C has a large common part that Q C^T cancels
-    (``"inputs": "common"``: one rounding of C as an operand fails it).
-    Each row gives ``carry_share``, how much of the final C the earlier
+    (``"inputs": "common"``: one rounding of C as an operand fails it),
+    and prefill_32k's 32768 tokens (slice 18; bf16, B 1).  Each row
+    gives ``carry_share``, how much of the final C the earlier
     chunks carry.  Times: the kernel, the
     plain version, and one ``torch.bmm`` of Q C^T over the whole
     sequence (partial: no PyTorch call computes the function).  Last,
@@ -3472,7 +3511,8 @@ def check_mlstm(torch, cfg):
         + [c + ("jax", "float32") for c in small] \
         + [small[0] + ("jax", "bfloat16")]
     cases = [c + ("random",) for c in cases] + [
-        big[3] + ("slow", "bfloat16", "common")]
+        big[3] + ("slow", "bfloat16", "common"),
+        (1, 32768, h, hd, chunk, False, "model", "bfloat16", "random")]
     gen = torch.Generator(device="cuda").manual_seed(23)
     rows = []
     for b, length, nh, d, ck, with_state, gates, dname, inputs in cases:
@@ -3506,8 +3546,10 @@ def check_mlstm(torch, cfg):
               and torch.allclose(m, m_r, atol=1e-3, rtol=0))
         ms = _time_ms(lambda: mo._launch(q, k, v, li, lf, st, ck),
                       iters=10)
+        long = length > 4096             # prefill_32k's: the plain once
         plain_ms = _time_ms(lambda: mr.mlstm_chunked(q, k, v, li, lf, st,
-                                                     ck), iters=3)
+                                                     ck),
+                            iters=1 if long else 3, warmup=1 if long else 3)
         qb = q.transpose(1, 2).reshape(b * nh, length, d)
         cb = cr.to(dt_).reshape(b * nh, d, d)
         part_ms = _time_ms(lambda: torch.bmm(qb, cb.transpose(1, 2)))
@@ -3829,6 +3871,272 @@ def check_mlstm_bwd(torch, cfg, b=2, length=512):
     return rows
 
 
+# Slice 18: the sLSTM scan kernels at xlstm-1.3b's width (d 2048, 4 heads
+# of hd 512, r bf16, f32 state).  Tolerances, against the plain version
+# on the same inputs: h (|h| <= 1) atol 1e-4; c and n rtol 1e-4 with
+# atol 1e-4 times their largest magnitude; m atol 1e-4.  The kernel sums
+# each 512-term recurrent product in another order than the plain
+# einsum, and the recurrence carries that rounding along; an f64 witness
+# of the plain path (rows up to 4096 steps) states how far f32 itself
+# lies from exact: the kernel's h must lie no further from it than 4
+# times the plain version's h, plus 1e-6.
+SLSTM_TOL = {"h": 1e-4, "state": 1e-4, "m": 1e-4}
+SLSTM_WITNESS_MAX_L = 4096
+# (B, L, forget gates, initial state): training's rank batch, train_4k's
+# micro-batch, prefill_32k's sequence, decode_32k's batch at one step
+# from a state, a ragged length from a state
+SLSTM_ROWS = [(2, 512, "model", False), (1, 4096, "slow", False),
+              (1, 32768, "slow", False), (100, 1, "model", True),
+              (1, 1000, "model", True)]
+# the backward's: training's rank batch, train_4k's micro-batch, and a
+# ragged row from a state with the final state's gradients
+SLSTM_BWD_ROWS = [(2, 512, "model", False, False),
+                  (1, 4096, "slow", False, False),
+                  (2, 300, "slow", True, True)]
+
+
+def _slstm_bound(b, length, d, hd, rsize, bwd=False, keep=False):
+    """Least time of the sLSTM scan (forward, or with ``bwd`` its
+    backward) on this input, from slstm/ops.py's ``work`` / ``bwd_work``:
+    its operations (2 B L 4d hd, f32 FMAs) over the f32 CUDA-core peak
+    against its bytes over HBM bandwidth."""
+    from repro_torch.kernels.slstm import ops
+    flops, nbytes = (ops.bwd_work(b, length, d, hd, rsize) if bwd
+                     else ops.work(b, length, d, hd, rsize, keep))
+    return (*_roof(flops, nbytes, "float32"), flops, nbytes)
+
+
+def _slstm_fault_source(fault):
+    """A copy of slstm.cu with the planted fault ``fault`` of
+    ``ref.FWD_FAULTS``: "layout" (the recurrent term gate-major),
+    "rescale" (the carried state not rescaled when m moves) or "barrier"
+    (no grid barrier between the steps: a block reads h of the step
+    before where another has not written it yet)."""
+    from repro_torch.kernels.slstm import ref as sr
+    return _fault_source("slstm", "slstm.cu", sr.FWD_FAULTS[fault],
+                         f"slstm_{fault}")
+
+
+def _slstm_f64(torch, sr, gx, r, bf, st, h):
+    """The plain recurrence in float64 (the witness): h (B,L,d) f64."""
+    r64, bf64 = r.double(), bf.double()
+    s = {k: v.double() for k, v in st.items()}
+    hs = []
+    for t in range(gx.shape[1]):
+        s = sr.slstm_cell(gx[:, t].double(), s, r64, bf64, h)
+        hs.append(s["h"])
+    return torch.stack(hs, dim=1)
+
+
+def _slstm_ptxas(name):
+    from repro_torch.kernels import _build
+    return [ln.strip() for ln in _build.build_logs.get(name, "").splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+def _slstm_state_ok(torch, fin, ref):
+    """(ok, max abs error) of each final state leaf against the plain
+    version's, at SLSTM_TOL."""
+    oks, errs = {}, {}
+    for k in ("c", "n", "h", "m"):
+        scale = max(1.0, ref[k].abs().max().item())
+        atol = SLSTM_TOL["m"] if k == "m" else (
+            SLSTM_TOL["h"] if k == "h" else SLSTM_TOL["state"] * scale)
+        rtol = 0.0 if k in ("h", "m") else SLSTM_TOL["state"]
+        oks[k] = bool(torch.isfinite(fin[k]).all()) and torch.allclose(
+            fin[k], ref[k], atol=atol, rtol=rtol)
+        errs[k] = (fin[k] - ref[k]).abs().max().item()
+    return oks, errs
+
+
+def check_slstm(torch, cfg):
+    """The slstm forward kernel against its plain version (the token
+    loop, ``ref.slstm_scan``) at xlstm-1.3b's width on SLSTM_ROWS
+    (``ref.slstm_inputs``: gx N(0, 1), r bf16 with a scale per head, so a
+    layout that mixes heads shows; "slow" forget gates sigma ~ 0.999, a
+    carry over thousands of steps).  h is compared by rows
+    (``_close_by_rows``), the final state leaf by leaf, at SLSTM_TOL;
+    rows up to SLSTM_WITNESS_MAX_L steps also against an f64 witness.
+    The plain version runs once a row (at L 32768 some tens of seconds).
+    Each row: the kernel's time, per step, its bound and per step, the
+    plain version's time, library none (no PyTorch call computes this
+    recurrence; ``nn.LSTM`` is another function), the grid (blocks, rows
+    a step stages) and the grid barrier's own cost a step (``sl_barrier``
+    on the same grid, 4096 barriers).  Last, the three planted copies of
+    ``ref.FWD_FAULTS`` on the 2 x 512 row with slow gates from a state,
+    their outputs starting as NaN: each must fail (``fault_ok`` false).
+    (A copy with one h buffer that the blocks rewrite within a step, the
+    barrier kept, passed on the card: the blocks stay in step.)"""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.slstm import ops as so
+    from repro_torch.kernels.slstm import ref as sr
+
+    d, h = cfg.d_model, cfg.n_heads
+    hd = d // h
+    lib = so.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    barrier = {}
+    for b, length, gates, with_state in SLSTM_ROWS:
+        gx, r, bf, st = sr.slstm_inputs(b, length, d, h, seed=length + b,
+                                        gates=gates, state=with_state,
+                                        rdtype=torch.bfloat16,
+                                        device="cuda")
+        y, fin, _ = so._launch(gx, r, bf, st, keep=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yr, fr = sr.slstm_scan(gx, r, bf, st, h)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        ok_h, err_h = _close_by_rows(torch, y, yr, SLSTM_TOL["h"], 0.0)
+        oks, errs = _slstm_state_ok(torch, fin, fr)
+        witness = None
+        if length <= SLSTM_WITNESS_MAX_L:
+            yw = _slstm_f64(torch, sr, gx, r, bf, st, h)
+            k_w = (y.double() - yw).abs().max().item()
+            p_w = (yr.double() - yw).abs().max().item()
+            witness = {"kernel_vs_f64": k_w, "plain_vs_f64": p_w,
+                       "ok": k_w <= 4 * p_w + 1e-6}
+            del yw
+        del yr, fr
+        iters = max(1, min(20, 4096 // length))
+        ms = _time_ms(lambda: so._launch(gx, r, bf, st, keep=False),
+                      iters=iters, warmup=1)
+        plan = so.plan(lib, b, d, h, r.dtype)
+        if plan["blocks"] not in barrier:
+            steps = 4096
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            err = lib.sl_barrier(plan["blocks"], so.THREADS, steps, stream)
+            ev[1].record()
+            torch.cuda.synchronize()
+            assert err == 0, err
+            barrier[plan["blocks"]] = ev[0].elapsed_time(ev[1]) / steps * 1e3
+        bound_ms, bound_by, flops, nbytes = _slstm_bound(b, length, d, hd, 2)
+        ok = ok_h and all(oks.values()) and (witness is None
+                                             or witness["ok"])
+        row = {"B": b, "L": length, "d": d, "H": h, "hd": hd, "gates": gates,
+               "state": with_state, "r_dtype": "bfloat16",
+               "max_abs_err": err_h, "state_max_abs_err": errs,
+               "ok_h": ok_h, "ok_state": oks, "witness_f64": witness,
+               "tol": SLSTM_TOL, "ok": ok, "ms": ms,
+               "us_per_step": ms * 1e3 / length, "plain_ms": plain_ms,
+               "plain_runs": 1, "library_ms": None,
+               "library": "none: no PyTorch call computes the sLSTM scan",
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_us_per_step": bound_ms * 1e3 / length,
+               "barrier_us_per_step": barrier[plan["blocks"]],
+               "grid": plan, "threads": so.THREADS,
+               "gflops": flops / (ms * 1e-3) / 1e9,
+               "gbytes_per_s": nbytes / ms * 1e-6,
+               "ptxas": _slstm_ptxas("slstm")}
+        rows.append(row)
+        print(f"kernel-check slstm {json.dumps(row)}", flush=True)
+        del gx, r, bf, st, y, fin
+        torch.cuda.empty_cache()
+    # the planted copies, each on one row that a fault must fail
+    gx, r, bf, st = sr.slstm_inputs(2, 512, d, h, seed=3, gates="slow",
+                                    state=True, rdtype=torch.bfloat16,
+                                    device="cuda")
+    yr, fr = sr.slstm_scan(gx, r, bf, st, h)
+    for fault in sorted(sr.FWD_FAULTS):
+        flib = _build.load(f"slstm_{fault}_fault",
+                           _slstm_fault_source(fault), so._SIG)
+        err, y, fin, _ = so.call(flib, gx, r, bf, st, False, stream,
+                                 fill=float("nan"))
+        torch.cuda.synchronize()
+        assert err == 0, err
+        fok, ferr = _close_by_rows(torch, y, yr, SLSTM_TOL["h"], 0.0)
+        row = {"B": 2, "L": 512, "gates": "slow", "state": True,
+               "fault": fault, "fault_ok": fok, "fault_max_abs_err": ferr,
+               "fault_finite": bool(torch.isfinite(y).all()),
+               "ok": not fok}
+        rows.append(row)
+        print(f"kernel-check slstm {json.dumps(row)}", flush=True)
+    del gx, r, bf, st, yr, fr
+    so.reset_launches()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_slstm_bwd(torch, cfg):
+    """The slstm backward kernel (through the forward kernel's histories)
+    and the wrapper's dr against autograd of the plain version
+    (``ref.slstm_grads``, r widened to f32 so that dr is compared before
+    its rounding to bf16) on SLSTM_BWD_ROWS, under loss sum(y dy) (+ the
+    final state's leaves weighted, on the row that gives them): dgx, dbf,
+    the initial state's four gradients and dr, each within rtol 1e-4 and
+    atol 1e-4 times its largest magnitude.  The kernel carries the
+    stabiliser's terms as autograd does (slstm_bwd.cu).  Each row: the
+    kernel's time (the backward launch alone), per step, its bound, the
+    plain version's time (autograd of the loop, forward and backward,
+    once), library none, a rerun's bit-equality."""
+    from repro_torch.kernels.slstm import ops as so
+    from repro_torch.kernels.slstm import ref as sr
+
+    d, h = cfg.d_model, cfg.n_heads
+    hd = d // h
+    rows = []
+    for b, length, gates, with_state, final in SLSTM_BWD_ROWS:
+        gx, r, bf, st = sr.slstm_inputs(b, length, d, h, seed=length + b + 1,
+                                        gates=gates, state=with_state,
+                                        rdtype=torch.bfloat16,
+                                        device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(length)
+        dy = torch.randn((b, length, d), generator=gen, device="cuda")
+        dfin = {k: (torch.randn((b, d), generator=gen, device="cuda")
+                    if final else None) for k in ("c", "n", "h", "m")}
+        y, fin, hist = so._launch(gx, r, bf, st, keep=True)
+        dg, dbf, dst = so._launch_bwd(r, bf, st, hist, dy, dfin)
+        again = so._launch_bwd(r, bf, st, hist, dy, dfin)
+        h_before = torch.cat([st["h"][:, None], y[:, :-1]], dim=1)
+        dr = so.recurrent_grad(h_before, dg, h)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = sr.slstm_grads(gx, r.float(), bf, st, h, dy, dfin)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = {"dgx": dg, "dbf": dbf, "dr": dr,
+               **{f"d{k}": dst[k] for k in ("c", "n", "h", "m")}}
+        want = {"dgx": ref["gx"], "dbf": ref["bf"], "dr": ref["r"],
+                **{f"d{k}": ref["state"][k] for k in ("c", "n", "h", "m")}}
+        oks, errs = {}, {}
+        for name in got:
+            scale = max(1.0, want[name].abs().max().item())
+            oks[name] = bool(torch.isfinite(got[name]).all()) and \
+                torch.allclose(got[name], want[name].float(),
+                               atol=1e-4 * scale, rtol=1e-4)
+            errs[name] = (got[name] - want[name]).abs().max().item()
+        bit_equal = all(torch.equal(u, w) for u, w in zip(
+            (dg, dbf, *dst.values()), (again[0], again[1],
+                                       *again[2].values())))
+        ms = _time_ms(lambda: so._launch_bwd(r, bf, st, hist, dy, dfin),
+                      iters=max(1, min(10, 4096 // length)), warmup=1)
+        bound_ms, bound_by, flops, nbytes = _slstm_bound(b, length, d, hd, 2,
+                                                         bwd=True)
+        plan = so.plan(so.bwd_lib(), b, d, h, r.dtype, bwd=True)
+        row = {"B": b, "L": length, "d": d, "H": h, "hd": hd,
+               "gates": gates, "state": with_state, "final_grads": final,
+               "ok_each": oks, "max_abs_err_each": errs,
+               "max_abs_err": max(errs.values()),
+               "tol": "rtol 1e-4, atol 1e-4 x each gradient's largest "
+                      "magnitude", "bit_equal_rerun": bit_equal,
+               "ok": all(oks.values()) and bit_equal, "ms": ms,
+               "us_per_step": ms * 1e3 / length, "plain_ms": plain_ms,
+               "plain": "autograd of ref.slstm_scan, forward and "
+                        "backward, once", "library_ms": None,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_us_per_step": bound_ms * 1e3 / length,
+               "grid": plan, "gflops": flops / (ms * 1e-3) / 1e9,
+               "ptxas": _slstm_ptxas("slstm_bwd")}
+        rows.append(row)
+        print(f"kernel-check slstm_bwd {json.dumps(row)}", flush=True)
+        del gx, r, bf, st, dy, y, fin, hist, dg, dbf, dst, again, ref, dr
+        torch.cuda.empty_cache()
+    so.reset_launches()
+    return rows
+
+
 def serve_family(torch, cfg, params, tag, counters, reduced=None,
                  extras=None):
     """The serving path of one family at full width and depth: 8 Poisson
@@ -3843,10 +4151,12 @@ def serve_family(torch, cfg, params, tag, counters, reduced=None,
     decode step one per MoE block (moe_gmm); an ENCDEC block's causal
     self-attention counts as an attention block, its cross-attention and
     the audio encoder do not, nor does a CROSS_ATTN block (plain
-    products).  ``reduced`` names a cut of the config, printed on the
-    line; ``extras`` as warm_up's."""
+    products); per prefill and decode step one per sLSTM block (slstm:
+    the scan kernel, one launch a layer at any length).  ``reduced``
+    names a cut of the config, printed on the line; ``extras`` as
+    warm_up's."""
     from repro_torch.configs.base import ATTN, ENCDEC, MAMBA, MLSTM, MOE, \
-        SHARED_ATTN
+        SHARED_ATTN, SLSTM
     from repro_torch.runtime.admission import request_stream
 
     reqs = request_stream(8, 0.25, seed=2, regime="poisson",
@@ -3877,6 +4187,7 @@ def serve_family(torch, cfg, params, tag, counters, reduced=None,
     expect["moe_gmm"] = n_moe * (prefills + steps)
     expect["mamba_scan"] = kinds.count(MAMBA) * prefills
     expect["mlstm"] = kinds.count(MLSTM) * prefills
+    expect["slstm"] = kinds.count(SLSTM) * (prefills + steps)
     res = {"arch": cfg.name, "n_layers": cfg.n_layers, "reduced": reduced,
            "continuous": cont, "fixed": fixed,
            "prefills": prefills, "decode_steps": steps,
@@ -3908,7 +4219,8 @@ def draw_gates(torch, cfg, params, seed=5):
 # (83.7 GB), more than the card's 80 GB.
 PHI_LAYERS = 8
 # xlstm-1.3b at full width, cut in depth for the script's time limit: its
-# sLSTM token loop made the family 156-189 s of the phases at full depth.
+# sLSTM token loop made the family 156-189 s of the phases at full depth
+# (slice 18 replaced the loop by the slstm scan kernels).
 # It trains at 2 of its 6 periods (1 sLSTM + 7 mLSTM each), 16 of 48
 # layers: at 8, step 0's gradient check is a draw for bf16 at that
 # depth, not a test of the kernels.  Over 12 draws (weight seeds 0-5,
@@ -3921,18 +4233,18 @@ PHI_LAYERS = 8
 XLSTM_LAYERS = 16
 XLSTM_SERVE_LAYERS = 8
 _TIME_CUT = "for the script's time limit"
-# (arch, line tag, token_loop, layers or None, the cut or None)
+# (arch, line tag, layers or None, the cut or None)
 FAMILIES = [
-    ("granite-moe-1b-a400m", "moe", False, None, None),
-    ("phi3.5-moe-42b-a6.6b", "moe_phi", False, PHI_LAYERS,
+    ("granite-moe-1b-a400m", "moe", None, None),
+    ("phi3.5-moe-42b-a6.6b", "moe_phi", PHI_LAYERS,
      f"depth {PHI_LAYERS} of 32 layers: 10,665,136,128 params (21.3 GB "
      "bf16); all 32 are 83.7 GB, over the card's 80 GB"),
-    ("zamba2-2.7b", "hybrid", False, None, None),
-    ("xlstm-1.3b", "ssm", True, XLSTM_SERVE_LAYERS,
+    ("zamba2-2.7b", "hybrid", None, None),
+    ("xlstm-1.3b", "ssm", XLSTM_SERVE_LAYERS,
      f"depth {XLSTM_SERVE_LAYERS} of 48 layers (1 of 6 periods), "
      f"{_TIME_CUT}"),
-    ("whisper-small", "audio", False, None, None),
-    ("llama-3.2-vision-11b", "vlm", False, None, None)]
+    ("whisper-small", "audio", None, None),
+    ("llama-3.2-vision-11b", "vlm", None, None)]
 
 
 def families(torch, counters, phase_time):
@@ -3944,17 +4256,14 @@ def families(torch, counters, phase_time):
     serving drive, the prefill check and a profile, for each.  The audio
     and VLM requests carry the serve CLI's extras (encoder frames of
     (1, 1500, 768), image tokens of (1, 1601, 4096), drawn from
-    ``default_rng([0, 5, rid])``).  An xLSTM
-    prefill launches about 140 kernels a token (the sLSTM token loop),
-    and the profiler's own processing of a 1024-token one takes tens of
-    seconds, so that family is marked ``token_loop`` (see warm_up and
-    profile).  ``phase_time`` marks each family's end."""
+    ``default_rng([0, 5, rid])``).  ``phase_time`` marks each family's
+    end."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import _extras_fns
     from repro_torch.models import transformer as tf
 
     total = dict.fromkeys(counters, 0)
-    for arch, tag, token_loop, layers, reduced in FAMILIES:
+    for arch, tag, layers, reduced in FAMILIES:
         cfg = get_config(arch)
         if layers:
             cfg = cfg.with_(n_layers=layers)
@@ -3963,14 +4272,12 @@ def families(torch, counters, phase_time):
         with torch.no_grad():
             params = tf.init_params(gen, cfg, device="cuda")
             draw_gates(torch, cfg, params)
-            warm_up(torch, cfg, params, MAX_LEN, token_loop=token_loop,
-                    extras=extras)
+            warm_up(torch, cfg, params, MAX_LEN, extras=extras)
             reqs, launches = serve_family(torch, cfg, params, tag, counters,
                                           reduced=reduced, extras=extras)
             check_prefill(torch, cfg, params, reqs, MAX_LEN,
                           extras_fn=extras[0])
-            profile(torch, cfg, params, tag=f"{tag}_",
-                    token_loop=token_loop, extras=extras)
+            profile(torch, cfg, params, tag=f"{tag}_", extras=extras)
         for name in total:
             total[name] += launches[name]
         del params
@@ -4005,9 +4312,9 @@ HYBRID_TRAIN_LAYERS = 12
 # mlstm backward kernels.  zamba2-2.7b at HYBRID_TRAIN_LAYERS of its 54
 # (10 Mamba2 + 2 uses of the shared attention; whole until slice 17 cut
 # it for the script's time limit) at 2 ranks of 2 x 1024; xlstm-1.3b at
-# XLSTM_LAYERS of its 48 layers (the sLSTM token loop runs in the
-# forward, in remat's recompute and in the backward), at 2 ranks of 2 x
-# 512.
+# XLSTM_LAYERS of its 48 layers, at 2 ranks of 2 x 512 (its sLSTM
+# through the slstm scan kernels since slice 18: the forward twice under
+# remat, the backward once).
 TRAIN_FAMILIES = [
     ("whisper-small", "audio", None, 4, 8, 448, 6, 1e-4, None),
     ("granite-moe-1b-a400m", "moe", None, 2, 8, 1024, 6, 3e-4, None),
@@ -4020,8 +4327,8 @@ TRAIN_FAMILIES = [
      "script's time limit"),
     ("xlstm-1.3b", "ssm", XLSTM_LAYERS, 2, 4, 512, 4, 1e-4,
      f"depth {XLSTM_LAYERS} of 48 layers (2 of 6 periods), for the "
-     "script's time limit (the sLSTM token loop); not 8, where step 0's "
-     "gradient check cannot separate the kernel path from bf16 noise")]
+     "script's time limit; not 8, where step 0's gradient check cannot "
+     "separate the kernel path from bf16 noise")]
 
 
 def _pinned_routes(torch, routes):
@@ -4075,14 +4382,15 @@ def family_grad_check(torch, cfg, dcfg, ranks):
     leaves must be within TRAIN_TOL of the witness, and it judges those
     leaves.  The kernel path must launch the backward kernel of each of
     the family's kernels (flash for an attention layer, moe_gmm,
-    mamba_scan, mlstm), the plain paths no kernel."""
+    mamba_scan, mlstm, slstm), the plain paths no kernel."""
     from repro_torch.configs.base import (ATTN, ENCDEC, MAMBA, MLSTM, MOE,
-                                          SHARED_ATTN)
+                                          SHARED_ATTN, SLSTM)
     from repro_torch.data import pipeline as dp
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.mlstm import ops as ml_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.slstm import ops as sl_ops
     from repro_torch.models import model as model_mod
     from repro_torch.models import transformer as tf
     from repro_torch.runtime.train_loop import family_batch_fn
@@ -4093,7 +4401,7 @@ def family_grad_check(torch, cfg, dcfg, ranks):
     mods = {fa_ops: any(k in kinds for k in (ATTN, SHARED_ATTN, MOE,
                                              ENCDEC)),
             gmm_ops: MOE in kinds, scan_ops: MAMBA in kinds,
-            ml_ops: MLSTM in kinds}
+            ml_ops: MLSTM in kinds, sl_ops: SLSTM in kinds}
 
     def counts():
         return {m: (m.launches, m.bwd_launches) for m in mods}
@@ -4213,7 +4521,8 @@ def train_families(torch, counters, phase_time):
     and the cross-attention are plain products) twice (the forward and
     remat's recompute) and a flash backward once; a moe_gmm forward per
     MOE layer twice and its backward once; the same for mamba_scan per
-    MAMBA layer and mlstm per MLSTM layer.  Before the run,
+    MAMBA layer, mlstm per MLSTM layer and slstm per SLSTM layer.  Before
+    the run,
     ``family_grad_check`` holds step 0's loss and gradient against the
     plain paths and an f32 witness, whatever the learning rate; after
     it, the loss must have fallen.  The runtime saves the state before
@@ -4225,7 +4534,7 @@ def train_families(torch, counters, phase_time):
     profiled (``profile_phase``: device time by kernel kind, idle
     share)."""
     from repro_torch.configs.base import (ATTN, ENCDEC, MAMBA, MLSTM, MOE,
-                                          SHARED_ATTN)
+                                          SHARED_ATTN, SLSTM)
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels.mamba_scan import ops as scan_ops
@@ -4279,6 +4588,7 @@ def train_families(torch, counters, phase_time):
         n_attn = sum(kinds.count(k) for k in (ATTN, SHARED_ATTN, MOE, ENCDEC))
         n_moe = kinds.count(MOE)
         n_mamba, n_mlstm = kinds.count(MAMBA), kinds.count(MLSTM)
+        n_slstm = kinds.count(SLSTM)
         fwd = 2 if cfg.remat else 1
         per = ranks * steps
         expect = dict.fromkeys(counters, 0)
@@ -4287,7 +4597,8 @@ def train_families(torch, counters, phase_time):
                       moe_gmm=fwd * n_moe * per, moe_gmm_bwd=n_moe * per,
                       mamba_scan=fwd * n_mamba * per,
                       mamba_scan_bwd=n_mamba * per,
-                      mlstm=fwd * n_mlstm * per, mlstm_bwd=n_mlstm * per)
+                      mlstm=fwd * n_mlstm * per, mlstm_bwd=n_mlstm * per,
+                      slstm=fwd * n_slstm * per, slstm_bwd=n_slstm * per)
         predicted = dict.fromkeys(counters, 0)
         predicted.update({k: n * per for k, n in predicted_step_calls(
             cfg, gb // ranks, seq).items()})
@@ -4368,6 +4679,7 @@ def main() -> int:
     from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.mlstm import ops as ml_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.slstm import ops as sl_ops
     from repro_torch.models import transformer as tf
 
     # 1. environment
@@ -4424,9 +4736,12 @@ def main() -> int:
     scan_bwd_rows = check_mamba_scan_bwd(torch, get_config("zamba2-2.7b"))
     ml_rows = check_mlstm(torch, get_config("xlstm-1.3b"))
     ml_bwd_rows = check_mlstm_bwd(torch, get_config("xlstm-1.3b"))
+    sl_rows = check_slstm(torch, get_config("xlstm-1.3b"))
+    sl_bwd_rows = check_slstm_bwd(torch, get_config("xlstm-1.3b"))
     print(f"kernel-check host_rss_gb={_host_rss_gb():.2f}", flush=True)
     bad = [r for r in rows + bwd_rows + gmm_rows + gmm_bwd_rows + scan_rows
-           + scan_bwd_rows + ml_rows + ml_bwd_rows if not r["ok"]] + \
+           + scan_bwd_rows + ml_rows + ml_bwd_rows + sl_rows + sl_bwd_rows
+           if not r["ok"]] + \
         [r for r in codec_rows + dm_rows if not r["bit_exact"]]
     assert not bad, bad
     main_row = next(r for r in rows if r["B"] == 1 and r["S"] == 1024
@@ -4447,6 +4762,8 @@ def main() -> int:
                         and r["dtype"] == "bfloat16" and not r["ds_fin"]
                         and r["inputs"] == "random")
     ml_bwd_row = ml_bwd_rows[0]
+    sl_row = sl_rows[1]                 # train_4k's 1 x 4096
+    sl_bwd_row = sl_bwd_rows[0]         # training's rank batch, 2 x 512
     phase_time("kernel-check")
 
     # 4. serve full-width llama3.2-1b
@@ -4478,7 +4795,9 @@ def main() -> int:
             "mamba_scan": (scan_ops, "launches"),
             "mamba_scan_bwd": (scan_ops, "bwd_launches"),
             "mlstm": (ml_ops, "launches"),
-            "mlstm_bwd": (ml_ops, "bwd_launches")}
+            "mlstm_bwd": (ml_ops, "bwd_launches"),
+            "slstm": (sl_ops, "launches"),
+            "slstm_bwd": (sl_ops, "bwd_launches")}
     plane = dict.fromkeys(mods, 0)
 
     # 5b. the analysis path (slice 15) against real steps, at the JAX
@@ -4526,14 +4845,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     fam = families(torch, mods, phase_time)
     assert fam["moe_gmm"] > 0 and fam["mamba_scan"] > 0 \
-        and fam["mlstm"] > 0, fam
+        and fam["mlstm"] > 0 and fam["slstm"] > 0, fam
 
     # 9. train the audio, VLM and MoE families (slice 11), the hybrid and
     # xLSTM ones (slice 13)
     torch.cuda.empty_cache()
     tfam = train_families(torch, mods, phase_time)
     assert tfam["moe_gmm_bwd"] > 0 and tfam["mamba_scan_bwd"] > 0 \
-        and tfam["mlstm_bwd"] > 0, tfam
+        and tfam["mlstm_bwd"] > 0 and tfam["slstm_bwd"] > 0, tfam
 
     # 9. results
     src = "src/repro_torch/kernels/"
@@ -4632,7 +4951,26 @@ def main() -> int:
         "max_abs_err": ml_bwd_row["max_abs_err"],
         "ms": ml_bwd_row["ms"], "plain_ms": ml_bwd_row["plain_ms"],
         "bound_ms": ml_bwd_row["bound_ms"],
-        "bound_by": ml_bwd_row["bound_by"], "library_ms": None}]
+        "bound_by": ml_bwd_row["bound_by"], "library_ms": None}, {
+        # the JAX package's lax.scan over _slstm_cell, which has no Pallas
+        # kernel; serving's prefills and decode steps, training's forwards
+        "name": "slstm", "route": "cuda",
+        "source": src + "slstm/csrc/slstm.cu",
+        "replaces": "src/repro/models/xlstm.py:289",
+        "launches": fam["slstm"] + tfam["slstm"],
+        "max_abs_err": sl_row["max_abs_err"],
+        "ms": sl_row["ms"], "plain_ms": sl_row["plain_ms"],
+        "bound_ms": sl_row["bound_ms"], "bound_by": sl_row["bound_by"],
+        "library_ms": None}, {
+        # its gradient (JAX differentiates the scan itself)
+        "name": "slstm_bwd", "route": "cuda",
+        "source": src + "slstm/csrc/slstm_bwd.cu",
+        "replaces": "src/repro/models/xlstm.py:289",
+        "launches": tfam["slstm_bwd"],
+        "max_abs_err": sl_bwd_row["max_abs_err"],
+        "ms": sl_bwd_row["ms"], "plain_ms": sl_bwd_row["plain_ms"],
+        "bound_ms": sl_bwd_row["bound_ms"],
+        "bound_by": sl_bwd_row["bound_by"], "library_ms": None}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,9 +26,10 @@ On a one-card mesh (``make_host_mesh((1, 1), ("data", "model"))``)
 nothing is split or modelled but the fusion of the HBM bytes;
 ``chip_smoke.py`` holds the kernel calls, the peak memory and the bound
 of such steps against the same steps on the card.  The difference method (1 and 2
-periods) gives the full depth, and for the xLSTM family, whose sLSTM is
-a token loop, two lengths give the full sequence (every block is linear
-in it).  Results go to ``results/dryrun_torch/<cell>.json``; ``--all``
+periods) gives the full depth, and for the xLSTM family two lengths
+give the full sequence (every block is linear in it; the sLSTM's one
+kernel call a layer at any length, its plain version's trace a loop
+over tokens).  Results go to ``results/dryrun_torch/<cell>.json``; ``--all``
 fans cells out to subprocesses.
 """
 from __future__ import annotations

@@ -66,6 +66,22 @@ def _base(name: str) -> str:
     return name[:-1] if name.endswith("_") else name
 
 
+def _tensors(x, acc: list) -> list:
+    """``acc`` with the tensors of an op's arguments or results appended
+    in ``tree_flatten``'s order (lists, tuples and dicts are the only
+    containers an aten op takes or returns; a fast path, since a traced
+    step dispatches some 10^5 ops)."""
+    if isinstance(x, torch.Tensor):
+        acc.append(x)
+    elif isinstance(x, (list, tuple)):
+        for e in x:
+            _tensors(e, acc)
+    elif isinstance(x, dict):
+        for e in x.values():
+            _tensors(e, acc)
+    return acc
+
+
 def _nbytes(t: torch.Tensor) -> int:
     """Bytes of the elements ``t`` holds: a broadcast (stride-0) dimension
     repeats the same elements, so an operand expanded for a batched
@@ -193,10 +209,8 @@ class Recorder(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        ins = [t for t in tree_flatten((args, kwargs))[0]
-               if isinstance(t, torch.Tensor)]
-        outs = [t for t in tree_flatten(out)[0]
-                if isinstance(t, torch.Tensor)]
+        ins = _tensors(kwargs, _tensors(args, []))
+        outs = _tensors(out, [])
         if not func._schema.is_mutable and (func.is_view or not outs or {
                 self._alloc(t) for t in outs} <= {self._alloc(t) for t in ins}):
             return out          # an alias, or a query of metadata: no traffic

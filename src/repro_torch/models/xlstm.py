@@ -9,9 +9,11 @@ JAX package's Pallas path, the kernel takes the initial state and a
 length that is not a multiple of the chunk.  Decode is plain tensor code,
 as in the JAX package.
 
-sLSTM carries a true hidden-state recurrence (h feeds the gates), so the
-sequence runs as a Python loop over tokens (the JAX package's
-``lax.scan``); per-head recurrent weights are block-diagonal.
+sLSTM carries a true hidden-state recurrence (h feeds the gates): the
+JAX package runs it as one ``lax.scan``, the port through
+``kernels.slstm``, the hand-written scan kernel on CUDA (one launch a
+layer, prefill or decode) and its plain version, a Python loop over
+tokens, on the CPU; per-head recurrent weights are block-diagonal.
 
 State layout per layer (decode):
   mLSTM: c (B,H,hd,hd) f32, n (B,H,hd) f32, m (B,H) f32,
@@ -29,6 +31,8 @@ from repro_torch import resolve_device
 from repro_torch.kernels.mlstm import ops as mlstm_ops
 from repro_torch.kernels.mlstm.ref import (CHUNK, NEG,  # noqa: F401
                                            mlstm_chunk_body, mlstm_chunked)
+from repro_torch.kernels.slstm import ops as slstm_ops
+from repro_torch.kernels.slstm.ref import zero_state as slstm_zero_state
 from repro_torch.models.layers import dense_init, matmul, matmul_rp, rms_norm
 
 D_CONV = 4
@@ -216,37 +220,7 @@ def init_slstm(gen, cfg, device="cuda"):
 
 def init_slstm_state(cfg, batch, dtype, device="cuda"):
     """f32 whatever ``dtype`` (kept for the JAX signature)."""
-    dev = resolve_device(device)
-    d = cfg.d_model
-    st = {k: torch.zeros((batch, d), dtype=torch.float32, device=dev)
-          for k in ("c", "n", "h")}
-    st["m"] = torch.full((batch, d), NEG, dtype=torch.float32, device=dev)
-    return st
-
-
-def _slstm_cell(params, gx, state, cfg, r32=None):
-    """One sLSTM step.  gx: (B,4d) input-gate preactivations, laid out
-    gate-major (i, f, z, o).  ``r32`` is ``params["r"]`` in f32 (a loop
-    passes it in once).
-
-    The recurrent term is laid out head-major ((B,h,4*hd) flattened) and
-    added to gx as it is, before the split into i, f, z, o: the JAX
-    package does so (``xlstm.py:265-269``), so with d = 4*hd gate i takes
-    all of head 0's recurrent output, gate f head 1's, and so on."""
-    if r32 is None:
-        r32 = params["r"].float()
-    h_heads = state["h"].reshape(gx.shape[0], cfg.n_heads, -1)
-    gr = torch.einsum("bhd,hde->bhe", h_heads, r32)
-    g = gx + gr.reshape(gx.shape[0], -1)                    # (B,4d)
-    gi, gf, gz, go = torch.chunk(g, 4, dim=-1)
-    logf = torch.log(torch.sigmoid(gf + params["bf"]) + 1e-9)
-    m_new = torch.maximum(logf + state["m"], gi)
-    fi = torch.exp(logf + state["m"] - m_new)
-    ii = torch.exp(gi - m_new)
-    c = fi * state["c"] + ii * torch.tanh(gz)
-    n = fi * state["n"] + ii
-    hy = torch.sigmoid(go) * c / torch.clamp_min(n, 1e-6)
-    return {"c": c, "n": n, "h": hy, "m": m_new}
+    return slstm_zero_state(batch, cfg.d_model, resolve_device(device))
 
 
 def _geglu_out(params, y):
@@ -256,22 +230,19 @@ def _geglu_out(params, y):
 
 
 def slstm_forward(params, x, cfg, state=None) -> Tuple[torch.Tensor, dict]:
-    """Sequential sLSTM over the sequence. x: (B,L,d)."""
+    """The sLSTM over the sequence (``kernels.slstm``). x: (B,L,d)."""
     bs, length, _ = x.shape
     gx = matmul(x, params["w"]).float()                     # (B,L,4d)
     st = state or init_slstm_state(cfg, bs, x.dtype, device=x.device)
-    r32 = params["r"].float()
-    hs = []
-    for t in range(length):
-        st = _slstm_cell(params, gx[:, t], st, cfg, r32)
-        hs.append(st["h"])
-    y = torch.stack(hs, dim=1).to(x.dtype)                  # (B,L,d)
+    hs, st = slstm_ops.slstm(gx, params["r"], params["bf"], st)
+    y = hs.to(x.dtype)                                      # (B,L,d)
     y = rms_norm(params["norm_w"], y, cfg.norm_eps)
     return _geglu_out(params, y), st
 
 
 def slstm_decode(params, x, state, cfg):
+    """One token: the scan at L = 1. x: (B,1,d)."""
     gx = matmul(x[:, 0], params["w"]).float()
-    st = _slstm_cell(params, gx, state, cfg)
+    _, st = slstm_ops.slstm(gx[:, None], params["r"], params["bf"], state)
     y = rms_norm(params["norm_w"], st["h"].to(x.dtype), cfg.norm_eps)
     return _geglu_out(params, y)[:, None], st

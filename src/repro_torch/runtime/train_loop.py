@@ -25,8 +25,9 @@ Every family the JAX runtime trains trains here: the audio and VLM
 families with their batches' extras (encoder frames, image tokens;
 ``extra_batch_specs``), the MoE family through the moe_gmm kernel's
 backward, the hybrid family through mamba_scan's and the xLSTM family
-through mlstm's (its sLSTM through autograd of the plain per-token loop,
-as the JAX package's ``lax.scan``).
+through mlstm's and its sLSTM through slstm's (on the CPU through
+autograd of the plain per-token loop, as the JAX package's
+``lax.scan``).
 """
 from __future__ import annotations
 

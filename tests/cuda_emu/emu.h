@@ -6,7 +6,10 @@
 // Each block runs as one std::thread per CUDA thread; __syncthreads is a
 // block-wide std::barrier and the warp collectives (__shfl_xor_sync,
 // __shfl_up_sync, ldmatrix, mma.sync) exchange through a per-warp scratch
-// area between two warp-wide barriers.  Blocks run one after another.
+// area between two warp-wide barriers.  Blocks run one after another,
+// but under a cooperative launch (cudaLaunchCooperativeKernel), where all
+// of them exist at once and meet at cooperative_groups' grid barrier,
+// between two barriers one at a time in order of their index.
 // Shared memory starts as 0xFF bytes (NaN in bf16 and f32), so a read of
 // a byte never written shows.  cp.async copies land only when
 // cp.async.wait_group retires their group, the latest a GPU may land them,
@@ -43,6 +46,8 @@
 #include <memory>
 #include <mutex>
 #include <thread>
+#include <type_traits>
+#include <utility>
 #include <vector>
 
 #define __global__
@@ -54,8 +59,9 @@
 #define __grid_constant__
 #define __trap() std::abort()
 // A static __shared__ array is one object for all the threads of the
-// block (blocks run one after another); unlike the dynamic smem() it is
-// not filled with NaN bytes.
+// block (blocks run one after another; under a cooperative launch it
+// would be all the blocks', so those kernels take dynamic shared memory
+// only); unlike the dynamic smem() it is not filled with NaN bytes.
 #define __shared__ static
 
 using std::max;
@@ -76,7 +82,11 @@ inline float4 make_float4(float a, float b, float c, float d) {
 }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorCooperativeLaunchTooLarge = 82
+};
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <typename F>
@@ -119,18 +129,37 @@ struct Warp {
   float c[32][4];
   const unsigned char* addr[32];
 };
-inline std::vector<std::unique_ptr<Warp>> warps;
-inline std::unique_ptr<std::barrier<>> block_bar;
-inline std::vector<unsigned char> smem_buf;
-inline unsigned char* smem_base;    // smem_buf's first 1024-byte boundary
-inline unsigned char* smem() { return smem_base; }
 constexpr int SMS = 3;              // multiprocessors (persistent grids)
 // A warpgroup's exchange area (its wgmma's descriptors).
 struct WarpGroup {
   std::barrier<> bar{128};
   uint64_t a[128], b[128];
 };
-inline std::vector<std::unique_ptr<WarpGroup>> warpgroups;
+// One block's own state: its dynamic shared memory (NaN bytes, starting
+// on 1024 bytes), its warps' and warpgroups' exchange areas and its
+// __syncthreads barrier.
+struct Block {
+  std::vector<unsigned char> smem_buf;
+  unsigned char* smem_base = nullptr;
+  std::vector<std::unique_ptr<Warp>> warps;
+  std::vector<std::unique_ptr<WarpGroup>> warpgroups;
+  std::unique_ptr<std::barrier<>> bar;
+  void init(int nt, int smem_bytes) {
+    smem_buf.assign(smem_bytes + 1024 + 16, 0xFF);
+    smem_base = smem_buf.data() +
+                (1024 - reinterpret_cast<uintptr_t>(smem_buf.data()) % 1024) %
+                    1024;
+    warps.clear();
+    for (int w = 0; w < (nt + 31) / 32; ++w) warps.emplace_back(new Warp);
+    warpgroups.clear();
+    for (int w = 0; nt % 128 == 0 && w < nt / 128; ++w)
+      warpgroups.emplace_back(new WarpGroup);
+    bar.reset(new std::barrier<>(nt));
+  }
+};
+inline thread_local Block* blk;            // the calling thread's block
+inline thread_local unsigned char* smem_base;   // blk's smem_base
+inline unsigned char* smem() { return smem_base; }
 struct WgOp { float* d; int n, ta, tb; uint64_t a, b; };
 inline thread_local std::vector<WgOp> wg_cur;
 inline thread_local std::vector<std::vector<WgOp>> wg_groups;
@@ -141,7 +170,36 @@ inline void reset_mbarriers();
 struct Copy { void* dst; const void* src; int n, src_n; };
 inline thread_local std::vector<Copy> cur;
 inline thread_local std::vector<std::vector<Copy>> pending;
-inline Warp& my_warp() { return *warps[tIdx.x / 32]; }
+inline Warp& my_warp() { return *blk->warps[tIdx.x / 32]; }
+
+// One CUDA thread of block b: its indices and block, the kernel, and the
+// check that it left no asynchronous copy or product pending.
+inline void run_thread(Block* b, int t, dim3 bi,
+                       const std::function<void()>& fn) {
+  tIdx = dim3(t, 0, 0);
+  bIdx = bi;
+  blk = b;
+  smem_base = b->smem_base;
+  cur.clear();
+  pending.clear();
+  wg_cur.clear();
+  wg_groups.clear();
+  bulk_cur.clear();
+  bulk_groups.clear();
+  fn();
+  if (!pending.empty() || !cur.empty()) {
+    std::fprintf(stderr, "a thread left cp.async groups pending\n");
+    std::abort();
+  }
+  if (!wg_groups.empty() || !wg_cur.empty()) {
+    std::fprintf(stderr, "a thread left wgmma groups pending\n");
+    std::abort();
+  }
+  if (!bulk_groups.empty() || !bulk_cur.empty()) {
+    std::fprintf(stderr, "a thread left TMA stores unread\n");
+    std::abort();
+  }
+}
 
 // kernel<<<grid, block, smem_bytes, stream>>>(...) becomes
 // launch(grid, block, smem_bytes, stream, [=] { kernel(...); }).
@@ -150,49 +208,116 @@ inline void launch(dim3 grid, dim3 block, int smem_bytes, void*,
   gDim = grid;
   bDim = block;
   const int nt = block.x;
+  Block b;
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
-        smem_buf.assign(smem_bytes + 1024 + 16, 0xFF);
-        smem_base = smem_buf.data() +
-                    (1024 - reinterpret_cast<uintptr_t>(smem_buf.data()) %
-                                1024) % 1024;
-        warps.clear();
-        for (int w = 0; w < (nt + 31) / 32; ++w) warps.emplace_back(new Warp);
-        warpgroups.clear();
-        for (int w = 0; nt % 128 == 0 && w < nt / 128; ++w)
-          warpgroups.emplace_back(new WarpGroup);
+        b.init(nt, smem_bytes);
         reset_mbarriers();
-        block_bar.reset(new std::barrier<>(nt));
         std::vector<std::thread> ts;
         for (int t = 0; t < nt; ++t)
-          ts.emplace_back([&, t, bx, by, bz] {
-            tIdx = dim3(t, 0, 0);
-            bIdx = dim3(bx, by, bz);
-            cur.clear();
-            pending.clear();
-            wg_cur.clear();
-            wg_groups.clear();
-            bulk_cur.clear();
-            bulk_groups.clear();
-            fn();
-            if (!pending.empty() || !cur.empty()) {
-              std::fprintf(stderr, "a thread left cp.async groups pending\n");
-              std::abort();
-            }
-            if (!wg_groups.empty() || !wg_cur.empty()) {
-              std::fprintf(stderr, "a thread left wgmma groups pending\n");
-              std::abort();
-            }
-            if (!bulk_groups.empty() || !bulk_cur.empty()) {
-              std::fprintf(stderr, "a thread left TMA stores unread\n");
-              std::abort();
-            }
-          });
+          ts.emplace_back(
+              [&, t, bx, by, bz] { run_thread(&b, t, dim3(bx, by, bz), fn); });
         for (auto& th : ts) th.join();
       }
 }
-inline void syncthreads() { block_bar->arrive_and_wait(); }
+
+// A cooperative launch (cudaLaunchCooperativeKernel): every block of the
+// grid exists at once, each with its own shared memory, and
+// cooperative_groups::this_grid().sync() is a grid-wide barrier.  Between
+// two barriers the blocks run one at a time, in order of their index
+// (block 0 first), a schedule a GPU may take: a block that reads what
+// another writes in the same phase (a read not ordered by the barrier)
+// sees block 0's writes from block 1 on, deterministically.  A barrier
+// after a block has returned is a deadlock on a GPU and fails here.  A
+// static __shared__ array would be one object for all blocks: kernels
+// launched so use dynamic shared memory only.
+struct Coop {
+  std::mutex mu;
+  std::condition_variable cv;
+  int nblocks = 0, turn = 0, arrived = 0;
+  std::vector<char> done;
+  std::vector<int> threads_left;
+  int nt = 0;
+  // the next block in order that has not returned, from block b
+  int next(int b) {
+    for (int i = 1; i <= nblocks; ++i) {
+      const int c = (b + i) % nblocks;
+      if (!done[c]) return c;
+    }
+    return -1;
+  }
+};
+inline Coop* coop;
+inline thread_local int coop_block = -1;
+
+inline void coop_wait_turn(std::unique_lock<std::mutex>& lock) {
+  coop->cv.wait(lock, [] { return coop->turn == coop_block; });
+}
+
+inline void grid_sync() {
+  if (coop == nullptr) {
+    std::fprintf(stderr, "a grid sync outside a cooperative launch\n");
+    std::abort();
+  }
+  blk->bar->arrive_and_wait();           // the whole block is here
+  std::unique_lock<std::mutex> lock(coop->mu);
+  for (char d : coop->done)
+    if (d) {
+      std::fprintf(stderr, "a grid sync after a block returned\n");
+      std::abort();
+    }
+  if (++coop->arrived == coop->nt) {     // the block's last thread
+    coop->arrived = 0;
+    coop->turn = coop->next(coop_block);
+    coop->cv.notify_all();
+  }
+  coop->cv.wait(lock, [] {
+    return coop->arrived == 0 && coop->turn == coop_block;
+  });
+}
+
+inline void launch_cooperative(dim3 grid, dim3 block, int smem_bytes,
+                               std::function<void()> fn) {
+  gDim = grid;
+  bDim = block;
+  const int nt = block.x;
+  const int nb = grid.x * grid.y * grid.z;
+  reset_mbarriers();
+  std::vector<std::unique_ptr<Block>> blocks;
+  for (int i = 0; i < nb; ++i) {
+    blocks.emplace_back(new Block);
+    blocks.back()->init(nt, smem_bytes);
+  }
+  Coop state;
+  state.nblocks = nb;
+  state.nt = nt;
+  state.done.assign(nb, 0);
+  state.threads_left.assign(nb, nt);
+  coop = &state;
+  std::vector<std::thread> ts;
+  for (int i = 0; i < nb; ++i) {
+    const dim3 bi(i % grid.x, i / grid.x % grid.y, i / (grid.x * grid.y));
+    for (int t = 0; t < nt; ++t)
+      ts.emplace_back([&, i, t, bi] {
+        coop_block = i;
+        {
+          std::unique_lock<std::mutex> lock(coop->mu);
+          coop_wait_turn(lock);
+        }
+        run_thread(blocks[i].get(), t, bi, fn);
+        std::unique_lock<std::mutex> lock(coop->mu);
+        if (--coop->threads_left[i] == 0) {   // the block has returned
+          coop->done[i] = 1;
+          coop->turn = coop->next(i);
+          coop->cv.notify_all();
+        }
+      });
+  }
+  for (auto& th : ts) th.join();
+  coop = nullptr;
+}
+inline void syncthreads() { blk->bar->arrive_and_wait(); }
 inline float shfl_xor(float v, int off) {
   Warp& w = my_warp();
   const int l = tIdx.x % 32;
@@ -225,6 +350,40 @@ inline float shfl_up(float v, int off) {
 inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
   *v = emu::SMS;
   return 0;
+}
+
+// Cooperative launches (a persistent grid with a grid-wide barrier; see
+// emu::launch_cooperative): one block a multiprocessor is co-resident, so
+// a grid of more than SMS blocks is refused, as the driver refuses one
+// larger than the card holds.
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, ...) {
+  *n = 1;
+  return 0;
+}
+template <typename... P, size_t... I>
+void emu_call(void (*k)(P...), void** args, std::index_sequence<I...>) {
+  k(*static_cast<std::remove_reference_t<P>*>(args[I])...);
+}
+template <typename... P>
+int cudaLaunchCooperativeKernel(void (*k)(P...), dim3 grid, dim3 block,
+                                void** args, size_t smem_bytes,
+                                cudaStream_t) {
+  if (grid.x * grid.y * grid.z > (unsigned)emu::SMS)
+    return cudaErrorCooperativeLaunchTooLarge;
+  emu::launch_cooperative(grid, block, (int)smem_bytes, [=] {
+    emu_call(k, args, std::index_sequence_for<P...>{});
+  });
+  return cudaSuccess;
+}
+namespace cooperative_groups {
+struct grid_group {
+  void sync() { emu::grid_sync(); }
+};
+inline grid_group this_grid() { return {}; }
+}  // namespace cooperative_groups
+template <typename T>
+inline T __ldcg(const T* p) {
+  return *p;
 }
 
 // The tc:: primitives that mma_bf16.cuh writes in inline PTX (the
@@ -490,8 +649,8 @@ inline void arrive(Mbar& b) {
 
 inline WarpGroup& my_warpgroup() {
   const size_t i = tIdx.x / 128;
-  if (i >= warpgroups.size()) fail("a wgmma outside a whole warpgroup");
-  return *warpgroups[i];
+  if (i >= blk->warpgroups.size()) fail("a wgmma outside a whole warpgroup");
+  return *blk->warpgroups[i];
 }
 // Element (mn, k) of a wgmma operand through its descriptor: start, LBO
 // and SBO in 16-byte units; K-major at start + (mn / 8) SBO + (mn % 8) 128

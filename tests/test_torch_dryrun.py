@@ -191,10 +191,19 @@ def test_kernel_calls_per_step(remat):
 
 
 def test_xlstm_and_f32_kernel_calls():
+    """xlstm's mLSTM and sLSTM blocks each run their forward kernel twice
+    a training step under remat (the recompute) and their backward once;
+    a prefill runs each forward once (the sLSTM's one launch a layer, not
+    a loop over tokens)."""
     cfg = _card_cfg("xlstm-1.3b", remat=True)
     m = sum(k == "mlstm" for k in cfg.block_kinds())
+    s = sum(k == "slstm" for k in cfg.block_kinds())
+    assert m > 0 and s > 0
     assert _calls(_direct(cfg, "train", 1, 32)) == {
-        "mlstm": (2 * m, 2 * m), "mlstm_bwd": (m, m)}
+        "mlstm": (2 * m, 2 * m), "mlstm_bwd": (m, m),
+        "slstm": (2 * s, 2 * s), "slstm_bwd": (s, s)}
+    assert _calls(_direct(cfg, "prefill", 1, 32)) == {
+        "mlstm": (m, m), "slstm": (s, s)}
     cfg = treg.reduced_config("granite-moe-1b-a400m")      # f32
     n = cfg.n_layers
     assert _calls(_direct(cfg, "prefill", B, S)) == {

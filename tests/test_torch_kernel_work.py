@@ -14,6 +14,7 @@ from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.mamba_scan import ops as ms
 from repro_torch.kernels.mlstm import ops as ml
 from repro_torch.kernels.moe_gmm import ops as gmm
+from repro_torch.kernels.slstm import ops as sl
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -89,6 +90,15 @@ def test_work_matches_perf_bound(name, work, expected):
 @pytest.mark.parametrize("work,expected", [
     (ms.bwd_work(2, 1024, 80, 64, 64, 64, 2), "0.1209"),
     (ml.bwd_work(2, 512, 4, 1024, 128, 2), "0.5212"),
+    # slstm (d 2048, hd 512, r bf16; f32 FMAs on the CUDA cores): the
+    # forward at training's 2 x 512, 1 x 4096 and 1 x 32768, a decode
+    # step of 96 rows; the backward at 2 x 512 and 1 x 4096
+    (sl.work(2, 512, 2048, 512, 2), "0.1282"),
+    (sl.work(1, 4096, 2048, 512, 2), "0.5128"),
+    (sl.work(1, 32768, 2048, 512, 2), "4.1027"),
+    (sl.work(96, 1, 2048, 512, 2), "0.01202"),
+    (sl.bwd_work(2, 512, 2048, 512, 2), "0.1282"),
+    (sl.bwd_work(1, 4096, 2048, 512, 2), "0.5128"),
 ])
 def test_work_at_the_f32_core_peak(work, expected):
     value, tol = printed(expected)
@@ -145,6 +155,10 @@ def test_chip_smoke_bounds_take_the_kernels_work():
                                        "bfloat16")[2:4] == ml.bwd_work(
         2, 500, 4, 1024, 128, 2)
     assert chip_smoke._dm_bytes(1025, 4) == dm.work(1025, 4)[1]
+    assert chip_smoke._slstm_bound(1, 4096, 2048, 512, 2)[2:4] == sl.work(
+        1, 4096, 2048, 512, 2)
+    assert chip_smoke._slstm_bound(2, 512, 2048, 512, 2, bwd=True)[2:4] \
+        == sl.bwd_work(2, 512, 2048, 512, 2)
 
 
 @pytest.mark.parametrize("s,causal,window", [

@@ -1560,3 +1560,102 @@ def test_cuda_mamba_scan_carry_over_8192_chunks(cuda_device, tmp_path,
     _mutant_lib(SO, tmp_path, monkeypatch, "mamba_scan_carry",
                 *SR.FWD_CARRY_FAULT)
     assert not ok(*SO.ssd(*ins, chunk=64))
+
+
+# slstm (slice 18): the sLSTM scan kernels at xlstm-1.3b's width (d 2048,
+# 4 heads of hd 512, r bf16) against the token loop.  h (|h| <= 1) atol
+# 1e-4, the final state rtol 1e-4 / atol 1e-4 times its largest
+# magnitude (chip_smoke.SLSTM_TOL: the recurrent product sums 512 terms in
+# another order than the plain einsum); gradients rtol 1e-4 / atol 1e-4
+# times their largest magnitude.
+def _slstm_close(got, want, tol=1e-4, rel=False):
+    scale = max(1.0, want.abs().max().item()) if rel else 1.0
+    return torch.allclose(got.float(), want.float(), atol=tol * scale,
+                          rtol=tol if rel else 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,length,gates,state", [
+    (2, 512, "model", False), (1, 1000, "slow", True), (100, 1, "model",
+                                                         True),
+    (3, 37, "slow", True)])
+def test_cuda_slstm_matches_plain(cuda_device, b, length, gates, state):
+    from repro_torch.kernels.slstm import ops as SLO
+    from repro_torch.kernels.slstm import ref as SLR
+    ins = SLR.slstm_inputs(b, length, 2048, 4, seed=length, gates=gates,
+                           state=state, rdtype=torch.bfloat16,
+                           device=cuda_device)
+    before = SLO.launches
+    y, fin = SLO.slstm(*ins)
+    assert SLO.launches == before + 1
+    yr, fr = SLR.slstm_scan(*ins, 4)
+    torch.cuda.synchronize()
+    assert _slstm_close(y, yr)
+    for key in ("c", "n"):
+        assert _slstm_close(fin[key], fr[key], rel=True)
+    assert _slstm_close(fin["h"], fr["h"]) and _slstm_close(fin["m"],
+                                                            fr["m"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["layout", "rescale", "barrier"])
+def test_cuda_slstm_checks_catch_planted_faults(cuda_device, tmp_path,
+                                                monkeypatch, fault):
+    """slstm.cu with the recurrent term gate-major, without the carried
+    state's rescale, or without the grid barrier between the steps (its
+    outputs starting as NaN): each fails the 2 x 512 row with slow gates
+    from a state."""
+    from repro_torch.kernels.slstm import ops as SLO
+    from repro_torch.kernels.slstm import ref as SLR
+    ins = SLR.slstm_inputs(2, 512, 2048, 4, seed=3, gates="slow",
+                           state=True, rdtype=torch.bfloat16,
+                           device=cuda_device)
+    yr, _ = SLR.slstm_scan(*ins, 4)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err, y, _, _ = SLO.call(SLO.lib(), *ins, False, stream,
+                                fill=float("nan"))
+        torch.cuda.synchronize()
+        assert err == 0
+        return y
+    assert _slstm_close(run(), yr)
+    _mutant_lib(SLO, tmp_path, monkeypatch, f"slstm_{fault}",
+                *SLR.FWD_FAULTS[fault])
+    assert not _slstm_close(run(), yr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,length,state,final", [
+    (2, 512, False, False), (2, 300, True, True)])
+def test_cuda_slstm_grads_match_autograd_of_plain(cuda_device, b, length,
+                                                  state, final):
+    """Through the wrapper's autograd route (the forward kernel keeping
+    its histories, the backward kernel, dr by one product), against
+    autograd of the token loop with r widened to f32."""
+    from repro_torch.kernels.slstm import ops as SLO
+    from repro_torch.kernels.slstm import ref as SLR
+    gx, r, bf, st = SLR.slstm_inputs(b, length, 2048, 4, seed=length + 1,
+                                     gates="slow", state=state,
+                                     rdtype=torch.bfloat16,
+                                     device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(length)
+    dy = torch.randn((b, length, 2048), generator=gen, device=cuda_device)
+    dfin = {k: (torch.randn((b, 2048), generator=gen, device=cuda_device)
+                if final else None) for k in ("c", "n", "h", "m")}
+    ins = [gx.requires_grad_(), r.float().requires_grad_(),
+           bf.requires_grad_()]
+    sts = {k: v.clone().requires_grad_() for k, v in st.items()}
+    before = (SLO.launches, SLO.bwd_launches)
+    y, fin = SLO.slstm(*ins, sts)
+    loss = (y * dy).sum() + sum((fin[k] * g).sum() for k, g in dfin.items()
+                                if g is not None)
+    got = torch.autograd.grad(loss, ins + [sts[k] for k in ("c", "n", "h",
+                                                            "m")])
+    assert (SLO.launches, SLO.bwd_launches) == (before[0] + 1,
+                                                before[1] + 1)
+    ref = SLR.slstm_grads(gx, r.float(), bf, st, 4, dy, dfin)
+    want = [ref["gx"], ref["r"], ref["bf"]] + [ref["state"][k] for k in (
+        "c", "n", "h", "m")]
+    for g, w in zip(got, want):
+        assert _slstm_close(g, w, rel=True)

@@ -92,8 +92,8 @@ def translate(source: str, include_dir: Path) -> str:
                     (where / m.group(1)).read_text()))
         raise FileNotFoundError(m.group(1))
     text = re.sub(r'#include "([\w.]+)"', inline, source)
-    text = re.sub(r"#include <cuda(_bf16|_runtime)?\.h>|#pragma once", "",
-                  text)
+    text = re.sub(r"#include <(cuda(_bf16|_runtime)?|cooperative_groups)"
+                  r"\.h>|#pragma once", "", text)
     text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) "
                   r"(\w+)\[\];", r"\1* \2 = (\1*)emu::smem();", text)
     text = re.sub(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\((.*?)\);",

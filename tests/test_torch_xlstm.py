@@ -24,6 +24,7 @@ from repro.models import xlstm as JX
 from repro_torch.configs import registry as treg
 from repro_torch.data import pipeline as tdp
 from repro_torch.kernels.mlstm import ops as mlstm_ops
+from repro_torch.kernels.slstm.ref import slstm_cell
 from repro_torch.models import model as TM
 from repro_torch.models import transformer as TT
 from repro_torch.models import xlstm as TX
@@ -175,7 +176,7 @@ def test_slstm_recurrent_term_is_added_head_major():
     state["h"][0, :hd] = torch.from_numpy(_x(1, 1, hd, 5)[0, 0])
     state["m"].zero_()
     gx = torch.zeros((1, 4 * d))
-    got = TX._slstm_cell(tps, gx, state, tcfg)
+    got = slstm_cell(gx, state, tps["r"].float(), tps["bf"], tcfg.n_heads)
     gr = state["h"][0, :hd] @ tps["r"][0].float()            # head 0's 4*hd
     gi = gr                                                  # gate i only
     logf = torch.log(torch.sigmoid(tps["bf"]) + 1e-9)[None]
