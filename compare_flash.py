@@ -3,7 +3,8 @@
 
     python3 compare_flash.py [--kernel flash|moe_gmm|moe_gmm_bwd|moe_step|
                               mlstm|mamba_scan|mlstm_bwd|mamba_scan_bwd|
-                              hybrid_step] OLD_CHECKOUT [NEW_CHECKOUT]
+                              hybrid_step|slstm|slstm_bwd] OLD_CHECKOUT
+                              [NEW_CHECKOUT]
 
 NEW_CHECKOUT defaults to this script's own directory.  Both packages are
 named ``repro_torch``, so each checkout runs in a process of its own, in
@@ -52,6 +53,13 @@ zamba2-2.7b as chip_smoke's ``train-family-hybrid`` runs it (full width
 and depth, 2 ranks, global batch 4 x 1024), as ``moe_step`` times
 granite's.
 
+``slstm`` and ``slstm_bwd``: the sLSTM scan kernels at xlstm-1.3b's width
+(d 2048, 4 heads of hd 512, r bf16) on chip_smoke's SLSTM_ROWS and
+SLSTM_BWD_ROWS, each row with its time, per step, bound and grid
+(``ops.plan``), the grid barrier's cost a step (``sl_barrier``) and,
+where the checkout has it, the step-tagged exchange's (``sl_exchange``),
+and the kernels' ptxas lines.
+
 Prints the card's name and power limit (``nvidia-smi``), a
 ``<kernel>-compare`` JSON line per process and a
 ``<kernel>-compare-summary`` line: each checkout's best time per shape.
@@ -78,7 +86,8 @@ GMM_BWD_SHAPES = [("granite", 32, 1280, 1024, 512, "silu"),
                   ("granite", 32, 1280, 1024, 512, "gelu"),
                   ("phi3.5", 16, 160, 4096, 6400, "silu")]
 KERNELS = ("flash", "moe_gmm", "moe_gmm_bwd", "moe_step", "mlstm",
-           "mamba_scan", "mlstm_bwd", "mamba_scan_bwd", "hybrid_step")
+           "mamba_scan", "mlstm_bwd", "mamba_scan_bwd", "hybrid_step",
+           "slstm", "slstm_bwd")
 
 
 def gmm_rows(torch, cs):
@@ -281,6 +290,89 @@ def mlstm_bwd_rows(torch, cs):
                                                            iters=5)}]
 
 
+def _slstm_inputs(torch, b, length, gates, with_state, seed):
+    from repro_torch.kernels.slstm import ref
+    return ref.slstm_inputs(b, length, 2048, 4, seed=seed, gates=gates,
+                            state=with_state, rdtype=torch.bfloat16,
+                            device="cuda")
+
+
+def _slstm_ptxas(name):
+    from repro_torch.kernels import _build
+    return [ln.strip() for ln in _build.build_logs.get(name, "").splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+def _slstm_barrier_us(torch, lib, blocks, steps=4096):
+    stream = torch.cuda.current_stream().cuda_stream
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    assert lib.sl_barrier(blocks, 256, steps, stream) == 0
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / steps * 1e3
+
+
+def slstm_rows(torch, cs):
+    from repro_torch.kernels.slstm import ops
+
+    lib = ops.lib()
+    rows = []
+    for b, length, gates, with_state in cs.SLSTM_ROWS:
+        gx, r, bf, st = _slstm_inputs(torch, b, length, gates, with_state,
+                                      length + b)
+
+        def fn():
+            return ops._launch(gx, r, bf, st, keep=False)
+        ms = cs._time_ms(fn, iters=max(1, min(20, 4096 // length)),
+                         warmup=1)
+        plan = ops.plan(lib, b, 2048, 4, r.dtype)
+        bound_ms, bound_by, _, _ = cs._slstm_bound(b, length, 2048, 512, 2)
+        exchange = (ops.exchange_us(lib, plan["blocks"], plan["jb"], 2048,
+                                    plan["bt"], "tag")
+                    if hasattr(ops, "exchange_us") else None)
+        rows.append({"key": f"B{b} L{length}", "B": b, "L": length,
+                     "ms": ms, "us_per_step": ms * 1e3 / length,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_us_per_step": bound_ms * 1e3 / length,
+                     "exchange_us_per_step": exchange,
+                     "barrier_us_per_step": _slstm_barrier_us(
+                         torch, lib, plan["blocks"]),
+                     "grid": plan, "ptxas": _slstm_ptxas("slstm")})
+        del gx, r, bf, st
+    return rows
+
+
+def slstm_bwd_rows(torch, cs):
+    from repro_torch.kernels.slstm import ops
+
+    rows = []
+    for b, length, gates, with_state, final in cs.SLSTM_BWD_ROWS:
+        gx, r, bf, st = _slstm_inputs(torch, b, length, gates, with_state,
+                                      length + b + 1)
+        gen = torch.Generator(device="cuda").manual_seed(length)
+        dy = torch.randn((b, length, 2048), generator=gen, device="cuda")
+        dfin = {k: (torch.randn((b, 2048), generator=gen, device="cuda")
+                    if final else None) for k in ("c", "n", "h", "m")}
+        _, _, hist = ops._launch(gx, r, bf, st, keep=True)
+
+        def fn():
+            return ops._launch_bwd(r, bf, st, hist, dy, dfin)
+        ms = cs._time_ms(fn, iters=max(1, min(10, 4096 // length)),
+                         warmup=1)
+        bound_ms, bound_by, _, _ = cs._slstm_bound(b, length, 2048, 512, 2,
+                                                   bwd=True)
+        rows.append({"key": f"B{b} L{length}", "B": b, "L": length,
+                     "ms": ms, "us_per_step": ms * 1e3 / length,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_us_per_step": bound_ms * 1e3 / length,
+                     "grid": ops.plan(ops.bwd_lib(), b, 2048, 4, r.dtype,
+                                      bwd=True),
+                     "ptxas": _slstm_ptxas("slstm_bwd")})
+        del gx, r, bf, st, dy, hist
+    return rows
+
+
 def child(tree: str, kernel: str) -> int:
     import torch
     import torch.nn.functional as F
@@ -295,14 +387,17 @@ def child(tree: str, kernel: str) -> int:
     from repro_torch.kernels.mlstm import ops as ml_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
 
-    for mod in (ops, gmm_ops, ml_ops, scan_ops):
+    from repro_torch.kernels.slstm import ops as sl_ops
+
+    for mod in (ops, gmm_ops, ml_ops, scan_ops, sl_ops):
         assert mod.__file__.startswith(os.path.abspath(tree)), mod.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
     other = {"moe_gmm": gmm_rows, "moe_gmm_bwd": gmm_bwd_rows,
              "moe_step": moe_step_rows, "mlstm": mlstm_rows,
              "mamba_scan": scan_rows, "mamba_scan_bwd": scan_bwd_rows,
              "mlstm_bwd": mlstm_bwd_rows,
-             "hybrid_step": lambda t, c: moe_step_rows(t, c, "hybrid")}
+             "hybrid_step": lambda t, c: moe_step_rows(t, c, "hybrid"),
+             "slstm": slstm_rows, "slstm_bwd": slstm_bwd_rows}
     if kernel in other:
         print(f"{kernel}-compare " + json.dumps({
             "tree": os.path.abspath(tree),

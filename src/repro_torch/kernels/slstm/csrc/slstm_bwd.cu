@@ -22,39 +22,59 @@
 // Out: dg (B, L, 4D) f32 (the gradient of gx, gate-major), dbf (D,) and
 // the initial state's gradient (dc, dn, dh, dm) (B, D).  dR = sum_t
 // h_{t-1}^T dg_t per head is one large product after the scan, left to
-// the wrapper (torch.matmul), as the JAX package leaves it to XLA.
+// the wrapper (torch.einsum), as the JAX package leaves it to XLA.
 //
-// What bounds it on this card: per token 2 B 4D hd FLOPs (R^T dg, f32
-// FMAs) against the saved g, c, n, m, dy and dg (72 KB a row at
-// xlstm-1.3b); like the forward, a step also pays one grid barrier.
+// What bounds it on this card: per token and row 2 4D hd FLOPs (R^T dg,
+// f32 FMAs; 0.125 us at xlstm-1.3b) against the saved g, c, n, m, dy and
+// dg (72 KB a row); as in the forward, a step also pays the exchange of
+// dg_{t+1} between the blocks, about one L2 round trip.
 //
-// Design: the forward's persistent cooperative grid.  Block x owns indices
-// j in [x JB, x JB + JB) and R's rows j of R viewed as (D, 4 hd) (row j is
-// head j / hd's row j % hd: what dh_j sums over), held in shared memory
-// in R's dtype for the whole call.  A step stages dg_{t+1}'s segments of
-// the heads the block's j touch, runs R^T dg a warp per (row, 2 j), 16
-// lanes a j, then one thread per (row, j) runs the cell's gradient and
-// writes dg_t.
-// dg_t is the output's row t, so a block reads dg_{t+1} only from a row
-// no block writes in this step; one grid barrier a step orders it.  The
-// carries live in the output (dc, dn, dm), owned per j; dbf sums each
-// row's share in scratch and then over the rows.  No atomics.
+// Design: the forward's (slstm.cu), transposed.  One cooperative
+// persistent grid, block x owning indices j in [x JB, x JB + JB) and R's
+// rows j (R viewed as (D, 4 hd): row j is head j / hd's row j % hd, what
+// dh_j sums over).
+//  - R stays in registers: scan_ring.cuh's product with the block's JBP
+//    indices as columns and K = 4 hd (at xlstm-1.3b on 256 threads: 2
+//    groups of 8 indices, each over 4 tasks of 4 chunks, bf16 pairs in 64
+//    registers a thread), read straight from R's rows once a call; dg_{t+1}'s
+//    segments (the heads the block's indices touch) broadcast from shared
+//    memory as float4; the 4 tasks' partials summed by the cell.
+//  - The saved g, c, n, m and dy of step t - 1 are copied by the cell's
+//    thread with cp.async while step t runs.
+//  - The carries (dc, dn, dm) and each row's share of dbf stay in that
+//    thread's registers; dbf is summed over the rows once, at the end.
+//  - dg_t goes to the consumers through the forward's two-slot tagged
+//    ring, each row's words laid out as dg (4D, flat).  A block reads only
+//    its segments of dg; where a head's 4 hd words come from every block
+//    (4 hd >= D, as at xlstm-1.3b) it has then heard from all blocks, and a
+//    slot is rewritten only after every block has read it, as in the
+//    forward.  Where they do not (more than 4 heads), each row also holds
+//    one sentinel word a block, which every block waits on too.  Every wait
+//    is bounded (__trap past POLL_LIMIT).
+// Rows in tiles of BT, one reverse walk each, t = -1 being a step of its
+// own (R^T dg_0, the initial h's gradient).  No atomics.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+#include "scan_ring.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
+using ring::u64;
+using slt::CW;
+using slt::QW;
+
 constexpr int SMEM_MAX = 200 * 1024;
 constexpr int BT_MAX = 16;
 constexpr int MAX_THREADS = 256;
-// R^T dg: a warp takes COLS indices of one row at a time, PARTS lanes an
-// index, each lane every PARTS-th element of 4 hd; a row of R in shared
-// memory is 4 hd + PARTS long, so the 32 lanes' words fall in 32 banks.
-constexpr int COLS = 2, PARTS = 16;
+constexpr int WB = 8;                  // ring words a thread reads at once
+constexpr long long POLL_LIMIT = 1ll << 26;
+constexpr int PV = 8;                  // a cell's prefetched values
 
 struct BwdArgs {
   const void* r;            // (H, hd, 4 hd) in T
@@ -73,16 +93,41 @@ struct BwdArgs {
   const float* dm_fin;
   float* dg;                // (B, L, 4D)
   float* dbf;               // (D,)
-  float* dc;                // (B, D) each: the carries, then the initial
-  float* dn;                //   state's gradient
+  float* dc;                // (B, D) each: the initial state's gradient
+  float* dn;
   float* dh;
   float* dm;
-  float* dbf_rows;          // (B, D) scratch
-  int B, L, H, D, hd, jb, bt, seg;
+  u64* ring;                // (2, BT, 4D + sentinels) words
+  int B, L, H, D, hd, jb, jbp, bt, seg, kp, sent;
+  slt::Geo geo;
 };
 
 __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) / 16 * 16;
+}
+
+// Byte offsets of a block's shared memory: dg's segments of a tile (BT,
+// seg KP) f32; the tasks' partials (ntasks, BT, CW); the cells'
+// prefetched values (2, threads, PV); each index's and each group's
+// offset into a row of segments; R's slots past the `smax` a thread holds
+// in registers.
+struct Layout {
+  size_t red, pbuf, csrc, gsrc, rsm, total;
+};
+
+__host__ __device__ inline Layout layout_bwd(int bt, int seg, int kp,
+                                             int jbp, int threads,
+                                             const slt::Geo& geo, int smax) {
+  Layout o;
+  o.red = align16((size_t)bt * seg * kp * sizeof(float));
+  o.pbuf = o.red + align16((size_t)geo.ntasks * bt * CW * sizeof(float));
+  o.csrc = o.pbuf + (size_t)2 * threads * PV * sizeof(float);
+  o.gsrc = o.csrc + align16((size_t)jbp * sizeof(int));
+  o.rsm = o.gsrc + align16((size_t)geo.ng * sizeof(int));
+  const int extra = geo.slots > smax ? geo.slots - smax : 0;
+  o.total = o.rsm + (size_t)(threads / 32) * extra * CW * 32 * 4 *
+                        sizeof(float);
+  return o;
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -98,135 +143,283 @@ __device__ __forceinline__ float opt(const float* p, size_t i) {
   return p != nullptr ? p[i] : 0.f;
 }
 
+// dg_{t+1} from the ring slot `slot`: of each of `nrows` rows (row b at
+// slot + b RW) the `nsw` words from `seg0` (this block's segments) and the
+// `nblk` sentinels from `sent0` (none where every block writes into the
+// segments), all tagged `want`; the segment words staged into dgs (row b at b SW, word x
+// at (x / hd4) KP + x % hd4).  Each row's words are padded to a multiple
+// of the block's threads, so a thread's next word is NT further in the
+// same row or the same place of the next; WB words a thread are read at
+// once, and those not yet tagged read again at once.
+__device__ void fetch_dg(const u64* slot, float* dgs, int nrows, int RW,
+                         int seg0, int nsw, int sent0, int nblk, int hd4,
+                         int KP, int SW, unsigned want) {
+  const int NT = blockDim.x, tid = threadIdx.x, per = nsw + nblk;
+  const int perp = (per + NT - 1) / NT * NT;
+  const int n = nrows * perp;
+  const bool dense = KP == hd4;
+#pragma unroll 1
+  for (int base = tid; base < n; base += NT * WB) {
+    u64 w[WB];
+    int at[WB];              // (row << 20) | word of the row
+    unsigned todo = 0;
+    int b = (base - tid) / perp, x = tid + (base - tid) % perp;
+#pragma unroll
+    for (int u = 0; u < WB; ++u) {
+      at[u] = b << 20 | x;
+      if (b < nrows && x < per) todo |= 1u << u;
+      x += NT;
+      if (x >= perp) {
+        x -= perp;
+        ++b;
+      }
+    }
+    long long polls = 0;
+    while (todo != 0) {
+      const u64* p = reinterpret_cast<const u64*>(
+          ring::opaque64(reinterpret_cast<u64>(slot)));
+#pragma unroll
+      for (int u = 0; u < WB; ++u)
+        if (todo >> u & 1) {
+          const int bb = at[u] >> 20, xx = at[u] & 0xFFFFF;
+          w[u] = ring::ld_relaxed_u64(
+              p + (size_t)bb * RW + (xx < nsw ? seg0 + xx
+                                              : sent0 + xx - nsw));
+        }
+#pragma unroll
+      for (int u = 0; u < WB; ++u) {
+        if ((todo >> u & 1) && (unsigned)(w[u] >> 32) == want) {
+          todo &= ~(1u << u);
+          const int bb = at[u] >> 20, xx = at[u] & 0xFFFFF;
+          if (xx >= nsw) continue;
+          dgs[(size_t)bb * SW + (dense ? xx : xx / hd4 * KP + xx % hd4)] =
+              __uint_as_float((unsigned)w[u]);
+        }
+      }
+      if (todo != 0) {
+        if (++polls > POLL_LIMIT) __trap();
+        ring::poll_pause();
+      }
+    }
+  }
+}
+
 template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS) sl_bwd_kernel(BwdArgs a) {
+__global__ void __launch_bounds__(MAX_THREADS, 1) sl_bwd_kernel(BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int D = a.D, L = a.L, hd = a.hd, JB = a.jb, BT = a.bt;
-  const int hd4 = 4 * hd, seg4 = a.seg * hd4;
+  const int D = a.D, L = a.L, hd = a.hd, hd4 = 4 * hd, JB = a.jb;
+  const int JBP = a.jbp, BT = a.bt, KP = a.kp, SW = a.seg * KP;
+  const int NT = blockDim.x, tid = threadIdx.x, lane = tid % 32;
+  const int w = tid / 32, NW = NT / 32;
+  const int nsent = a.sent ? (int)gridDim.x : 0;
+  const int RW = 4 * D + nsent;                // a ring row: dg, sentinels
+  const slt::Geo geo = a.geo;
   const int j0 = blockIdx.x * JB, jn = min(JB, D - j0);
   const int hlo = j0 / hd, nseg = (j0 + jn - 1) / hd - hlo + 1;
-  const int rst = hd4 + PARTS;                            // R's row
-  T* rr = reinterpret_cast<T*>(smem);                     // (JB, rst)
-  float* dgs = reinterpret_cast<float*>(
-      smem + align16((size_t)JB * rst * sizeof(T)));      // (BT, seg 4 hd)
-  float* dhr = dgs + (size_t)BT * seg4;                   // (BT, JB)
+  const Layout lay = layout_bwd(BT, a.seg, KP, JBP, NT, geo,
+                                slt::Reg<T>::SMAX);
+  float* dgs = reinterpret_cast<float*>(smem);            // (BT, SW)
+  float* red = reinterpret_cast<float*>(smem + lay.red);  // (ntasks, BT, CW)
+  float* pbuf = reinterpret_cast<float*>(smem + lay.pbuf);  // (2, NT, PV)
+  int* csrc = reinterpret_cast<int*>(smem + lay.csrc);    // (JBP)
+  int* gsrc = reinterpret_cast<int*>(smem + lay.gsrc);    // (ng)
+  float* rsm = reinterpret_cast<float*>(smem + lay.rsm);
+  constexpr int S = slt::Reg<T>::SMAX;
+  const int xslots = geo.slots > S ? geo.slots - S : 0;
   const T* r = static_cast<const T*>(a.r);
 
-  // R's rows of this block's indices, once a call (R as (D, 4 hd))
-  for (int idx = threadIdx.x; idx < jn * hd4; idx += blockDim.x)
-    rr[(size_t)(idx / hd4) * rst + idx % hd4] = r[(size_t)j0 * hd4 + idx];
+  for (int jj = tid; jj < JBP; jj += NT)
+    csrc[jj] = jj < jn ? ((j0 + jj) / hd - hlo) * KP : -1;
+  slt::group_sources(csrc, gsrc, JBP);
+
+  // R's rows of this block's indices, once a call, into the slots (the
+  // register slots' loads all in flight at once)
+  typename slt::Reg<T>::type rr[S][slt::Reg<T>::N];
+  unsigned sd[S];
+  int hoff[S];
+  slt::slot_table<S>(geo, w, NW, lane, gsrc, sd, hoff);
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const unsigned d = sd[s];
+    const int jb0 = (d >> 12 & 0xFFF) * CW, e0 = (d >> 24 & 0x3F) * QW +
+                                               lane * 4;
+#pragma unroll
+    for (int i = 0; i < CW * 4; i += 2) {
+      float v[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int jj = jb0 + (i + x) / 4, e = e0 + (i + x) % 4;
+        v[x] = d != slt::NO_SLOT && jj < jn && e < hd4
+                   ? to_f(r[(size_t)(j0 + jj) * hd4 + e])
+                   : 0.f;
+      }
+      slt::put2(rr[s], i, v[0], v[1]);
+    }
+  }
+  float* rsm_w = rsm + (size_t)w * xslots * CW * 128 + lane * 4;
+  for (int s = S; s < geo.slots; ++s) {
+    const slt::Slot sl = slt::slot_of(geo, s, w, NW);
+    for (int i = 0; i < CW * 4; ++i) {
+      const int jj = sl.g * CW + i / 4, e = sl.q * QW + lane * 4 + i % 4;
+      rsm_w[((size_t)(s - S) * CW + i / 4) * 128 + i % 4] =
+          sl.valid && jj < jn && e < hd4
+              ? to_f(r[(size_t)(j0 + jj) * hd4 + e])
+              : 0.f;
+    }
+  }
+  for (int i = tid; i < BT * SW; i += NT) dgs[i] = 0.f;    // the chunks' pad
+
+  // the ring's step counter: v = ti (L + 2) + (L - 1 - t), one unused
+  // between two tiles (see slstm.cu)
+  const int ntiles = (a.B + BT - 1) / BT;
+  {
+    const size_t nring = (size_t)2 * BT * RW;
+    for (size_t i = (size_t)blockIdx.x * NT + tid; i < nring;
+         i += (size_t)gridDim.x * NT)
+      a.ring[i] = 0;
+    cg::this_grid().sync();
+  }
   __syncthreads();
 
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int nwarp = blockDim.x / 32;
+  // the cell of (row cb of a tile, index j0 + cj)
+  const int cb = tid / JB, cj = tid % JB;
+  const bool cell_thread = cb < BT && cj < jn;
+  const float bfj = cell_thread ? a.bf[j0 + cj] : 0.f;
   const size_t D4 = (size_t)4 * D;
-  cg::grid_group grid = cg::this_grid();
-  // t = -1 is not a step: it takes the initial h's gradient, R^T dg_0
-  for (int t = L - 1; t >= -1; --t) {
-    for (int b0 = 0; b0 < a.B; b0 += BT) {
-      const int bn = min(BT, a.B - b0);
-      const bool rec = t + 1 < L;      // dg of step t + 1 feeds dh_t
-      if (rec) {
-        for (int idx = threadIdx.x; idx < bn * nseg * hd4;
-             idx += blockDim.x) {
-          const int bb = idx / (nseg * hd4), s = idx % (nseg * hd4);
-          dgs[(size_t)bb * seg4 + s] = __ldcg(
-              a.dg + ((size_t)(b0 + bb) * L + t + 1) * D4 +
-              (size_t)hlo * hd4 + s);
-        }
-        __syncthreads();
-        const int groups = (jn + COLS - 1) / COLS;
-        for (int q = warp; q < bn * groups; q += nwarp) {
-          const int bb = q / groups, jj = q % groups * COLS + lane % COLS;
-          const bool valid = jj < jn;
-          float acc = 0.f;
-          if (valid) {
-            const float* dgrow = dgs + (size_t)bb * seg4 +
-                                 (size_t)((j0 + jj) / hd - hlo) * hd4;
-            const T* row = rr + (size_t)jj * rst;
-            for (int e = lane / COLS; e < hd4; e += PARTS)
-              acc += dgrow[e] * to_f(row[e]);
-          }
-          for (int off = COLS; off < 32; off <<= 1)
-            acc += __shfl_xor_sync(0xffffffffu, acc, off);
-          if (valid && lane < COLS) dhr[bb * JB + jj] = acc;
-        }
-        __syncthreads();
-      }
-      for (int q = threadIdx.x; q < bn * jn; q += blockDim.x) {
-        const int bb = q / jn, jj = q % jn, b = b0 + bb, j = j0 + jj;
-        const size_t s = (size_t)b * D + j;
-        if (t < 0) {
-          a.dh[s] = dhr[bb * JB + jj];
-          continue;
-        }
-        const size_t o = ((size_t)b * L + t) * D + j;
-        const bool last = t == L - 1;
-        float dh = a.dy[o] + (rec ? dhr[bb * JB + jj] : 0.f);
-        if (last) dh += opt(a.dh_fin, s);
-        const float dc = last ? opt(a.dc_fin, s) : a.dc[s];
-        const float dn = last ? opt(a.dn_fin, s) : a.dn[s];
-        const float dm = last ? opt(a.dm_fin, s) : a.dm[s];
-        const size_t po = o - D;       // step t - 1's, where t > 0
-        const float cp = t == 0 ? a.c0[s] : a.c_hist[po];
-        const float np = t == 0 ? a.n0[s] : a.n_hist[po];
-        const float mp = t == 0 ? a.m0[s] : a.m_hist[po];
-        const float* g = a.g_hist + ((size_t)b * L + t) * D4 + j;
-        const float gi = g[0], gf = g[D], gz = g[2 * (size_t)D],
-                    go = g[3 * (size_t)D];
-        // the cell again, as the forward ran it
-        const float sf = sigm(gf + a.bf[j]);
-        const float lf = logf(sf + 1e-9f);
-        const float a1 = lf + mp;
-        const float mn = fmaxf(a1, gi);
-        const float fi = expf(a1 - mn);
-        const float ii = expf(gi - mn);
-        const float tz = tanhf(gz);
-        const float c = fi * cp + ii * tz;
-        const float n = fi * np + ii;
-        const float so = sigm(go);
-        const float nn = fmaxf(n, 1e-6f);
-        const float num = so * c;
-        // h = num / nn
-        const float dnum = dh / nn;
-        const float dn_t = dn + (n >= 1e-6f ? -dh * (num / nn) / nn : 0.f);
-        const float dc_t = dc + dnum * so;
-        const float dgo = dnum * c * so * (1.f - so);
-        // c = fi c' + ii tz, n = fi n' + ii
-        const float dfi = dc_t * cp + dn_t * np;
-        const float dii = dc_t * tz + dn_t;
-        const float dgz = dc_t * ii * (1.f - tz * tz);
-        // fi = exp(a1 - m), ii = exp(g_i - m), m = max(a1, g_i)
-        const float xf = dfi * fi, xi = dii * ii;
-        const float dm_t = dm - xf - xi;
-        float da1 = xf, dgi = xi;
-        if (a1 > gi) {
-          da1 += dm_t;
-        } else if (a1 < gi) {
-          dgi += dm_t;
-        } else {
-          da1 += 0.5f * dm_t;
-          dgi += 0.5f * dm_t;
-        }
-        // a1 = lf + m', lf = log(sigmoid(g_f + bf) + 1e-9)
-        const float dgf = da1 / (sf + 1e-9f) * (sf * (1.f - sf));
-        float* dg = a.dg + ((size_t)b * L + t) * D4 + j;
-        dg[0] = dgi;
-        dg[D] = dgf;
-        dg[2 * (size_t)D] = dgz;
-        dg[3 * (size_t)D] = dgo;
-        a.dc[s] = dc_t * fi;
-        a.dn[s] = dn_t * fi;
-        a.dm[s] = da1;
-        a.dbf_rows[s] = (last ? 0.f : a.dbf_rows[s]) + dgf;
-      }
-      __syncthreads();
+  float dbfr = 0.f;             // this thread's rows' share of dbf_j
+#pragma unroll 1
+  for (int ti = 0; ti < ntiles; ++ti) {
+    const int r0 = ti * BT, bn = min(BT, a.B - r0);
+    const bool cell = cell_thread && cb < bn;
+    const size_t s0 = (size_t)(r0 + cb) * D + j0 + cj;
+    float dcr = 0.f, dnr = 0.f, dmr = 0.f;
+    if (cell) {
+      dcr = opt(a.dc_fin, s0);
+      dnr = opt(a.dn_fin, s0);
+      dmr = opt(a.dm_fin, s0);
     }
-    if (t >= 0) grid.sync();
+    // the cell's inputs of step tt: dy, g (4 gates), c, n, m before it
+    const auto prefetch = [&](int tt) {
+      float* dst = pbuf + ((size_t)(tt & 1) * NT + tid) * PV;
+      const size_t o = (size_t)(r0 + cb) * L + tt;
+      tc::cp_async4(dst, a.dy + o * D + j0 + cj, 4);
+      for (int k = 0; k < 4; ++k)
+        tc::cp_async4(dst + 1 + k,
+                      a.g_hist + o * D4 + (size_t)k * D + j0 + cj, 4);
+      if (tt == 0) {
+        tc::cp_async4(dst + 5, a.c0 + s0, 4);
+        tc::cp_async4(dst + 6, a.n0 + s0, 4);
+        tc::cp_async4(dst + 7, a.m0 + s0, 4);
+      } else {
+        tc::cp_async4(dst + 5, a.c_hist + (o - 1) * D + j0 + cj, 4);
+        tc::cp_async4(dst + 6, a.n_hist + (o - 1) * D + j0 + cj, 4);
+        tc::cp_async4(dst + 7, a.m_hist + (o - 1) * D + j0 + cj, 4);
+      }
+    };
+    if (cell) prefetch(L - 1);
+    tc::cp_async_commit();
+    // t = -1 is a step of its own: the initial h's gradient, R^T dg_0
+#pragma unroll 1
+    for (int t = L - 1; t >= -1; --t) {
+      const long long v = (long long)ti * (L + 2) + (L - 1 - t);
+      if (cell && t >= 1) prefetch(t - 1);
+      tc::cp_async_commit();
+      const bool rec = t + 1 < L;      // dg of step t + 1 feeds dh_t
+      if (rec)
+        fetch_dg(a.ring + (size_t)((v - 1) & 1) * BT * RW, dgs, bn, RW,
+                 hlo * hd4, nseg * hd4, 4 * D, nsent, hd4, KP, SW,
+                 (unsigned)v);
+      tc::cp_async_wait<1>();
+      __syncthreads();
+      if (rec)
+#pragma unroll 1
+        for (int b = 0; b < bn; ++b)
+          slt::row_product<T>(rr, sd, hoff, rsm_w, a.geo, w, NW,
+                              dgs + (size_t)b * SW, csrc, gsrc, red, BT, b,
+                              lane);
+      __syncthreads();
+      if (!cell) continue;
+      // the cell (its indices recomputed here, not held across the step)
+      const int j = j0 + (int)ring::opaque32(cj);
+      const size_t s_ix = (size_t)(r0 + cb) * D + j;
+      const size_t slot = (size_t)(v & 1) * BT * RW + (size_t)cb * RW;
+      float dhr = 0.f;
+      if (rec) dhr = slt::column_sum(red, geo, cj, BT, cb);
+      if (t < 0) {
+        a.dh[s_ix] = dhr;
+        continue;
+      }
+      const float* pv = pbuf + ((size_t)(t & 1) * NT + tid) * PV;
+      float dh = pv[0] + (rec ? dhr : 0.f);
+      if (t == L - 1) dh += opt(a.dh_fin, s_ix);
+      const float dc = dcr, dn = dnr, dm = dmr;
+      const float cp = pv[5], np = pv[6], mp = pv[7];
+      const float gi = pv[1], gf = pv[2], gz = pv[3], go = pv[4];
+      // the cell again, as the forward ran it
+      const float sf = sigm(gf + bfj);
+      const float lf = logf(sf + 1e-9f);
+      const float a1 = lf + mp;
+      const float mn = fmaxf(a1, gi);
+      const float fi = expf(a1 - mn);
+      const float ii = expf(gi - mn);
+      const float tz = tanhf(gz);
+      const float c = fi * cp + ii * tz;
+      const float n = fi * np + ii;
+      const float so = sigm(go);
+      const float nn = fmaxf(n, 1e-6f);
+      const float num = so * c;
+      // h = num / nn
+      const float dnum = dh / nn;
+      const float dn_t = dn + (n >= 1e-6f ? -dh * (num / nn) / nn : 0.f);
+      const float dc_t = dc + dnum * so;
+      const float dgo = dnum * c * so * (1.f - so);
+      // c = fi c' + ii tz, n = fi n' + ii
+      const float dfi = dc_t * cp + dn_t * np;
+      const float dii = dc_t * tz + dn_t;
+      const float dgz = dc_t * ii * (1.f - tz * tz);
+      // fi = exp(a1 - m), ii = exp(g_i - m), m = max(a1, g_i)
+      const float xf = dfi * fi, xi = dii * ii;
+      const float dm_t = dm - xf - xi;
+      float da1 = xf, dgi = xi;
+      if (a1 > gi) {
+        da1 += dm_t;
+      } else if (a1 < gi) {
+        dgi += dm_t;
+      } else {
+        da1 += 0.5f * dm_t;
+        dgi += 0.5f * dm_t;
+      }
+      // a1 = lf + m', lf = log(sigmoid(g_f + bf) + 1e-9)
+      const float dgf = da1 / (sf + 1e-9f) * (sf * (1.f - sf));
+      const float dgk[4] = {dgi, dgf, dgz, dgo};
+      for (int k = 0; k < 4; ++k)
+        ring::st_relaxed_u64(a.ring + slot + (size_t)k * D + j,
+                             ring::word((unsigned)(v + 1), dgk[k]));
+      if (nsent > 0 && cj == 0)
+        ring::st_relaxed_u64(a.ring + slot + 4 * D + blockIdx.x,
+                             ring::word((unsigned)(v + 1), 0.f));
+      float* dgp = a.dg + ((size_t)(r0 + cb) * L + t) * D4 + j;
+      for (int k = 0; k < 4; ++k) dgp[(size_t)k * D] = dgk[k];
+      dcr = dc_t * fi;
+      dnr = dn_t * fi;
+      dmr = da1;
+      dbfr += dgf;
+    }
+    if (cell) {
+      a.dc[s0] = dcr;
+      a.dn[s0] = dnr;
+      a.dm[s0] = dmr;
+    }
   }
-  for (int jj = threadIdx.x; jj < jn; jj += blockDim.x) {
+  tc::cp_async_wait<0>();
+  // dbf: each thread's share, then over the rows in order
+  __syncthreads();
+  float* part = dgs;                                       // (BT, JB)
+  if (tid < BT * JB) part[tid] = cell_thread ? dbfr : 0.f;
+  __syncthreads();
+  for (int jj = tid; jj < jn; jj += NT) {
     float sum = 0.f;
-    for (int b = 0; b < a.B; ++b) sum += a.dbf_rows[(size_t)b * D + j0 + jj];
+    for (int b = 0; b < BT; ++b) sum += part[b * JB + jj];
     a.dbf[j0 + jj] = sum;
   }
 }
@@ -238,32 +431,45 @@ int sm_count() {
   return n;
 }
 
+int smax_of(int rdtype) {
+  return rdtype == 0 ? slt::Reg<float>::SMAX : slt::Reg<__nv_bfloat16>::SMAX;
+}
+
 struct Plan {
-  int jb, blocks, bt, smem, seg;
+  int jb, jbp, blocks, bt, smem, seg, kp, sent;
+  slt::Geo geo;
 };
 
 // The forward's JB and blocks; seg the most heads a block's indices
-// touch; BT rows a step within SMEM_MAX: R's rows, then dg's segments
-// (BT, seg 4 hd) and R^T dg (BT, JB).
-Plan plan_bwd(int B, int D, int hd, int esize) {
+// touch; the tasks of JBP columns over 4 hd; BT rows a tile as the
+// forward's, within SMEM_MAX.
+Plan plan_bwd(int B, int D, int H, int threads, int smax) {
   Plan p{};
   const int nsm = sm_count();
-  if (nsm <= 0) return p;
+  if (nsm <= 0 || threads < 32) return p;
+  const int hd = D / H;
   p.jb = (D + nsm - 1) / nsm;
   p.blocks = (D + p.jb - 1) / p.jb;
+  p.jbp = (p.jb + CW - 1) / CW * CW;
   for (int x = 0; x < p.blocks; ++x) {
     const int j0 = x * p.jb, j1 = (j0 + p.jb < D ? j0 + p.jb : D) - 1;
     const int seg = j1 / hd - j0 / hd + 1;
     p.seg = seg > p.seg ? seg : p.seg;
   }
-  const size_t fixed = align16((size_t)p.jb * (4 * hd + PARTS) * esize);
-  const size_t row = ((size_t)p.seg * 4 * hd + p.jb) * sizeof(float);
-  long long bt = fixed < (size_t)SMEM_MAX
-                     ? (long long)((SMEM_MAX - fixed) / row) : 0;
+  p.geo = slt::geometry(p.jbp, 4 * hd, threads / 32);
+  p.kp = p.geo.kqt * QW;
+  p.sent = 4 * hd < D;   // a head's 4 hd words then miss some producers
+  int bt = threads / p.jb;
   bt = bt < B ? bt : B;
   bt = bt < BT_MAX ? bt : BT_MAX;
-  p.bt = (int)bt;
-  p.smem = (int)(fixed + (size_t)p.bt * row);
+  while (bt >= 1 &&
+         layout_bwd(bt, p.seg, p.kp, p.jbp, threads, p.geo, smax).total >
+             SMEM_MAX)
+    --bt;
+  p.bt = bt;
+  p.smem = bt >= 1 ? (int)layout_bwd(bt, p.seg, p.kp, p.jbp, threads,
+                                     p.geo, smax).total
+                   : 0;
   return p;
 }
 
@@ -287,24 +493,40 @@ int launch_coop(K kern, int blocks, int threads, int smem, void** args,
 
 }  // namespace
 
-// out[0..4] = JB, blocks, BT, dynamic shared memory bytes, seg.
-extern "C" int sl_bwd_plan(int B, int D, int H, int rdtype, void* out) {
-  if (B <= 0 || H <= 0 || D <= 0 || D % H != 0 || rdtype < 0 || rdtype > 1)
+// out[0..15] = JB, blocks, BT, dynamic shared memory bytes, threads, ring
+// words, slots a thread (of which at most 4 (bf16) or 2 (f32)
+// in registers), tasks,
+// chunks a task, tasks a group, JBP, the kernel's registers a thread and
+// local (spilled) bytes, seg.
+extern "C" int sl_bwd_plan(int B, int D, int H, int rdtype, int threads,
+                           void* out) {
+  if (B <= 0 || H <= 0 || D <= 0 || D % H != 0 || rdtype < 0 ||
+      rdtype > 1 || threads < 32 || threads > MAX_THREADS ||
+      threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
-  const Plan p = plan_bwd(B, D, D / H, rdtype == 0 ? 4 : 2);
+  const Plan p = plan_bwd(B, D, H, threads, smax_of(rdtype));
+  cudaFuncAttributes attr{};
+  if (rdtype == 0)
+    cudaFuncGetAttributes(&attr, sl_bwd_kernel<float>);
+  else
+    cudaFuncGetAttributes(&attr, sl_bwd_kernel<__nv_bfloat16>);
   int* o = static_cast<int*>(out);
-  o[0] = p.jb;
-  o[1] = p.blocks;
-  o[2] = p.bt;
-  o[3] = p.smem;
-  o[4] = p.seg;
+  const int v[] = {p.jb,         p.blocks,
+                   p.bt,         p.smem,
+                   threads,      2 * p.bt * (4 * D + p.sent * p.blocks),
+                   p.geo.slots,  smax_of(rdtype),
+                   p.geo.ntasks, p.geo.kpw,
+                   p.geo.tpg,    p.jbp,
+                   attr.numRegs, (int)attr.localSizeBytes,
+                   p.seg};
+  for (int i = 0; i < 15; ++i) o[i] = v[i];
   return p.bt >= 1 ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // r (rdtype 0: f32, 1: bf16), bf, the initial c, n, m; the histories g,
 // c, n, m; dy; the final state's grads dc, dn, dh, dm (each may be null);
-// dg, dbf, the initial state's grads dc, dn, dh, dm; the (B, D) scratch;
-// B, L, H, D, rdtype, threads; stream.
+// dg, dbf, the initial state's grads dc, dn, dh, dm; the ring (the plan's
+// words of 8 bytes); B, L, H, D, rdtype, threads; stream.
 extern "C" int sl_backward(const void* r, const void* bf, const void* c0,
                            const void* n0, const void* m0,
                            const void* g_hist, const void* c_hist,
@@ -312,24 +534,24 @@ extern "C" int sl_backward(const void* r, const void* bf, const void* c0,
                            const void* dy, const void* dc_fin,
                            const void* dn_fin, const void* dh_fin,
                            const void* dm_fin, void* dg, void* dbf, void* dc,
-                           void* dn, void* dh, void* dm, void* dbf_rows,
-                           int B, int L, int H, int D, int rdtype,
-                           int threads, void* stream) {
+                           void* dn, void* dh, void* dm, void* ring, int B,
+                           int L, int H, int D, int rdtype, int threads,
+                           void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || D <= 0 || D % H != 0 || threads < 32 ||
       threads > MAX_THREADS || threads % 32 != 0 || rdtype < 0 ||
       rdtype > 1 || !r || !bf || !c0 || !n0 || !m0 || !g_hist || !c_hist ||
       !n_hist || !m_hist || !dy || !dg || !dbf || !dc || !dn || !dh || !dm ||
-      !dbf_rows)
+      !ring)
     return (int)cudaErrorInvalidValue;
-  const int hd = D / H;
-  const Plan p = plan_bwd(B, D, hd, rdtype == 0 ? 4 : 2);
+  const Plan p = plan_bwd(B, D, H, threads, smax_of(rdtype));
   if (p.bt < 1) return (int)cudaErrorInvalidValue;
   const auto f = [](const void* x) { return static_cast<const float*>(x); };
   const auto w = [](void* x) { return static_cast<float*>(x); };
   BwdArgs a{r, f(bf), f(c0), f(n0), f(m0), f(g_hist), f(c_hist),
             f(n_hist), f(m_hist), f(dy), f(dc_fin), f(dn_fin), f(dh_fin),
             f(dm_fin), w(dg), w(dbf), w(dc), w(dn), w(dh), w(dm),
-            w(dbf_rows), B, L, H, D, hd, p.jb, p.bt, p.seg};
+            static_cast<u64*>(ring), B, L, H, D, D / H, p.jb, p.jbp, p.bt,
+            p.seg, p.kp, p.sent, p.geo};
   void* args[] = {&a};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rdtype == 0)

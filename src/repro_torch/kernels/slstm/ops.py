@@ -10,9 +10,11 @@ returns h of every step (B,L,d) f32 and the final state, as
 the call raises, also where the grid cannot be co-resident on the card;
 a CPU tensor goes to the plain version (``ref.slstm_scan``, the token
 loop, under autograd where an input wants a gradient).  There is no
-fallback from one to the other.  Where an input wants a gradient on
-CUDA, the call goes through ``_SLSTM``, whose forward also keeps each
-step's g and c, n, m, and whose backward is the kernel
+fallback from one to the other, nor to an earlier design of the kernel.
+Each call hands the kernel a scratch ring (``plan``'s ``ring_words`` words
+of 8 bytes) through which its blocks exchange h a step.  Where an input
+wants a gradient on CUDA, the call goes through ``_SLSTM``, whose forward
+also keeps each step's g and c, n, m, and whose backward is the kernel
 ``csrc/slstm_bwd.cu`` (dgx, dbf and the initial state's gradient, from
 the final state's, which may be None) and one product for dr.
 ``launches`` counts forward kernel launches and ``bwd_launches``
@@ -39,16 +41,22 @@ _SOURCE = Path(__file__).resolve().parent / "csrc" / "slstm.cu"
 _BWD_SOURCE = _SOURCE.with_name("slstm_bwd.cu")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # gx, r, bf, c0, n0, h0, m0, y, c, n, h, m, g_hist, c_hist, n_hist,
-# m_hist; B, L, H, D, rdtype, threads; stream
-_SIG = {"sl_forward": [_P] * 16 + [_I] * 6 + [_P],
-        "sl_plan": [_I] * 4 + [_P],
+# m_hist, ring; B, L, H, D, rdtype, threads; stream
+_SIG = {"sl_forward": [_P] * 17 + [_I] * 6 + [_P],
+        "sl_plan": [_I] * 5 + [_P],
+        "sl_exchange": [_I] * 7 + [_P] * 3,
         "sl_barrier": [_I] * 3 + [_P]}
 # r, bf, c0, n0, m0, g_hist, c_hist, n_hist, m_hist, dy, dc_fin, dn_fin,
-# dh_fin, dm_fin, dg, dbf, dc, dn, dh, dm, dbf_rows; B, L, H, D, rdtype,
+# dh_fin, dm_fin, dg, dbf, dc, dn, dh, dm, ring; B, L, H, D, rdtype,
 # threads; stream
 _BWD_SIG = {"sl_backward": [_P] * 21 + [_I] * 6 + [_P],
-            "sl_bwd_plan": [_I] * 4 + [_P]}
+            "sl_bwd_plan": [_I] * 5 + [_P]}
 HIST_KEYS = ("g", "c", "n", "m")
+# what sl_plan / sl_bwd_plan report, in their order
+PLAN_KEYS = ("jb", "blocks", "bt", "smem", "threads", "ring_words", "slots",
+             "reg_slots", "tasks", "chunks_a_task", "tasks_a_group", "jbp",
+             "regs", "local_bytes")
+EXCHANGE_FORMS = {"tag": 0, "flag": 1}
 
 
 def reset_launches() -> None:
@@ -99,18 +107,45 @@ def bwd_lib():
     return _build.load("slstm_bwd", _BWD_SOURCE, _BWD_SIG)
 
 
-def plan(handle, b: int, d: int, h: int, dtype, bwd: bool = False) -> dict:
+def plan(handle, b: int, d: int, h: int, dtype, bwd: bool = False,
+         threads: int = THREADS) -> dict:
     """The grid a call takes (``sl_plan`` / ``sl_bwd_plan``): indices a
-    block (jb), blocks, rows a step stages (bt), shared memory bytes and,
-    for the backward, the most heads a block touches (seg)."""
-    out = (ctypes.c_int * 5)()
+    block (jb, padded to jbp), blocks, rows a tile (bt), shared memory
+    bytes, threads, the ring's words, R's slots a thread (``reg_slots`` of
+    them at most in registers: 4 in bf16, 2 in f32; the rest in shared
+    memory), the product's tasks, chunks of 128 a task and tasks a group,
+    the kernel's registers a thread and local (spilled) bytes (0 where
+    the library cannot tell) and, for the backward, the most heads a
+    block touches (seg)."""
+    out = (ctypes.c_int * 16)()
     fn = handle.sl_bwd_plan if bwd else handle.sl_plan
-    err = fn(b, d, h, _DTYPES[dtype], ctypes.addressof(out))
+    err = fn(b, d, h, _DTYPES[dtype], threads, ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"slstm: no plan for B {b}, d {d}, h {h} "
                            f"(error {err})")
-    keys = ("jb", "blocks", "bt", "smem") + (("seg",) if bwd else ())
-    return dict(zip(keys, out))
+    return dict(zip(PLAN_KEYS + (("seg",) if bwd else ()), out))
+
+
+def exchange_us(handle, blocks: int, jb: int, d: int, rows: int, form: str,
+                steps: int = 4096, threads: int = THREADS) -> float:
+    """The forward's exchange alone (``sl_exchange``) on ``blocks`` blocks
+    of ``threads``, each publishing ``jb`` of ``d`` values of ``rows`` rows
+    a step and staging all of them, in form "tag" (the kernel's) or "flag"
+    (one release flag a block, acquired before one read of the values):
+    CUDA-event microseconds a step over ``steps`` steps (on the card)."""
+    ring = torch.empty(2 * rows * d, dtype=torch.int64, device="cuda")
+    flags = torch.empty(blocks, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    err = handle.sl_exchange(blocks, threads, d, jb, rows, steps,
+                             EXCHANGE_FORMS[form], ring.data_ptr(),
+                             flags.data_ptr(), stream)
+    ev[1].record()
+    torch.cuda.synchronize()
+    if err != 0:
+        raise RuntimeError(f"slstm: CUDA error {err} at sl_exchange")
+    return ev[0].elapsed_time(ev[1]) / steps * 1e3
 
 
 def _check_shapes(gx, r, bf, state):
@@ -172,13 +207,16 @@ def call(handle, gx, r, bf, state, keep: bool, stream,
     y, fin, hist = _outputs(gx, keep, fill)
     bs, length, d4 = gx.shape
     h = r.shape[0]
+    ring = torch.empty(plan(handle, bs, d4 // 4, h, r.dtype,
+                            threads=threads)["ring_words"],
+                       dtype=torch.int64, device=gx.device)
     hp = [None] * 4 if hist is None else [hist[k].data_ptr()
                                           for k in HIST_KEYS]
     err = handle.sl_forward(
         gx.data_ptr(), r.data_ptr(), bf.data_ptr(),
         *(state[k].data_ptr() for k in STATE_KEYS), y.data_ptr(),
-        *(fin[k].data_ptr() for k in STATE_KEYS), *hp, bs, length, h,
-        d4 // 4, _DTYPES[r.dtype], threads, stream)
+        *(fin[k].data_ptr() for k in STATE_KEYS), *hp, ring.data_ptr(), bs,
+        length, h, d4 // 4, _DTYPES[r.dtype], threads, stream)
     return err, y, fin, hist
 
 
@@ -207,23 +245,31 @@ def _launch(gx, r, bf, state, keep: bool):
     return y, fin, hist
 
 
-def _bwd_outputs(r, hist):
+def _bwd_outputs(r, hist, fill=None):
+    """dg, dbf and the initial state's gradients of a backward call; each
+    starts as ``fill`` where one is given."""
     bs, length, d4 = hist["g"].shape
     f32 = dict(dtype=torch.float32, device=r.device)
-    dg = torch.empty((bs, length, d4), **f32)
-    dbf = torch.empty((d4 // 4,), **f32)
-    dstate = {k: torch.empty((bs, d4 // 4), **f32) for k in STATE_KEYS}
-    rows = torch.empty((bs, d4 // 4), **f32)
-    return dg, dbf, dstate, rows
+    new = (lambda shape: torch.empty(shape, **f32)) if fill is None \
+        else (lambda shape: torch.full(shape, fill, **f32))
+    dg = new((bs, length, d4))
+    dbf = new((d4 // 4,))
+    dstate = {k: new((bs, d4 // 4)) for k in STATE_KEYS}
+    return dg, dbf, dstate
 
 
 def call_bwd(handle, r, bf, state, hist, dy, dfin, stream,
-             threads: int = THREADS):
+             threads: int = THREADS, fill=None):
     """``handle.sl_backward`` on checked, contiguous tensors of one device
     (``dfin``: the final state's gradients, a dict whose values may be
-    None): (its return code, dg, dbf, the initial state's gradients)."""
-    dg, dbf, dstate, rows = _bwd_outputs(r, hist)
+    None), with the outputs allocated there (starting as ``fill``, a
+    check's poison, where one is given): (its return code, dg, dbf, the
+    initial state's gradients)."""
+    dg, dbf, dstate = _bwd_outputs(r, hist, fill)
     bs, length, d4 = dg.shape
+    ring = torch.empty(plan(handle, bs, d4 // 4, r.shape[0], r.dtype,
+                            bwd=True, threads=threads)["ring_words"],
+                       dtype=torch.int64, device=r.device)
     fin = [None if dfin.get(k) is None else dfin[k].data_ptr()
            for k in ("c", "n", "h", "m")]
     err = handle.sl_backward(
@@ -232,7 +278,7 @@ def call_bwd(handle, r, bf, state, hist, dy, dfin, stream,
         *(hist[k].data_ptr() for k in HIST_KEYS), dy.data_ptr(), *fin,
         dg.data_ptr(), dbf.data_ptr(),
         *(dstate[k].data_ptr() for k in ("c", "n", "h", "m")),
-        rows.data_ptr(), bs, length, r.shape[0], d4 // 4, _DTYPES[r.dtype],
+        ring.data_ptr(), bs, length, r.shape[0], d4 // 4, _DTYPES[r.dtype],
         threads, stream)
     return err, dg, dbf, dstate
 
@@ -241,7 +287,7 @@ def _launch_bwd(r, bf, state, hist, dy, dfin):
     """The backward kernel: (dg, dbf, the initial state's gradients)."""
     global bwd_launches
     if analysis.traced(r):
-        dg, dbf, dstate, _ = _bwd_outputs(r, hist)
+        dg, dbf, dstate = _bwd_outputs(r, hist)
         bs, length, d4 = dg.shape
         final = any(v is not None for v in dfin.values())
         analysis.record("slstm_bwd", bwd_work(bs, length, d4 // 4,

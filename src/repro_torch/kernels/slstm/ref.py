@@ -22,23 +22,23 @@ STATE_KEYS = ("c", "n", "h", "m")
 # old found once: the recurrent term laid out gate-major (gate k of index
 # j takes head j / hd's column k hd + j % hd) where the JAX package lays
 # it out head-major; the carried state not rescaled when the stabiliser
-# moves; and no grid barrier between the steps, so a block reads h of the
-# step before where another block has not written it yet (the checks
-# start the outputs as NaN, ``ops.call(fill=...)``).
+# moves; and a consumer of the exchange that takes a ring word whatever
+# its tag, so that it may read h of a step before, or the ring's zeros,
+# where the step it waits for is not out yet (the checks start the
+# outputs as NaN, ``ops.call(fill=...)``).
 FWD_LAYOUT_FAULT = (
     "const int head = p / (4 * hd), e = p % (4 * hd);",
     "const int head = j / hd, e = k * hd + j % hd;")
 FWD_RESCALE_FAULT = ("const float fi = expf(a1 - mn);",
                      "const float fi = expf(lf);")
-FWD_BARRIER_FAULT = ("if (t + 1 < L) grid.sync();", "(void)grid;")
+FWD_EXCHANGE_FAULT = (
+    "if ((todo >> u & 1) && (unsigned)(w[u] >> 32) == want) {",
+    "if ((todo >> u & 1) && true) {")
 FWD_FAULTS = {"layout": FWD_LAYOUT_FAULT, "rescale": FWD_RESCALE_FAULT,
-              "barrier": FWD_BARRIER_FAULT}
-# h of the step before read from the one (B,d) buffer every block rewrites
-# within the step (a single h buffer, the barrier kept): a read that the
-# barrier does not order.  The emulation's block order fails it; on the
-# card the blocks stay in step and it passed (1.1e-6 at 2 x 512).
-FWD_BUFFER_FAULT = (": a.y + ((size_t)b * a.L + t - 1) * a.D;",
-                    ": a.h + (size_t)b * a.D;")
+              "exchange": FWD_EXCHANGE_FAULT}
+# The backward kernel's (csrc/slstm_bwd.cu): the carry dc passed to the
+# step before without its factor fi.
+BWD_CARRY_FAULT = ("dcr = dc_t * fi;", "dcr = dc_t;")
 
 
 def zero_state(bs: int, d: int, device=None):

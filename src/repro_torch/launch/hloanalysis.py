@@ -26,6 +26,15 @@ The recorder also keeps the live bytes of every storage (the arguments
 given to ``arguments`` and everything the trace allocates, freed when
 its last reference goes), so ``peak_bytes`` is the step's peak device
 memory as the caching allocator would count it, before rounding.
+
+On meta tensors a functional op whose inputs' shapes, strides, dtypes,
+devices and other arguments the trace has met before is not run again:
+its results are made fresh with the metadata of that first call
+(``_meta_key``).  A step repeats the same
+ops on the same shapes (layers, micro-batches, remat's recompute), and
+running PyTorch's meta kernels is most of a trace's time; the analysis
+is the same (an op whose first call returned an input's storage, as
+``_unsafe_view`` does without an alias annotation, is always run).
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ from collections import defaultdict
 from typing import Dict, List, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
@@ -111,6 +121,49 @@ class _UF:
         self.p[self.find(a)] = self.find(b)
 
 
+_PLAIN = (bool, int, float, str, torch.dtype, torch.device, torch.layout,
+          torch.memory_format)
+
+
+def _key_of(x, key: list, tensors: list) -> bool:
+    """Append ``x``'s part of a ``_meta_key`` to ``key`` (its tensors to
+    ``tensors``); False where it has none, as soon as a tensor is not on
+    the meta device (a fake tensor answers ``is_meta`` slowly, so it is
+    told apart by its type first)."""
+    if isinstance(x, torch.Tensor):
+        if isinstance(x, FakeTensor) or not x.is_meta:
+            return False
+        tensors.append(x)
+        key.append((tuple(x.shape), x.stride(), x.dtype, x.device))
+    elif isinstance(x, (list, tuple)):
+        key.append(len(x))
+        return all(_key_of(e, key, tensors) for e in x)
+    elif x is None or isinstance(x, _PLAIN):
+        key.append(x)
+    else:
+        return False
+    return True
+
+
+def _meta_key(func, args, kwargs):
+    """A key for a functional op's results from what determines them on
+    meta tensors: the op, each tensor argument's shape, strides, dtype and
+    device, and every other argument; None where the op may alias or
+    mutate, takes no tensor or one that is not meta, or an argument has
+    no such key.  (Fake tensors have their mode's own cache, which this
+    one would only slow.)"""
+    schema = func._schema
+    if schema.is_mutable or func.is_view or any(
+            r.alias_info is not None for r in schema.returns):
+        return None
+    key, tensors = [func], []
+    if not (_key_of(args, key, tensors)
+            and _key_of(tuple(sorted(kwargs.items())), key, tensors)) \
+            or not tensors:
+        return None
+    return tuple(key)
+
+
 class Recorder(TorchDispatchMode):
     """Record a step's ops, kernels and storages (see the module).
 
@@ -132,6 +185,11 @@ class Recorder(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_bytes = 0
         self.argument_bytes = 0
+        # a functional op's results (shapes, strides, dtypes, devices) by
+        # _meta_key: a step repeats the same ops on the same shapes (its
+        # layers, micro-batches, remat's recompute), and on tensors that
+        # hold no data the results are made without running the op again
+        self._results: Dict[tuple, object] = {}
 
     # ---- storages ----------------------------------------------------
     def _free(self, key: int) -> None:
@@ -206,9 +264,35 @@ class Recorder(TorchDispatchMode):
         for t in outputs:
             self._value(node, t)
 
+    def _run(self, func, args, kwargs):
+        """``func(*args, **kwargs)``, or, where ``_meta_key`` has seen
+        these inputs before, fresh tensors like its results then."""
+        key = _meta_key(func, args, kwargs)
+        spec = self._results.get(key) if key is not None else None
+        if not spec:
+            out = func(*args, **kwargs)
+            if key is not None and spec is None:
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                ins = {self._alloc(t)
+                       for t in _tensors(kwargs, _tensors(args, []))}
+                fresh = outs and all(
+                    isinstance(t, torch.Tensor) and self._alloc(t) not in ins
+                    for t in outs)
+                # an op that returned an input's storage (``_unsafe_view``
+                # has no alias annotation) is never made from its key
+                self._results[key] = (
+                    isinstance(out, torch.Tensor), type(out),
+                    [(tuple(t.shape), t.stride(), t.dtype, t.device)
+                     for t in outs]) if fresh else False
+            return out
+        single, kind, metas = spec
+        made = [torch.empty_strided(s, st, dtype=dt, device=dev)
+                for s, st, dt, dev in metas]
+        return made[0] if single else kind(made)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
+        out = self._run(func, args, kwargs)
         ins = _tensors(kwargs, _tensors(args, []))
         outs = _tensors(out, [])
         if not func._schema.is_mutable and (func.is_view or not outs or {

@@ -57,7 +57,7 @@
 #define __launch_bounds__(...)
 #define __align__(x)
 #define __grid_constant__
-#define __trap() std::abort()
+#define __trap() emu_trap()
 // A static __shared__ array is one object for all the threads of the
 // block (blocks run one after another; under a cooperative launch it
 // would be all the blocks', so those kernels take dynamic shared memory
@@ -66,6 +66,14 @@
 
 using std::max;
 using std::min;
+
+// __trap(): the kernel stops with an error, reported on stderr (a test
+// that traps runs the kernel in a process of its own).
+[[noreturn]] inline void emu_trap() {
+  std::fprintf(stderr, "__trap: the kernel stopped\n");
+  std::fflush(stderr);
+  std::abort();
+}
 
 struct dim3 {
   unsigned x, y, z;
@@ -80,6 +88,16 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum {
@@ -91,6 +109,16 @@ enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <typename F>
 int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+// What a kernel's compilation reports (no registers or spills here).
+struct cudaFuncAttributes {
+  int numRegs;
+  size_t localSizeBytes;
+};
+template <typename F>
+int cudaFuncGetAttributes(cudaFuncAttributes* a, F) {
+  *a = cudaFuncAttributes{};
+  return 0;
+}
 inline int cudaGetLastError() { return 0; }
 inline int cudaGetDevice(int* dev) {
   *dev = 0;
@@ -234,7 +262,7 @@ inline void launch(dim3 grid, dim3 block, int smem_bytes, void*,
 // launched so use dynamic shared memory only.
 struct Coop {
   std::mutex mu;
-  std::condition_variable cv;
+  std::vector<std::condition_variable> cvs;   // one a block: its turn came
   int nblocks = 0, turn = 0, arrived = 0;
   std::vector<char> done;
   std::vector<int> threads_left;
@@ -247,12 +275,18 @@ struct Coop {
     }
     return -1;
   }
+  // the turn to block b, waking its waiting threads (mu held)
+  void pass(int b) {
+    turn = b;
+    if (b >= 0) cvs[b].notify_all();
+  }
 };
 inline Coop* coop;
 inline thread_local int coop_block = -1;
 
 inline void coop_wait_turn(std::unique_lock<std::mutex>& lock) {
-  coop->cv.wait(lock, [] { return coop->turn == coop_block; });
+  coop->cvs[coop_block].wait(lock,
+                             [] { return coop->turn == coop_block; });
 }
 
 inline void grid_sync() {
@@ -269,10 +303,9 @@ inline void grid_sync() {
     }
   if (++coop->arrived == coop->nt) {     // the block's last thread
     coop->arrived = 0;
-    coop->turn = coop->next(coop_block);
-    coop->cv.notify_all();
+    coop->pass(coop->next(coop_block));
   }
-  coop->cv.wait(lock, [] {
+  coop->cvs[coop_block].wait(lock, [] {
     return coop->arrived == 0 && coop->turn == coop_block;
   });
 }
@@ -290,6 +323,7 @@ inline void launch_cooperative(dim3 grid, dim3 block, int smem_bytes,
     blocks.back()->init(nt, smem_bytes);
   }
   Coop state;
+  state.cvs = std::vector<std::condition_variable>(nb);
   state.nblocks = nb;
   state.nt = nt;
   state.done.assign(nb, 0);
@@ -309,13 +343,28 @@ inline void launch_cooperative(dim3 grid, dim3 block, int smem_bytes,
         std::unique_lock<std::mutex> lock(coop->mu);
         if (--coop->threads_left[i] == 0) {   // the block has returned
           coop->done[i] = 1;
-          coop->turn = coop->next(i);
-          coop->cv.notify_all();
+          coop->pass(coop->next(i));
         }
       });
   }
   for (auto& th : ts) th.join();
   coop = nullptr;
+}
+// A poll that found a word not yet written.  Under a cooperative launch
+// the turn passes to the next block that has not returned, and the thread
+// waits until the turn is its block's again: blocks that wait on each
+// other's words (slstm's tagged ring) then run one at a time, each until
+// it waits, a schedule a GPU may take, so a read that does not wait for
+// its word reads it before it is written.  Elsewhere the thread yields.
+inline void poll_miss() {
+  if (coop == nullptr) {
+    std::this_thread::yield();
+    return;
+  }
+  std::unique_lock<std::mutex> lock(coop->mu);
+  if (coop->turn == coop_block) coop->pass(coop->next(coop_block));
+  coop->cvs[coop_block].wait(lock,
+                             [] { return coop->turn == coop_block; });
 }
 inline void syncthreads() { blk->bar->arrive_and_wait(); }
 inline float shfl_xor(float v, int off) {
@@ -385,6 +434,41 @@ template <typename T>
 inline T __ldcg(const T* p) {
   return *p;
 }
+
+// The ring:: and slt:: primitives that scan_ring.cuh writes in inline PTX
+// (the translation drops those definitions): gpu-scope relaxed, acquire
+// and release accesses as C++ atomics of the same order, a poll's pause,
+// the identity that hides a value from the compiler, an FMA of a bf16
+// pair's half.
+#include <atomic>
+namespace ring {
+typedef unsigned long long u64;
+inline u64 ld_relaxed_u64(const u64* p) {
+  return std::atomic_ref<u64>(*const_cast<u64*>(p))
+      .load(std::memory_order_relaxed);
+}
+inline void st_relaxed_u64(u64* p, u64 v) {
+  std::atomic_ref<u64>(*p).store(v, std::memory_order_relaxed);
+}
+inline unsigned ld_acquire_u32(const unsigned* p) {
+  return std::atomic_ref<unsigned>(*const_cast<unsigned*>(p))
+      .load(std::memory_order_acquire);
+}
+inline void st_release_u32(unsigned* p, unsigned v) {
+  std::atomic_ref<unsigned>(*p).store(v, std::memory_order_release);
+}
+inline void poll_pause() { emu::poll_miss(); }
+inline unsigned opaque32(unsigned x) { return x; }
+inline u64 opaque64(u64 x) { return x; }
+}  // namespace ring
+namespace slt {
+inline void fma_lo(float& acc, float h, uint32_t w) {
+  acc = std::fma(h, __uint_as_float(w << 16), acc);
+}
+inline void fma_hi(float& acc, float h, uint32_t w) {
+  acc = std::fma(h, __uint_as_float(w & 0xFFFF0000u), acc);
+}
+}  // namespace slt
 
 // The tc:: primitives that mma_bf16.cuh writes in inline PTX (the
 // translation drops those definitions).

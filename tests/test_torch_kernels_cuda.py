@@ -1578,8 +1578,10 @@ def _slstm_close(got, want, tol=1e-4, rel=False):
 @pytest.mark.parametrize("b,length,gates,state", [
     (2, 512, "model", False), (1, 1000, "slow", True), (100, 1, "model",
                                                          True),
-    (3, 37, "slow", True)])
+    (3, 37, "slow", True), (17, 40, "slow", True)])
 def test_cuda_slstm_matches_plain(cuda_device, b, length, gates, state):
+    """Against the token loop; 17 rows are two tiles of the 16 a block's
+    cells hold, the ring's step counter running across them."""
     from repro_torch.kernels.slstm import ops as SLO
     from repro_torch.kernels.slstm import ref as SLR
     ins = SLR.slstm_inputs(b, length, 2048, 4, seed=length, gates=gates,
@@ -1598,13 +1600,13 @@ def test_cuda_slstm_matches_plain(cuda_device, b, length, gates, state):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fault", ["layout", "rescale", "barrier"])
+@pytest.mark.parametrize("fault", ["exchange", "layout", "rescale"])
 def test_cuda_slstm_checks_catch_planted_faults(cuda_device, tmp_path,
                                                 monkeypatch, fault):
     """slstm.cu with the recurrent term gate-major, without the carried
-    state's rescale, or without the grid barrier between the steps (its
-    outputs starting as NaN): each fails the 2 x 512 row with slow gates
-    from a state."""
+    state's rescale, or with a consumer that takes a ring word whatever
+    its tag (its outputs starting as NaN): each fails the 2 x 512 row with
+    slow gates from a state."""
     from repro_torch.kernels.slstm import ops as SLO
     from repro_torch.kernels.slstm import ref as SLR
     ins = SLR.slstm_inputs(2, 512, 2048, 4, seed=3, gates="slow",
@@ -1623,6 +1625,72 @@ def test_cuda_slstm_checks_catch_planted_faults(cuda_device, tmp_path,
     _mutant_lib(SLO, tmp_path, monkeypatch, f"slstm_{fault}",
                 *SLR.FWD_FAULTS[fault])
     assert not _slstm_close(run(), yr)
+
+
+@pytest.mark.cuda
+def test_cuda_slstm_reruns_bit_equal_and_times_its_exchange(cuda_device):
+    """Two runs of the forward and of the backward agree bit for bit (no
+    atomic enters a sum), and the exchange alone runs in both forms on
+    the kernel's grid."""
+    from repro_torch.kernels.slstm import ops as SLO
+    from repro_torch.kernels.slstm import ref as SLR
+    gx, r, bf, st = SLR.slstm_inputs(2, 300, 2048, 4, seed=9, gates="slow",
+                                     state=True, rdtype=torch.bfloat16,
+                                     device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    runs = [SLO.call(SLO.lib(), gx, r, bf, st, True, stream)
+            for _ in range(2)]
+    assert runs[0][0] == runs[1][0] == 0
+    assert torch.equal(runs[0][1], runs[1][1])
+    hist = runs[0][3]
+    assert all(torch.equal(hist[k], runs[1][3][k]) for k in hist)
+    dy = torch.randn((2, 300, 2048), device=cuda_device,
+                     generator=torch.Generator(device=cuda_device)
+                     .manual_seed(3))
+    bwd = [SLO.call_bwd(SLO.bwd_lib(), r, bf, st, hist, dy, {}, stream)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert bwd[0][0] == bwd[1][0] == 0
+    assert torch.equal(bwd[0][1], bwd[1][1])
+    assert torch.equal(bwd[0][2], bwd[1][2])
+    plan = SLO.plan(SLO.lib(), 2, 2048, 4, torch.bfloat16)
+    for form in SLO.EXCHANGE_FORMS:
+        us = SLO.exchange_us(SLO.lib(), plan["blocks"], plan["jb"], 2048, 2,
+                             form, steps=256)
+        assert 0 < us < 100, (form, us)
+
+
+@pytest.mark.cuda
+def test_cuda_slstm_bwd_checks_catch_the_carry_fault(cuda_device, tmp_path):
+    """slstm_bwd.cu with the carry dc passed on without its factor fi
+    (``ref.BWD_CARRY_FAULT``) fails dgx on the 2 x 300 row from a state;
+    the kernel itself passes it."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.slstm import ops as SLO
+    from repro_torch.kernels.slstm import ref as SLR
+    gx, r, bf, st = SLR.slstm_inputs(2, 300, 2048, 4, seed=301,
+                                     gates="slow", state=True,
+                                     rdtype=torch.bfloat16,
+                                     device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(300)
+    dy = torch.randn((2, 300, 2048), generator=gen, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    _, _, _, hist = SLO.call(SLO.lib(), gx, r, bf, st, True, stream)
+    ref = SLR.slstm_grads(gx, r.float(), bf, st, 4, dy)
+    source = SLO._BWD_SOURCE.read_text()
+    old, new = SLR.BWD_CARRY_FAULT
+    assert source.count(old) == 1
+    (tmp_path / SLO._BWD_SOURCE.name).write_text(source.replace(old, new))
+    so = tmp_path / "libslstm_bwd_carry.so"
+    _build.compile_to("slstm_bwd_carry", tmp_path / SLO._BWD_SOURCE.name, so)
+    mutant = _build.bind(ctypes.CDLL(str(so)), SLO._BWD_SIG)
+    for lib, want in ((SLO.bwd_lib(), True), (mutant, False)):
+        err, dg, _, _ = SLO.call_bwd(lib, r, bf, st, hist, dy, {}, stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        assert _slstm_close(dg, ref["gx"], rel=True) == want
 
 
 @pytest.mark.cuda

@@ -34,15 +34,18 @@ from repro_torch.kernels.moe_gmm import ref as GR
 torch.set_num_threads(2)   # several test workers share the cores
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
-# the primitives mma_bf16.cuh and wgmma_bf16.cuh write in inline PTX (and
-# mbar_wait, a loop over one); emu.h defines them
+# the primitives mma_bf16.cuh, wgmma_bf16.cuh and scan_ring.cuh write in
+# inline PTX (and mbar_wait, a loop over one); emu.h defines them
 PTX_FNS = {"smem_u32", "cp_async16", "cp_async4", "cp_async_commit",
            "cp_async_wait", "ldmatrix_x4", "ldmatrix_x4_trans", "mma_bf16",
            "fence", "commit_group", "wait_group", "mma_n64", "mma_n128",
            "mma_n256", "mbar_init", "fence_barrier_init", "fence_proxy_async",
            "mbar_expect_tx", "mbar_arrive", "mbar_try_wait", "mbar_wait",
            "tma_load_3d", "tma_store_3d", "bulk_commit", "bulk_wait_read",
-           "warpgroup_sync", "setmaxnreg_dec", "setmaxnreg_inc"}
+           "warpgroup_sync", "setmaxnreg_dec", "setmaxnreg_inc",
+           "ld_relaxed_u64", "st_relaxed_u64", "ld_acquire_u32",
+           "st_release_u32", "poll_pause", "opaque32", "opaque64",
+           "fma_lo", "fma_hi"}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
