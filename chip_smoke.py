@@ -247,6 +247,10 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense bf16 tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 MAX_LEN = 2048                     # the serve loops' decode buffer
 CKPT_ROOT = os.path.join(REPO, "build", "chip_smoke_ckpt")
+# The script's budget: its phases within 1000 s, the whole command within
+# 1200 (the ``budget`` line reads them; nothing asserts them)
+BUDGET_PHASES_S = 1000
+BUDGET_COMMAND_S = 1200
 
 
 def _sh(cmd):
@@ -266,6 +270,27 @@ def _host_rss_gb():
         return kb / 1e6
     except (OSError, StopIteration, ValueError):
         return float("nan")
+
+
+_START = time.perf_counter()        # the script's start (the budget line)
+_PARTS = {}                         # part -> seconds, of the running phase
+_LAP = [_START]                     # where the running phase's last lap ended
+
+
+def add_part(name, secs):
+    """Add ``secs`` to part ``name`` of the running phase (a part timed
+    inside a lap is printed beside it, not taken from it).  ``main``'s
+    ``phase_time`` prints each part as ``phase-part <phase> <part>
+    <seconds>`` when the phase ends."""
+    _PARTS[name] = _PARTS.get(name, 0.0) + secs
+
+
+def lap(name):
+    """End part ``name`` of the running phase: the wall time since its
+    last lap or its start."""
+    now = time.perf_counter()
+    add_part(name, now - _LAP[0])
+    _LAP[0] = now
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -382,8 +407,130 @@ def check_kernel(torch, fa_ops, fa_ref, F):
     return rows
 
 
-# The first calls that run under the profiler for a family whose prefill
-# is a loop over tokens (see warm_up).
+def _raw_window(prof):
+    """A finished ``torch.profiler`` window's raw events, each (the
+    kineto event, its name as ``prof.events()`` names it, start us, end
+    us), in ``prof.events()``'s order and without its filtered names.
+    ``prof.events()`` and ``key_averages()`` first build a FunctionEvent
+    of every host and device event: over the script's ~75 windows that
+    took ~210 s of host time on an H100 host, for what these few fields
+    give.  Starts and ends are ``FunctionEvent.time_range``'s: us since
+    the trace's start.  Mirrors ``torch.autograd.profiler``'s
+    ``_parse_kineto_results`` of torch 2.11 and 2.13 and reads its
+    private helpers: the first window of a run holds the result against
+    ``prof.events()`` and ``key_averages()`` (``warm_up``), so that a
+    torch that parses otherwise fails there."""
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    names = {}              # raw name -> its name, or None where filtered
+    out = []
+    for e in res.events():
+        raw = e.name()
+        if raw not in names:
+            names[raw] = None if _filter_name(raw) else \
+                _rewrite_name(name=raw, with_wildcard=True)
+        name = names[raw]
+        if name is None or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        out.append((e, name, (e.start_ns() - t0) / 1000,
+                    (e.end_ns() - t0) / 1000))
+    out.sort(key=lambda ev: (ev[2], -ev[3]))
+    return out
+
+
+def device_events(prof):
+    """(name, us) of each device event of a finished window: ``e.name``
+    and ``e.time_range.elapsed_us()`` of ``prof.events()``'s CUDA events,
+    in its order (``_raw_window``)."""
+    from torch.autograd import DeviceType
+    return [(name, end - start) for e, name, start, end in _raw_window(prof)
+            if e.device_type() == DeviceType.CUDA]
+
+
+class _HostEvent:
+    __slots__ = ("name", "start", "end", "thread", "sync", "key", "parent",
+                 "children")
+
+
+def host_self_ops(prof):
+    """``prof.key_averages()``'s host rows of a finished window, (op,
+    self us, calls) in its order, computed as torch computes them from
+    ``_raw_window``: a device runtime event takes the thread of the
+    host op it serves; a host event's parent is the innermost event of
+    its thread whose span holds its own; an event that is its parent's
+    only child under the same name merges into it; self time is an
+    event's span less its children's; rows are keyed by name, legacy
+    timing and user annotation.  Device events take no part.  Mirrors
+    ``_parse_kineto_results``, ``EventList._build_tree``,
+    ``_remove_dup_nodes`` and ``key_averages`` of torch 2.11 and 2.13
+    (``_raw_window``)."""
+    import itertools
+
+    from torch.autograd import DeviceType
+    use_cuda = prof.profiler.use_device == "cuda"
+    evs, linked, front = [], {}, []
+    for e, name, start, end in _raw_window(prof):
+        if e.device_type() != DeviceType.CPU:
+            continue        # no host row, parent or child
+        ev = _HostEvent()
+        ev.name, ev.start, ev.end = name, start, end
+        ev.thread = e.start_thread_id()
+        ev.sync = not (e.is_async()
+                       or e.start_thread_id() != e.end_thread_id())
+        legacy = ev.sync and use_cuda and e.cuda_elapsed_us() > 0
+        ev.key = (name, legacy, e.is_user_annotation())
+        ev.parent, ev.children = None, []
+        corr = e.linked_correlation_id()
+        if corr > 0:
+            linked.setdefault(corr, []).append(ev)
+        else:
+            front.append((e.correlation_id(), ev))
+        evs.append(ev)
+    for corr, ev in front:
+        if ev.sync:
+            for other in linked.get(corr, ()):
+                other.thread = ev.thread
+    sync = sorted((ev for ev in evs if ev.sync), key=lambda ev: ev.thread)
+    for _, group in itertools.groupby(sync, key=lambda ev: ev.thread):
+        stack = []
+        for ev in sorted(group, key=lambda ev: (ev.start, -ev.end)):
+            while stack:
+                parent = stack[-1]
+                if ev.start >= parent.end or ev.end > parent.end:
+                    stack.pop()
+                else:
+                    parent.children.append(ev)
+                    ev.parent = parent
+                    break
+            stack.append(ev)
+    while True:
+        gone = set()
+        for ev in evs:
+            parent = ev.parent
+            if parent is not None and parent.name == ev.name \
+                    and len(parent.children) == 1:
+                parent.children = ev.children
+                for child in ev.children:
+                    child.parent = parent
+                gone.add(id(ev))
+        if not gone:
+            break
+        evs = [ev for ev in evs if id(ev) not in gone]
+    rows = {}
+    for ev in evs:
+        own = (ev.end - ev.start) - sum(c.end - c.start for c in ev.children) \
+            if ev.sync else 0
+        row = rows.setdefault(ev.key, [0, 0])
+        row[0] += own
+        row[1] += 1
+    return [(key[0], us, n) for key, (us, n) in rows.items()]
+
+
+_PROFILER_OPENED = [False]      # has a window opened in this process?
+_HOST_OPS_CHECKED = [False]     # raw window held against torch's tables?
+
+
 def warm_up(torch, cfg, params, max_len, extras=None):
     """Run every shape of the timed drives once before them, so that the
     serve numbers measure serving and not first use: the B=1 ragged
@@ -403,9 +550,11 @@ def warm_up(torch, cfg, params, max_len, extras=None):
                                                 ServeLoop)
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with tprofile(activities=acts):
-        torch.ones(1, device=params["embed"].device).add_(1)
-    torch.cuda.synchronize()
+    if not _PROFILER_OPENED[0]:
+        with tprofile(activities=acts):
+            torch.ones(1, device=params["embed"].device).add_(1)
+        torch.cuda.synchronize()
+        _PROFILER_OPENED[0] = True
     rng = np.random.default_rng(3)
 
     def req(n, new=4):
@@ -423,17 +572,35 @@ def warm_up(torch, cfg, params, max_len, extras=None):
     def first_and_warm(name, fn):
         with tprofile(activities=acts) as prof:
             first = timed(fn)
-        device_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                        if e.device_type == DeviceType.CUDA)
-        host = sorted((e for e in prof.key_averages()
-                       if e.device_type == DeviceType.CPU),
-                      key=lambda e: e.self_cpu_time_total, reverse=True)
+            t_post = time.perf_counter()
+        devs = device_events(prof)
+        device_us = sum(us for _, us in devs)
+        ops = host_self_ops(prof)
+        host = sorted(ops, key=lambda op: op[1], reverse=True)
+        check = {}
+        if not _HOST_OPS_CHECKED[0]:
+            # the raw table and device events against torch's own, on the
+            # script's first window (key_averages() builds every event)
+            want = [(e.key, e.self_cpu_time_total, e.count)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CPU]
+            want_devs = [(e.name, e.time_range.elapsed_us())
+                         for e in prof.events()
+                         if e.device_type == DeviceType.CUDA]
+            check["host_ops_vs_key_averages"] = {"rows": len(ops),
+                                                 "equal": ops == want}
+            check["device_events_vs_events"] = {"rows": len(devs),
+                                                "equal": devs == want_devs}
+            _HOST_OPS_CHECKED[0] = True
+            assert ops == want, (ops[:10], want[:10])
+            assert devs == want_devs, (devs[:10], want_devs[:10])
         warm = timed(fn)
         row = {"call": name, "first_ms": first * 1e3, "warm_ms": warm * 1e3,
                "first_device_ms": device_us * 1e-3,
                "first_host_self_ms": [
-                   {"op": e.key[:60], "ms": e.self_cpu_time_total * 1e-3,
-                    "calls": e.count} for e in host[:6]]}
+                   {"op": op[:60], "ms": us * 1e-3, "calls": n}
+                   for op, us, n in host[:6]], **check}
+        add_part("profiler_post", time.perf_counter() - t_post - warm)
         print(f"first-call {json.dumps(row)}", flush=True)
 
     # the extras (drawn on the host) are made before the timed calls
@@ -827,7 +994,6 @@ def profile_phase(torch, name, fn):
     print device time by kernel, the device's busy time and idle share.
     The window opens with PROFILE_LEAD tiny spin kernels, not counted
     (``lead_events``: how many of them it recorded)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     with tprofile(activities=[ProfilerActivity.CPU,
@@ -839,15 +1005,15 @@ def profile_phase(torch, name, fn):
         n = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        t_post = time.perf_counter()
     kernels = {}            # device activity only (kernels, copies)
     lead = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            if "spin_kernel" in e.name:
-                lead += 1
-                continue
-            us, calls = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
+    for kernel, us in device_events(prof):
+        if "spin_kernel" in kernel:
+            lead += 1
+            continue
+        total, calls = kernels.get(kernel, (0.0, 0))
+        kernels[kernel] = (total + us, calls + 1)
     rows = [(us, k, c) for k, (us, c) in kernels.items()]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) * 1e-6
@@ -864,6 +1030,7 @@ def profile_phase(torch, name, fn):
            "by_kind_ms": by_kind,
            "top": [{"kernel": k[:60], "ms": d * 1e-3 / n,
                     "calls": c // n} for d, k, c in rows[:10]]}
+    add_part("profiler_post", time.perf_counter() - t_post)
     print(f"profile {json.dumps(out)}", flush=True)
     return out
 
@@ -1580,6 +1747,7 @@ def train(torch, cfg, state_bytes):
                                   device="cuda")
     state = runtime.init_state(seed=0)
     torch.cuda.synchronize()
+    lap("init")
     torch.cuda.reset_peak_memory_stats()
     fa_ops.reset_launches()
     co.reset_launches()
@@ -1587,6 +1755,7 @@ def train(torch, cfg, state_bytes):
     state, out = runtime.run(state=state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    lap("run")
     launches = {"flash_attention": fa_ops.launches,
                 "flash_attention_bwd": fa_ops.bwd_launches,
                 "collective_codec": co.launches}
@@ -1617,6 +1786,7 @@ def train(torch, cfg, state_bytes):
         assert launches[name] == n * steps, (name, launches, per_step)
 
     train_anatomy(torch, cfg, ocfg, dcfg, state)
+    lap("anatomy")
     # one gang step as the runtime runs it (its batch on the card first)
     from repro_torch.core import collectives as coll
     from repro_torch.data import pipeline as dp
@@ -1629,6 +1799,7 @@ def train(torch, cfg, state_bytes):
         float(step_fn(state, batch, resid)[1]["loss"])
         return 1
     profile_phase(torch, "train_step", one_step)
+    lap("profile")
     del state, runtime, batch, resid
     torch.cuda.empty_cache()
     return res, launches
@@ -1673,8 +1844,23 @@ DRYRUN_STEPS = 3                   # timed steps, after one warm step
 # whose sLSTM kernels brought xlstm's prefill_32k step to 1.85 s.
 DRYRUN_LONG_S = 1.5
 DRYRUN_FLASH_STEPS = 5             # the flash cell's (a step is ~1 ms)
-DRYRUN_FAKE_WORKERS = 3            # processes tracing on fake CUDA
 DRYRUN_MEM_TOL = 0.10              # predicted peak against the measured
+# The fake-CUDA gate compares a cell's analysis on fake CUDA tensors with
+# the meta device's at ``fake_depth`` layers: the fewest whole periods of
+# the layer pattern that hold FAKE_MIN_LAYERS layers.  A period holds
+# every block kind of the cell, and a second layer lets the meta trace's
+# result cache (``hloanalysis._meta_key``) serve a repeated layer, which
+# the fake trace, uncached, checks.  Whether the two tensor modes give the
+# same analysis op by op does not depend on the depth; FakeTensorMode's
+# dispatch does, at ~5x a meta trace's: at full depth the fake traces
+# took 90-115 s of host time on an H100 host.  The launch, memory and
+# bound gates keep the full-depth meta trace.
+FAKE_MIN_LAYERS = 2
+FAKE_KEYS = ("kernels", "flops", "hbm_bytes", "peak_bytes")
+# the cell whose meta and fake traces disagreed while ``_nbytes`` counted
+# a broadcast operand whole (an ``mm`` on meta, a ``bmm`` over an
+# expanded weight on fake CUDA); the planted copy must fail there
+FAKE_FAULT_CELL = "decode_32k-llama1b"
 
 
 def _flash_step(q, k, v):
@@ -1775,97 +1961,32 @@ def dryrun_predict_fake(torch, fn, meta_args, kind):
         return dr.trace(fn, args, kind in ("train", "flash"))
 
 
-def _fake_trace_cell(index):
-    """The analysis of DRYRUN_CELLS[index]'s step on fake CUDA tensors
-    (``dryrun_predict_fake``) and its seconds."""
-    import torch
-    _, shape, fn, meta_args, _ = dryrun_cell(torch, DRYRUN_CELLS[index],
-                                             "cuda")
+def fake_depth(cfg):
+    """Layers of a cell's fake-CUDA comparison: the fewest whole periods
+    of ``cfg``'s layer pattern that hold FAKE_MIN_LAYERS layers."""
+    period = len(cfg.period())
+    return period * -(-FAKE_MIN_LAYERS // period)
+
+
+def fake_compare(torch, cell, cfg, kind, meta=None):
+    """(layers, the meta analysis, the fake-CUDA analysis, the fake
+    trace's seconds) of DRYRUN_CELLS entry ``cell``'s step at
+    ``fake_depth`` layers of ``cfg``.  The flash cell has no layers: its
+    cut is the whole cell, whose meta analysis ``meta`` the caller may
+    give."""
+    cut = cfg if kind == "flash" else cfg.with_(n_layers=fake_depth(cfg))
+    _, _, fn, meta_args, _ = dryrun_cell(torch, cell, "cuda", cfg=cut)
+    if meta is None or kind != "flash":
+        meta = dryrun_predict(torch, fn, meta_args, kind)
     t0 = time.perf_counter()
-    fake = dryrun_predict_fake(torch, fn, meta_args, shape.kind)
-    return fake, time.perf_counter() - t0
+    fake = dryrun_predict_fake(torch, fn, meta_args, kind)
+    return cut.n_layers, meta, fake, time.perf_counter() - t0
 
 
-def _fake_worker(tasks, results):
-    """A worker process of ``_FakeTraces``: each cell index from
-    ``tasks`` to (index, its ``_fake_trace_cell``, or the error) on
-    ``results``, until None."""
-    for index in iter(tasks.get, None):
-        try:
-            results.put((index, _fake_trace_cell(index)))
-        except Exception as e:            # reported to the main process
-            results.put((index, RuntimeError(f"fake trace: {e!r}")))
-
-
-class _FakeTraces:
-    """DRYRUN_CELLS' analyses on fake CUDA tensors, the ``dryrun`` phase's
-    largest host cost (~100 s, train_4k-xlstm's ~45 of it), from
-    DRYRUN_FAKE_WORKERS spawned worker processes that run beside the main
-    one from the phase's start.  They are stopped (SIGSTOP) while the main
-    process times a step (``paused``), so that they take no host time from
-    it."""
-
-    def __init__(self, workers):
-        import multiprocessing
-        ctx = multiprocessing.get_context("spawn")
-        self.tasks, self.results = ctx.Queue(), ctx.Queue()
-        self.procs = [ctx.Process(target=_fake_worker,
-                                  args=(self.tasks, self.results))
-                      for _ in range(workers)]
-        # train_4k-xlstm's trace, the longest by far, first: the main
-        # process needs it fourth, the first cells' soon after they start
-        first = [i for i, c in enumerate(DRYRUN_CELLS)
-                 if c[0] == "train_4k-xlstm"]
-        for index in first + [i for i in range(len(DRYRUN_CELLS))
-                              if i not in first]:
-            self.tasks.put(index)
-        for _ in self.procs:
-            self.tasks.put(None)
-        for proc in self.procs:
-            proc.start()
-        self.done = {}
-
-    def result(self, index):
-        """(the analysis, seconds) of DRYRUN_CELLS[index]; raises where a
-        worker died without its results."""
-        import queue
-        while index not in self.done:
-            try:
-                i, res = self.results.get(timeout=5)
-            except queue.Empty:
-                dead = [p.exitcode for p in self.procs
-                        if p.exitcode not in (None, 0)]
-                if dead:
-                    raise RuntimeError(f"fake-trace workers died: {dead}")
-                continue
-            self.done[i] = res
-        res = self.done.pop(index)
-        if isinstance(res, Exception):
-            raise res
-        return res
-
-    def _signal(self, sig):
-        import signal
-        for proc in self.procs:
-            if proc.is_alive():
-                os.kill(proc.pid, getattr(signal, sig))
-
-    @contextlib.contextmanager
-    def paused(self):
-        self._signal("SIGSTOP")
-        try:
-            yield
-        finally:
-            self._signal("SIGCONT")
-
-    def close(self):
-        """Join the workers (every result read), or end them."""
-        self._signal("SIGCONT")
-        for proc in self.procs:
-            proc.join(timeout=60)
-            if proc.is_alive():
-                proc.terminate()
-                proc.join()
+def _planted_whole_nbytes(t):
+    """A planted analysis fault (for ``hloanalysis._nbytes``): an operand
+    counted whole, its broadcast (stride-0) dimensions too."""
+    return t.numel() * t.element_size()
 
 
 def _planted_no_lse(torch, fa_ops):
@@ -1902,9 +2023,11 @@ def dryrun_phase(torch, mods):
     logits or loss.  Since slice 17 the cells are the JAX package's
     assigned shapes (DRYRUN_CELLS).  A planted analysis that ignores remat
     must fail the launch gate, one that forgets flash's saved lse and o32
-    the memory gate.  Each cell's analysis on fake CUDA tensors, which
-    must equal the meta device's, comes from worker processes beside this
-    one (``_FakeTraces``, since PR 29)."""
+    the memory gate.  Each cell's analysis on fake CUDA tensors must equal
+    the meta device's at ``fake_depth`` layers (``fake_compare``); a
+    planted ``_nbytes`` that counts a broadcast operand whole must break
+    that equality on FAKE_FAULT_CELL.  Every trace runs before its cell's
+    steps, in this process: nothing runs beside a timed step."""
     import ctypes
 
     from repro_torch.kernels.mlstm import ops as ml_ops
@@ -1920,12 +2043,9 @@ def dryrun_phase(torch, mods):
     card = _sh(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
     rows = []
-    fakes = _FakeTraces(DRYRUN_FAKE_WORKERS)
-    try:
-        for i, cell in enumerate(DRYRUN_CELLS):
-            rows.append(_dryrun_row(torch, mods, i, fakes, card))
-    finally:
-        fakes.close()
+    lap("setup")
+    for cell in DRYRUN_CELLS:
+        rows.append(_dryrun_row(torch, mods, cell, card))
     bad = [r for r in rows if not (r["launches_ok"] and r["mem_ok"]
                                    and r["bound_ok"] and r["finite"]
                                    and r["fake_cuda_equal"])]
@@ -1934,17 +2054,19 @@ def dryrun_phase(torch, mods):
     flash_row = next(r for r in rows if r["cell"] == "flash")
     assert not train_row["fault_no_remat"]["launches_ok"], train_row
     assert not flash_row["fault_no_lse"]["mem_ok"], flash_row
+    fault_row = next(r for r in rows if r["cell"] == FAKE_FAULT_CELL)
+    assert not fault_row["fault_whole_nbytes"]["fake_cuda_equal"], fault_row
     return rows
 
 
-def _dryrun_row(torch, mods, index, fakes, card):
-    """DRYRUN_CELLS[index]'s row of ``dryrun_phase``, printed."""
+def _dryrun_row(torch, mods, cell, card):
+    """DRYRUN_CELLS entry ``cell``'s row of ``dryrun_phase``, printed."""
     from repro_torch.configs.base import SHAPES
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import hloanalysis
     from repro_torch.models import model as model_mod
 
-    cell = DRYRUN_CELLS[index]
     name, arch, shape_name, b, why = cell
     t_cell = time.perf_counter()
     cfg, shape, fn, meta_args, make = dryrun_cell(torch, cell, "cuda")
@@ -1952,6 +2074,7 @@ def _dryrun_row(torch, mods, index, fakes, card):
     t0 = time.perf_counter()
     pred = dryrun_predict(torch, fn, meta_args, kind)
     trace_s = time.perf_counter() - t0
+    lap(f"{name}:meta")
     faults = {}
     if name == "train_4k-llama1b":
         _, _, fn_nr, args_nr, _ = dryrun_cell(torch, cell, "cuda",
@@ -1962,7 +2085,26 @@ def _dryrun_row(torch, mods, index, fakes, card):
         with mock.patch.multiple(fa_ops,
                                  **_planted_no_lse(torch, fa_ops)):
             faults["no_lse"] = dryrun_predict(torch, fn, meta_args, kind)
+    if faults:
+        lap(f"{name}:faults")
     del meta_args
+    fake_layers, meta_cut, fake, fake_trace_s = fake_compare(
+        torch, cell, cfg, kind, meta=pred)
+    same_fake = all(fake[k] == meta_cut[k] for k in FAKE_KEYS)
+    lap(f"{name}:fake")
+    add_part(f"{name}:fake_trace", fake_trace_s)
+    fake_fault = None
+    if name == FAKE_FAULT_CELL:
+        with mock.patch.object(hloanalysis, "_nbytes",
+                               _planted_whole_nbytes):
+            _, f_meta, f_fake, _ = fake_compare(torch, cell, cfg, kind)
+        fake_fault = {
+            "fake_cuda_equal": all(f_fake[k] == f_meta[k]
+                                   for k in FAKE_KEYS),
+            "hbm_bytes_meta": f_meta["hbm_bytes"],
+            "hbm_bytes_fake": f_fake["hbm_bytes"]}
+        del f_meta, f_fake
+        lap(f"{name}:fake_fault")
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1971,30 +2113,30 @@ def _dryrun_row(torch, mods, index, fakes, card):
     args = make()
     torch.cuda.synchronize()
     make_s = time.perf_counter() - t_make
+    lap(f"{name}:make")
     grad = kind in ("train", "flash")
 
     def step():
         with torch.set_grad_enabled(grad):
             return fn(*args)
-    with fakes.paused():
-        t_warm = time.perf_counter()
-        step()                                  # warm
+    t_warm = time.perf_counter()
+    step()                                  # warm
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t_warm
+    steps = DRYRUN_FLASH_STEPS if kind == "flash" else \
+        DRYRUN_STEPS if warm_s < DRYRUN_LONG_S else 1
+    torch.cuda.reset_peak_memory_stats()
+    for mod, attr in mods.values():
+        setattr(mod, attr, 0)
+    times, out = [], None
+    for _ in range(steps):
+        out = None              # the last step's outputs, not held
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = step()
+        ev[1].record()
         torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t_warm
-        steps = DRYRUN_FLASH_STEPS if kind == "flash" else \
-            DRYRUN_STEPS if warm_s < DRYRUN_LONG_S else 1
-        torch.cuda.reset_peak_memory_stats()
-        for mod, attr in mods.values():
-            setattr(mod, attr, 0)
-        times, out = [], None
-        for _ in range(steps):
-            out = None              # the last step's outputs, not held
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            out = step()
-            ev[1].record()
-            torch.cuda.synchronize()
-            times.append(ev[0].elapsed_time(ev[1]))
+        times.append(ev[0].elapsed_time(ev[1]))
     calls = {k: getattr(mod, attr) for k, (mod, attr) in mods.items()}
     peak = torch.cuda.max_memory_allocated() - base
     # the step's logits (prefill, decode), loss (train) or dq (flash)
@@ -2003,10 +2145,7 @@ def _dryrun_row(torch, mods, index, fakes, card):
     del args, out, head
     gc.collect()
     torch.cuda.empty_cache()
-
-    fake, fake_trace_s = fakes.result(index)    # a worker's, meanwhile
-    same_fake = all(fake[k] == pred[k] for k in (
-        "kernels", "flops", "hbm_bytes", "peak_bytes"))
+    lap(f"{name}:steps")
 
     def gates(p):
         want = {k: p["kernels"].get(k, {}).get("calls", 0) * steps
@@ -2046,10 +2185,10 @@ def _dryrun_row(torch, mods, index, fakes, card):
            "trace_s": trace_s, "fake_trace_s": fake_trace_s,
            "make_s": make_s, "warm_s": warm_s,
            "cell_s": time.perf_counter() - t_cell,
-           "fake_cuda_equal": same_fake,
-           "fake_cuda": {k: fake[k] == pred[k] for k in (
-               "kernels", "flops", "hbm_bytes", "peak_bytes")},
+           "fake_cuda_equal": same_fake, "fake_cuda_layers": fake_layers,
+           "fake_cuda": {k: fake[k] == meta_cut[k] for k in FAKE_KEYS},
            "fake_cuda_hbm_bytes": fake["hbm_bytes"],
+           "fake_cuda_meta_hbm_bytes": meta_cut["hbm_bytes"],
            "fake_cuda_flops": fake["flops"],
            "fake_cuda_kernels": fake["kernels"],
            "card": card}
@@ -2061,6 +2200,8 @@ def _dryrun_row(torch, mods, index, fakes, card):
                    mfu=rl["model_flops"] / (p50 * 1e-3 * dr.PEAK_FLOPS),
                    roofline_fraction=rl["roofline_fraction"],
                    bottleneck=rl["bottleneck"])
+    if fake_fault:
+        row["fault_whole_nbytes"] = fake_fault
     for fault, p in faults.items():
         f_launch, f_mem, f_err = gates(p)
         row[f"fault_{fault}"] = {"launches_ok": f_launch, "mem_ok": f_mem,
@@ -2374,6 +2515,7 @@ def long_context_serve(torch, mods):
     assert LONG_CONTROL % window == plen % window
     rows = check_long_kernels(torch, cfg, window, shape.seq_len)
     assert all(r["ok"] for r in rows), rows
+    lap("kernels")
 
     gen = torch.Generator(device="cuda").manual_seed(17)
     with torch.no_grad():
@@ -2383,11 +2525,13 @@ def long_context_serve(torch, mods):
     f32 = serve_vs_forward(torch, f32cfg, params32, LONG_CONTROL, LONG_NEW,
                            window, mods)
     del params32
+    lap("f32_control")
     print(f"long-serve-control {json.dumps(f32)}", flush=True)
     assert f32["tokens_equal"] == LONG_NEW and max(
         f32["last_logits_rel"], f32["prefill_logits_rel"]) <= LONG_F32_TOL, \
         f32
     row = serve_vs_forward(torch, cfg, params, plen, LONG_NEW, window, mods)
+    lap("serve_524k")
     period = cfg.period()
     want = dict.fromkeys(mods, 0)
     want["flash_attention"] = cfg.n_periods() * period.count("shared_attn")
@@ -2452,12 +2596,16 @@ def diffsync_check(torch, cfg):
     batch = {k: v.cuda() for k, v in dp.make_batch(dcfg, 0).items()}
     resid = coll.init_residual_buffer(child["params"], GANG["pods"],
                                       GANG["ranks"] // GANG["pods"])
+    torch.cuda.synchronize()
+    lap("init")
     child, _, _ = _gang_step(torch, cfg, ocfg, GANG["frac"])(child, batch,
                                                               resid)
     del batch, resid
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    lap("step")
     child_fp = _fingerprint(tree_leaves(child))
+    lap("fingerprint")
     pairs = list(zip(tree_leaves_with_path(fork), tree_leaves(child)))
     res = {"leaves": len(pairs), "state_bytes": ds.tree_nbytes(fork),
            "child_fingerprint": child_fp}
@@ -2507,6 +2655,7 @@ def diffsync_check(torch, cfg):
         else:
             for _ in merged_leaves():
                 pass
+        lap(f"merge_{op}")
         per["bound_ms"] = per["bytes"] / HBM_BYTES_PER_S * 1e3
         per["gbytes_per_s"] = per["bytes"] / per["kernel_ms"] * 1e-6
         res[op] = per
@@ -2587,7 +2736,9 @@ def ckpt_check(torch, cfg, state_bytes):
     state_a, base, stats_a, spans_a, wall_a = gang("a", {}, 0)
     full_bytes = stats_a[0]["full_bytes"]
     shutil.rmtree(os.path.join(CKPT_ROOT, "a"))
+    lap("run_a")
     state, failed, stats_b, spans_b, wall_b = gang("b", {3: "chip_smoke"}, 2)
+    lap("run_b")
     states_equal = all(
         bool(torch.equal(x, y)) if isinstance(x, torch.Tensor) else x == y
         for x, y in zip(tree_leaves(state_a), tree_leaves(state)))
@@ -2630,6 +2781,7 @@ def ckpt_check(torch, cfg, state_bytes):
         a == b if isinstance(a, int) else bool(torch.equal(a, b))
         for a, b in zip(tree_leaves(restored), tree_leaves(state)))
     del restored
+    lap("chain")
     chain = {"kinds": [s["kind"] for s in mgr.stats],
              "bytes": [s["bytes"] for s in mgr.stats],
              "full_bytes": mgr.stats[0]["full_bytes"],
@@ -2644,6 +2796,7 @@ def ckpt_check(torch, cfg, state_bytes):
                                           prior=prior)
     del prior
     verified = mig.verify_migration(state, moved)
+    lap("migration")
     migration = {k: mst[k] for k in ("full_bytes", "moved_bytes", "delta",
                                       "seconds")}
     migration["verified"] = verified
@@ -2727,7 +2880,6 @@ def fabric_phase(torch, cfg, mods):
     rolled-back gang's losses are within 1e-6 of an uninterrupted run of
     the same gang.  Then the grow-with-drain step (``grow_drain``).
     Returns the kernel launches of the trace and the step together."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from repro_torch.core import telemetry
@@ -2788,13 +2940,11 @@ def fabric_phase(torch, cfg, mods):
                 for name, (mod, attr) in mods.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     busy_us, by_kind = 0.0, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            busy_us += us
-            kind = next((kind for kind, keys in KERNEL_KINDS
-                         if any(key in e.name for key in keys)), "other")
-            by_kind[kind] = by_kind.get(kind, 0.0) + us * 1e-6
+    for kernel, us in device_events(prof):
+        busy_us += us
+        kind = next((kind for kind, keys in KERNEL_KINDS
+                     if any(key in kernel for key in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us * 1e-6
     res = ex.result
     print("fabric-devices " + json.dumps(
         {"pool": len(fab.devices), "kind": fab.devices[0].device_kind,
@@ -2871,7 +3021,9 @@ def fabric_phase(torch, cfg, mods):
     for name in ("flash_attention", "flash_attention_bwd",
                  "collective_codec", "diff_merge"):
         assert launches[name] > 0, launches
+    lap("run_trace")
     grown = grow_drain(torch, cfg, mods)
+    lap("grow_drain")
     return {name: launches[name] + grown[name] for name in launches}
 
 
@@ -3008,7 +3160,6 @@ def fabric_spot(torch, cfg, mods):
     least one shrink and one regrow, no recovery, no lost work; every
     reshard bit-exact; the gangs launched the flash kernels.  Prints
     ``fabric-spot``; returns the trace's launches."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from repro_torch.core import elastic as elastic_mod
@@ -3047,10 +3198,10 @@ def fabric_spot(torch, cfg, mods):
             tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         ex, pred = risk_aware_wave(virtual_devices(8, "cuda"), factory)
         torch.cuda.synchronize()
+    lap("wave")
     launches = {name: getattr(mod, attr)
                 for name, (mod, attr) in mods.items()}
-    busy_s = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA) * 1e-6
+    busy_s = sum(us for _, us in device_events(prof)) * 1e-6
     res = ex.result
     train = ex.live["train-wide"]
     out = {"card": _sh(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3139,6 +3290,7 @@ def examples_phase(torch, mods):
         out = mod.main(["--device", "cuda"] + args)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        lap(name)
         launches = {k: getattr(m, attr) for k, (m, attr) in mods.items()}
         got = example_outcomes(out, want)
         print("examples " + json.dumps(
@@ -4024,6 +4176,14 @@ SLSTM_ROWS = [(2, 512, "model", False), (1, 4096, "slow", False),
               (1, 1000, "model", True)]
 # the backward's: training's rank batch, train_4k's micro-batch, and a
 # ragged row from a state with the final state's gradients
+# the row whose plain version also runs eagerly: the graphed loop
+# (``ref.slstm_scan_graphed``, every row's plain version) must equal it bit
+# for bit
+SLSTM_EAGER_ROW = (2, 512)
+# on every other row of SLSTM_ROWS at least this long, the graphed loop
+# over the row's first steps must equal the eager loop's bit for bit: the
+# library may pick another einsum kernel at another B
+SLSTM_EAGER_PREFIX = 128
 SLSTM_BWD_ROWS = [(2, 512, "model", False, False),
                   (1, 4096, "slow", False, False),
                   (2, 300, "slow", True, True)]
@@ -4057,14 +4217,11 @@ def _slstm_fault_source(fault):
 
 
 def _slstm_f64(torch, sr, gx, r, bf, st, h):
-    """The plain recurrence in float64 (the witness): h (B,L,d) f64."""
-    r64, bf64 = r.double(), bf.double()
+    """The plain recurrence in float64 (the witness): h (B,L,d) f64, by
+    the graphed blocks of ``ref.slstm_scan_graphed``."""
     s = {k: v.double() for k, v in st.items()}
-    hs = []
-    for t in range(gx.shape[1]):
-        s = sr.slstm_cell(gx[:, t].double(), s, r64, bf64, h)
-        hs.append(s["h"])
-    return torch.stack(hs, dim=1)
+    return sr.slstm_scan_graphed(gx.double(), r.double(), bf.double(), s,
+                                 h)[0]
 
 
 def _slstm_ptxas(name):
@@ -4096,10 +4253,16 @@ def check_slstm(torch, cfg):
     carry over thousands of steps).  h is compared by rows
     (``_close_by_rows``), the final state leaf by leaf, at SLSTM_TOL;
     rows up to SLSTM_WITNESS_MAX_L steps also against an f64 witness.
-    The plain version runs once a row (at L 32768 some tens of seconds).
-    Each row: the kernel's time, per step, its bound and per step, the
-    plain version's time, library none (no PyTorch call computes this
-    recurrence; ``nn.LSTM`` is another function), the grid (``ops.plan``:
+    The plain version runs once a row, graphed (``ref.slstm_scan_graphed``
+    with r in f32, as ``slstm_scan`` widens it: the same kernels in the
+    same order, replayed from a CUDA graph; the eager loop took 13.6-19.6
+    s at L 32768), and on SLSTM_EAGER_ROW also eagerly, which the graphed
+    values must equal bit for bit; on every other row of at least
+    SLSTM_EAGER_PREFIX steps, both loops over its first SLSTM_EAGER_PREFIX
+    steps must be bit-equal too (``plain_eager``).  Each row: the kernel's
+    time, per step, its bound and per step, the plain version's time and
+    how it ran, library none (no PyTorch call computes this recurrence;
+    ``nn.LSTM`` is another function), the grid (``ops.plan``:
     blocks, rows a tile, R's slots, registers and spills), the step-tagged
     exchange's own cost a step at the row's rows a tile (``sl_exchange``
     on the same grid, 4096 steps; the kernel's floor a step) and, beside
@@ -4129,14 +4292,38 @@ def check_slstm(torch, cfg):
         y, fin, _ = so._launch(gx, r, bf, st, keep=False)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        yr, fr = sr.slstm_scan(gx, r, bf, st, h)
+        yr, fr = sr.slstm_scan_graphed(gx, r.float(), bf, st, h)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        add_part("slstm:plain", plain_ms * 1e-3)
+        eager = None
+        if (b, length) == SLSTM_EAGER_ROW:
+            t0 = time.perf_counter()
+            ye, fe = sr.slstm_scan(gx, r, bf, st, h)
+            torch.cuda.synchronize()
+            eager = {"ms": (time.perf_counter() - t0) * 1e3,
+                     "bit_equal": bool(torch.equal(ye, yr)) and all(
+                         torch.equal(fe[k], fr[k]) for k in sr.STATE_KEYS)}
+            add_part("slstm:plain_eager", eager["ms"] * 1e-3)
+            del ye, fe
+        elif length >= SLSTM_EAGER_PREFIX:
+            t0 = time.perf_counter()
+            pre = gx[:, :SLSTM_EAGER_PREFIX]
+            ye, fe = sr.slstm_scan(pre, r, bf, st, h)
+            yg, fg = sr.slstm_scan_graphed(pre, r.float(), bf, st, h)
+            torch.cuda.synchronize()
+            eager = {"steps": SLSTM_EAGER_PREFIX,
+                     "bit_equal": bool(torch.equal(ye, yg)) and all(
+                         torch.equal(fe[k], fg[k]) for k in sr.STATE_KEYS)}
+            add_part("slstm:plain_eager", time.perf_counter() - t0)
+            del ye, fe, yg, fg
         ok_h, err_h = _close_by_rows(torch, y, yr, SLSTM_TOL["h"], 0.0)
         oks, errs = _slstm_state_ok(torch, fin, fr)
         witness = None
         if length <= SLSTM_WITNESS_MAX_L:
+            t0 = time.perf_counter()
             yw = _slstm_f64(torch, sr, gx, r, bf, st, h)
+            add_part("slstm:witness_f64", time.perf_counter() - t0)
             k_w = (y.double() - yw).abs().max().item()
             p_w = (yr.double() - yw).abs().max().item()
             witness = {"kernel_vs_f64": k_w, "plain_vs_f64": p_w,
@@ -4161,14 +4348,16 @@ def check_slstm(torch, cfg):
                 lib, plan["blocks"], plan["jb"], d, plan["bt"], "tag")
         bound_ms, bound_by, flops, nbytes = _slstm_bound(b, length, d, hd, 2)
         ok = ok_h and all(oks.values()) and (witness is None
-                                             or witness["ok"])
+                                             or witness["ok"]) \
+            and (eager is None or eager["bit_equal"])
         row = {"B": b, "L": length, "d": d, "H": h, "hd": hd, "gates": gates,
                "state": with_state, "r_dtype": "bfloat16",
                "max_abs_err": err_h, "state_max_abs_err": errs,
                "ok_h": ok_h, "ok_state": oks, "witness_f64": witness,
                "tol": SLSTM_TOL, "ok": ok, "ms": ms,
                "us_per_step": ms * 1e3 / length, "plain_ms": plain_ms,
-               "plain_runs": 1, "library_ms": None,
+               "plain_runs": 1, "plain_run": "graphed",
+               "plain_eager": eager, "library_ms": None,
                "library": "none: no PyTorch call computes the sLSTM scan",
                "bound_ms": bound_ms, "bound_by": bound_by,
                "bound_us_per_step": bound_ms * 1e3 / length,
@@ -4200,7 +4389,7 @@ def check_slstm(torch, cfg):
     gx, r, bf, st = sr.slstm_inputs(2, 512, d, h, seed=3, gates="slow",
                                     state=True, rdtype=torch.bfloat16,
                                     device="cuda")
-    yr, fr = sr.slstm_scan(gx, r, bf, st, h)
+    yr, fr = sr.slstm_scan_graphed(gx, r.float(), bf, st, h)
     for fault in sorted(sr.FWD_FAULTS):
         flib = _build.load(f"slstm_{fault}_fault",
                            _slstm_fault_source(fault), so._SIG)
@@ -4242,7 +4431,9 @@ def check_slstm_bwd(torch, cfg):
     d, h = cfg.d_model, cfg.n_heads
     hd = d // h
     rows = []
-    for b, length, gates, with_state, final in SLSTM_BWD_ROWS:
+    fault_case = SLSTM_BWD_ROWS[2]      # the planted copy's row
+    for case in SLSTM_BWD_ROWS:
+        b, length, gates, with_state, final = case
         gx, r, bf, st = sr.slstm_inputs(b, length, d, h, seed=length + b + 1,
                                         gates=gates, state=with_state,
                                         rdtype=torch.bfloat16,
@@ -4261,6 +4452,7 @@ def check_slstm_bwd(torch, cfg):
         ref = sr.slstm_grads(gx, r.float(), bf, st, h, dy, dfin)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        add_part("slstm_bwd:plain", plain_ms * 1e-3)
         got = {"dgx": dg, "dbf": dbf, "dr": dr,
                **{f"d{k}": dst[k] for k in ("c", "n", "h", "m")}}
         want = {"dgx": ref["gx"], "dbf": ref["bf"], "dr": ref["r"],
@@ -4289,19 +4481,23 @@ def check_slstm_bwd(torch, cfg):
                "ok": all(oks.values()) and bit_equal, "ms": ms,
                "us_per_step": ms * 1e3 / length, "plain_ms": plain_ms,
                "plain": "autograd of ref.slstm_scan, forward and "
-                        "backward, once", "library_ms": None,
+                        "backward, once", "plain_run": "eager",
+               "library_ms": None,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "bound_us_per_step": bound_ms * 1e3 / length,
                "grid": plan, "gflops": flops / (ms * 1e-3) / 1e9,
                "ptxas": _slstm_ptxas("slstm_bwd")}
         rows.append(row)
         print(f"kernel-check slstm_bwd {json.dumps(row)}", flush=True)
+        if case == fault_case:
+            fault_ref = ref["gx"]
         del gx, r, bf, st, dy, y, fin, hist, dg, dbf, dst, again, ref, dr
         torch.cuda.empty_cache()
     # the planted copy (``ref.BWD_CARRY_FAULT``: dc passed on without its
     # factor fi) on the row from a state with the final state's gradients,
-    # its outputs starting as NaN: dgx must fail
-    b, length, gates, with_state, final = SLSTM_BWD_ROWS[2]
+    # its outputs starting as NaN: dgx must fail against that row's plain
+    # gradient (the same seeded inputs)
+    b, length, gates, with_state, final = fault_case
     gx, r, bf, st = sr.slstm_inputs(b, length, d, h, seed=length + b + 1,
                                     gates=gates, state=with_state,
                                     rdtype=torch.bfloat16, device="cuda")
@@ -4310,7 +4506,6 @@ def check_slstm_bwd(torch, cfg):
     dfin = {k: torch.randn((b, d), generator=gen, device="cuda")
             for k in ("c", "n", "h", "m")}
     _, _, hist = so._launch(gx, r, bf, st, keep=True)
-    ref = sr.slstm_grads(gx, r.float(), bf, st, h, dy, dfin)
     flib = _build.load("slstm_bwd_carry_fault",
                        _slstm_fault_source("carry"), so._BWD_SIG)
     err, dg, _, _ = so.call_bwd(flib, r, bf, st, hist, dy, dfin,
@@ -4318,15 +4513,15 @@ def check_slstm_bwd(torch, cfg):
                                 fill=float("nan"))
     torch.cuda.synchronize()
     assert err == 0, err
-    scale = max(1.0, ref["gx"].abs().max().item())
-    fok = torch.allclose(dg, ref["gx"], atol=1e-4 * scale, rtol=1e-4)
+    scale = max(1.0, fault_ref.abs().max().item())
+    fok = torch.allclose(dg, fault_ref, atol=1e-4 * scale, rtol=1e-4)
     row = {"B": b, "L": length, "gates": gates, "state": with_state,
            "fault": "carry", "fault_ok": fok,
-           "fault_max_abs_err": (dg - ref["gx"]).abs().max().item(),
+           "fault_max_abs_err": (dg - fault_ref).abs().max().item(),
            "ok": not fok}
     rows.append(row)
     print(f"kernel-check slstm_bwd {json.dumps(row)}", flush=True)
-    del gx, r, bf, st, dy, hist, ref, dg
+    del gx, r, bf, st, dy, hist, fault_ref, dg
     torch.cuda.empty_cache()
     so.reset_launches()
     return rows
@@ -4467,12 +4662,17 @@ def families(torch, counters, phase_time):
         with torch.no_grad():
             params = tf.init_params(gen, cfg, device="cuda")
             draw_gates(torch, cfg, params)
+            lap("init")
             warm_up(torch, cfg, params, MAX_LEN, extras=extras)
+            lap("warm_up")
             reqs, launches = serve_family(torch, cfg, params, tag, counters,
                                           reduced=reduced, extras=extras)
+            lap("drive")
             check_prefill(torch, cfg, params, reqs, MAX_LEN,
                           extras_fn=extras[0])
+            lap("check_prefill")
             profile(torch, cfg, params, tag=f"{tag}_", extras=extras)
+            lap("profile")
         for name in total:
             total[name] += launches[name]
         del params
@@ -4757,6 +4957,7 @@ def train_families(torch, counters, phase_time):
         _disk_check(state_bytes)
         dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb)
         step0 = family_grad_check(torch, cfg, dcfg, ranks)
+        lap("grad_check")
         ocfg = AdamWConfig(lr=lr, warmup_steps=steps // 2,
                            total_steps=steps)
         rt = RuntimeConfig(total_steps=steps, checkpoint_every=0,
@@ -4766,6 +4967,7 @@ def train_families(torch, counters, phase_time):
         state = runtime.init_state(seed=0)
         draw_gates(torch, cfg, state["params"])
         torch.cuda.synchronize()
+        lap("init")
         torch.cuda.reset_peak_memory_stats()
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
@@ -4775,6 +4977,7 @@ def train_families(torch, counters, phase_time):
         state, out = runtime.run(state=state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        lap("run")
         launches = {name: getattr(mod, attr)
                     for name, (mod, attr) in counters.items()}
         designs = {name: dict(mod.bwd_design_launches)
@@ -4797,6 +5000,7 @@ def train_families(torch, counters, phase_time):
         predicted = dict.fromkeys(counters, 0)
         predicted.update({k: n * per for k, n in predicted_step_calls(
             cfg, gb // ranks, seq).items()})
+        lap("predicted_calls")
         losses = out["losses"]
         times = [e["time"] for e in out["log"]]
         warm = sorted(times[1:])
@@ -4835,10 +5039,12 @@ def train_families(torch, counters, phase_time):
             profile_phase(torch, "train_step_moe", one_step)
             state = run["state"]
             del batch, run
+            lap("profile")
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         runtime.release()
         del state, runtime
         torch.cuda.empty_cache()
+        lap("release")
         assert all(math.isfinite(x) for x in losses), res
         assert losses[-1] < losses[0], res
         assert launches == expect == predicted, (launches, expect,
@@ -4879,18 +5085,24 @@ def main() -> int:
 
     # 1. environment
     last = [time.perf_counter()]
+    _LAP[0] = last[0]
+    phases = {}
 
     def phase_time(name):
-        """Print the wall time since the last mark (where the script's
-        time limit goes) and the process's host memory once the phase's
-        garbage is collected (the machine's limit is 96 GiB, and a
-        phase's state held in a reference cycle outlives the phase until
-        a full collection)."""
+        """Print the phase's parts (``lap``, ``add_part``), the wall
+        time since the last mark (where the script's time limit goes) and
+        the process's host memory once the phase's garbage is collected
+        (the machine's limit is 96 GiB, and a phase's state held in a
+        reference cycle outlives the phase until a full collection)."""
         now = time.perf_counter()
         gc.collect()
+        for part, secs in _PARTS.items():
+            print(f"phase-part {name} {part} {secs:.2f}", flush=True)
+        _PARTS.clear()
+        phases[name] = now - last[0]
         print(f"phase-time {name} {now - last[0]:.1f}s "
               f"host_rss_gb={_host_rss_gb():.2f}", flush=True)
-        last[0] = time.perf_counter()
+        last[0] = _LAP[0] = time.perf_counter()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4916,23 +5128,38 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.no_grad():
         params = tf.init_params(gen, cfg, device="cuda")
+        lap("init")
         warm_up(torch, cfg, params, MAX_LEN)
+        lap("warm_up")
     phase_time("first-call")
 
     # 3. kernels vs plain versions
     rows = check_kernel(torch, fa_ops, fa_ref, F)
+    lap("flash")
     bwd_rows = check_backward(torch, fa_ops, fa_ref, F)
+    lap("flash_bwd")
     codec_rows = check_codec(torch, co, cr)
+    lap("codec")
     dm_rows = check_diff_merge(torch, dm, dr)
+    lap("diff_merge")
     gmm_rows = check_moe_gmm(torch, get_config("granite-moe-1b-a400m"))
+    lap("moe_gmm_granite")
     gmm_rows += check_moe_gmm(torch, get_config("phi3.5-moe-42b-a6.6b"))
+    lap("moe_gmm_phi")
     gmm_bwd_rows = check_moe_gmm_bwd(torch)
+    lap("moe_gmm_bwd")
     scan_rows = check_mamba_scan(torch, get_config("zamba2-2.7b"))
+    lap("mamba_scan")
     scan_bwd_rows = check_mamba_scan_bwd(torch, get_config("zamba2-2.7b"))
+    lap("mamba_scan_bwd")
     ml_rows = check_mlstm(torch, get_config("xlstm-1.3b"))
+    lap("mlstm")
     ml_bwd_rows = check_mlstm_bwd(torch, get_config("xlstm-1.3b"))
+    lap("mlstm_bwd")
     sl_rows = check_slstm(torch, get_config("xlstm-1.3b"))
+    lap("slstm")
     sl_bwd_rows = check_slstm_bwd(torch, get_config("xlstm-1.3b"))
+    lap("slstm_bwd")
     print(f"kernel-check host_rss_gb={_host_rss_gb():.2f}", flush=True)
     bad = [r for r in rows + bwd_rows + gmm_rows + gmm_bwd_rows + scan_rows
            + scan_bwd_rows + ml_rows + ml_bwd_rows + sl_rows + sl_bwd_rows
@@ -4964,8 +5191,11 @@ def main() -> int:
     # 4. serve full-width llama3.2-1b
     with torch.no_grad():
         reqs, serve_launches = serve(torch, cfg, params, cfg.n_layers)
+        lap("drive")
         check_prefill(torch, cfg, params, reqs, MAX_LEN)
+        lap("check_prefill")
         profile(torch, cfg, params)
+        lap("profile")
     phase_time("serve")
 
     # 5. train full-width llama3.2-1b: checks, then the gang
@@ -5155,6 +5385,7 @@ def main() -> int:
         "launches": fam["slstm"] + tfam["slstm"],
         "max_abs_err": sl_row["max_abs_err"],
         "ms": sl_row["ms"], "plain_ms": sl_row["plain_ms"],
+        "plain_run": sl_row["plain_run"],
         "bound_ms": sl_row["bound_ms"], "bound_by": sl_row["bound_by"],
         "library_ms": None}, {
         # its gradient (JAX differentiates the scan itself)
@@ -5164,8 +5395,17 @@ def main() -> int:
         "launches": tfam["slstm_bwd"],
         "max_abs_err": sl_bwd_row["max_abs_err"],
         "ms": sl_bwd_row["ms"], "plain_ms": sl_bwd_row["plain_ms"],
+        "plain_run": sl_bwd_row["plain_run"],
         "bound_ms": sl_bwd_row["bound_ms"],
         "bound_by": sl_bwd_row["bound_by"], "library_ms": None}]
+    # where the script's time went, against its marks; printed only, so
+    # that a slow host still ends its checks
+    largest = sorted(phases.items(), key=lambda kv: kv[1], reverse=True)[:3]
+    print("budget " + json.dumps({
+        "phases_s": sum(phases.values()),
+        "since_start_s": time.perf_counter() - _START,
+        "phases_mark_s": BUDGET_PHASES_S, "command_mark_s": BUDGET_COMMAND_S,
+        "largest": [{"phase": n, "s": s} for n, s in largest]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

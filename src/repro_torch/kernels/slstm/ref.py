@@ -6,8 +6,9 @@ autograd.
 It is the kernels' oracle and what the wrapper computes for a tensor on
 the CPU.  The loop and the cell are ``models.xlstm``'s as they were
 before the kernels: the same ops in the same order, so the model's CPU
-path is bit-equal to it.  ``slstm_scan`` can also return the per-step
-values the backward kernel reads (``keep=True``): the gate
+path is bit-equal to it; so is ``slstm_scan_graphed``, the same loop
+replayed from a CUDA graph on the card.  ``slstm_scan`` can also return
+the per-step values the backward kernel reads (``keep=True``): the gate
 preactivations g (the input term plus the recurrent one) and the states
 c, n, m after each step.
 """
@@ -100,6 +101,64 @@ def slstm_scan(gx, r, bf, state, n_heads: int, keep: bool = False):
     for key in ("c", "n", "m"):
         hist[key] = torch.stack([s[key] for s in keeps[1::2]], dim=1)
     return y, st, hist
+
+
+GRAPH_BLOCK = 64      # steps a replayed block of ``slstm_scan_graphed`` runs
+
+
+def slstm_scan_graphed(gx, r_w, bf, state, n_heads: int):
+    """The token loop over gx (B,L,4d) from ``state`` with the recurrent
+    weights ``r_w`` as the cell takes them (``r.float()`` for
+    ``slstm_scan``'s values, bit for bit; f64 for a witness) at a
+    fraction of its host time: (h (B,L,d), the final state).  It runs
+    ``GRAPH_BLOCK`` steps at a time over static buffers (the block's gx slice
+    and the state in, its h out).  On a CUDA tensor the block is captured
+    once as a CUDA graph and replayed along the sequence, so each step
+    launches the same kernels in the same order as the eager loop without
+    its host dispatch; on the CPU it runs eagerly.  The steps past the
+    last whole block run as ``slstm_scan`` runs them.  The cell is
+    ``slstm_cell``, unchanged, so the values equal the eager loop's bit
+    for bit."""
+    bs, length, _ = gx.shape
+    st = dict(state)
+    y = torch.empty((bs, length, gx.shape[2] // 4), dtype=gx.dtype,
+                    device=gx.device)
+    block = GRAPH_BLOCK
+    whole = length // block * block
+    if whole:
+        gx_s = gx[:, :block].clone()
+        st_s = {k: st[k].clone() for k in STATE_KEYS}
+        h_s = torch.empty_like(y[:, :block])
+
+        def body():
+            s = st_s
+            for t in range(block):
+                s = slstm_cell(gx_s[:, t], s, r_w, bf, n_heads)
+                h_s[:, t] = s["h"]
+            for k in STATE_KEYS:
+                st_s[k].copy_(s[k])
+        run = body
+        if gx.is_cuda:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                body()              # warm-up (library handles, workspaces)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                body()
+            run = graph.replay
+            for k in STATE_KEYS:    # the warm-up moved the state on
+                st_s[k].copy_(st[k])
+        for t0 in range(0, whole, block):
+            gx_s.copy_(gx[:, t0:t0 + block])
+            run()
+            y[:, t0:t0 + block] = h_s
+        st = {k: st_s[k].clone() for k in STATE_KEYS}
+    for t in range(whole, length):
+        st = slstm_cell(gx[:, t], st, r_w, bf, n_heads)
+        y[:, t] = st["h"]
+    return y, st
 
 
 def slstm_grads(gx, r, bf, state, n_heads: int, dy, dstate=None):
